@@ -1,0 +1,574 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's main path on one NVIDIA GPU and check it.
+
+    python3 chip_smoke.py
+
+builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (first use),
+holds every kernel against its plain PyTorch version on the card, then runs
+the slice end to end — ``matpow_binary(a, 96, backend="cuda_chain")`` at
+n = 4096 and in every squaring tier, the other matpow entry points, the
+stacked chain and ``expm`` — against float64 references. Each phase prints
+one JSON line; any failure raises and the script exits non-zero without the
+final ``"ok": true`` line. It needs a CUDA device and ``nvcc``; it imports
+``repro_torch`` only (never ``jax`` or the reference package).
+
+Kernel timings are CUDA-event medians over replays of a CUDA graph of
+back-to-back calls (device time, without the host's per-call work); request
+timings are host-clock medians ending in a synchronise. ``bound_ms`` is the
+least time the card could take: max(operations / peak rate, bytes / memory rate), with
+the H100 SXM data-sheet rates below.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+
+import repro_torch  # noqa: E402
+from repro_torch import convert  # noqa: E402
+from repro_torch.core import (batched_expm, batched_matpow, expm,  # noqa: E402
+                              matpow_binary, matpow_binary_traced,
+                              matpow_naive)
+from repro_torch.kernels import _build, error_budget, ops  # noqa: E402
+from repro_torch.kernels import matmul_kernels as K  # noqa: E402
+
+# NVIDIA H100 SXM data sheet, dense rates: tensor-core bf16/fp16; fp32 and
+# fp64 outside the tensor cores (the kernels' exact-IEEE FMA pipeline).
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
+              torch.float32: 67e12, torch.float64: 34e12}
+PEAK_BYTES = 3.35e12
+
+KERNEL_SOURCE = "src/repro_torch/kernels/csrc/gemm.cuh"
+REPLACES = {"matmul": "src/repro/kernels/matmul.py:111",
+            "square_whole": "src/repro/kernels/matmul.py:275",
+            "square_panel": "src/repro/kernels/matmul.py:287"}
+DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.float64)
+POWER = 96          # 6 squarings + 1 combine
+MULTS = 7
+WRONG_POWER = 64    # what a chain that lost its combine would return
+
+# Kernel against plain version: both accumulate in fp32 (fp64 for fp64) and
+# round once to the output type, so they may differ by the summation order
+# and by one unit in the last place of the output — 2^-8 of an entry in
+# bf16, 2^-10 in f16. The limit is on the largest error over the largest
+# entry of the plain result (the operands are zero-mean, so small entries are
+# sums that cancelled and carry the error of the large ones).
+KERNEL_RTOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2,
+               torch.float16: 2e-3, torch.float64: 1e-12}
+
+
+def emit(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def time_ms(fn, *, reps: int = 5) -> float:
+    """Median device time of one ``fn()`` in milliseconds.
+
+    ``fn`` is captured into a CUDA graph — a run of back-to-back calls — and
+    each sample times one replay with two events and divides by the count,
+    so the host's work per call (shape checks, the ctypes call, allocator)
+    is outside the measurement: at small shapes it is several times the
+    kernel. The run is sized from a first replay to last about 2 ms (1 to
+    50 calls). The 50 MB L2 is not flushed between calls: inside a chain the
+    operand of every multiply was written by the one before.
+    """
+    fn()                                  # build / warm up outside capture
+    torch.cuda.synchronize()
+
+    def capture(count):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(count):
+                fn()
+        return graph
+
+    def sample(graph, count):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        graph.replay()
+        stop.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(stop) / count
+
+    one = capture(1)
+    sample(one, 1)
+    count = max(1, min(50, int(2.0 / max(sample(one, 1), 1e-3))))
+    graph = capture(count) if count > 1 else one
+    return statistics.median(sample(graph, count) for _ in range(reps))
+
+
+def wall_ms(fn) -> float:
+    """Median host-clock time of one ``fn()`` ending in a synchronise, over
+    3 to 51 calls (about 30 ms of them: short requests vary with the host)."""
+    def once():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    reps = max(3, min(51, int(30.0 / max(once(), 1e-3))))
+    return statistics.median(once() for _ in range(reps))
+
+
+def bound(flops: float, nbytes: float, dtype) -> tuple:
+    t_ops = flops / PEAK_FLOPS[dtype]
+    t_bytes = nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def errors(got, want) -> tuple:
+    """(max abs error, max abs error over the reference's largest entry)."""
+    diff = (got.double() - want.double()).abs().max().item()
+    peak = want.double().abs().max().item()
+    return diff, diff / max(peak, 1e-300)
+
+
+def check_close(got, want, dtype, *, n, mults=1, what) -> tuple:
+    """Hold ``got`` to ``want`` under ``error_budget(dtype, n, mults)``,
+    elementwise, and — because the budget's absolute floor is loose for
+    small-valued results — also hold the peak-relative error to its rtol."""
+    rtol, atol = error_budget(dtype, n=n, mults=mults)
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{what}: non-finite values in the result")
+    if got.shape != want.shape:
+        raise AssertionError(f"{what}: shape {tuple(got.shape)} != "
+                             f"{tuple(want.shape)}")
+    abs_err, rel_peak = errors(got, want)
+    ok = torch.allclose(got.double(), want.double(), rtol=rtol, atol=atol)
+    floor_rtol = error_budget(dtype)[0]
+    if not ok or rel_peak > floor_rtol:
+        raise AssertionError(
+            f"{what}: max_abs_err={abs_err:.3e} rel_to_peak={rel_peak:.3e} "
+            f"outside rtol={rtol:.3e} atol={atol:.3e} "
+            f"(peak-relative limit {floor_rtol:.3e})")
+    return abs_err, rel_peak, rtol, atol
+
+
+def check_kernel(got, want, dtype, *, what) -> tuple:
+    """Hold a kernel's result to its plain version's under ``KERNEL_RTOL``,
+    relative to the plain result's largest entry."""
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{what}: non-finite values in the result")
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{what}: {tuple(got.shape)} {got.dtype} != "
+                             f"{tuple(want.shape)} {want.dtype}")
+    abs_err, rel_peak = errors(got, want)
+    if rel_peak > KERNEL_RTOL[dtype]:
+        raise AssertionError(
+            f"{what}: max_abs_err={abs_err:.3e} is {rel_peak:.3e} of the "
+            f"largest entry, limit {KERNEL_RTOL[dtype]:.1e}")
+    return abs_err, rel_peak
+
+
+def randn(shape, dtype, seed, scale=None):
+    """Zero-mean normal operand from a numpy seed; the default scale
+    K^-1/4 (K the last dim) keeps a product of two of them at O(1)."""
+    rng = np.random.default_rng(seed)
+    if scale is None:
+        scale = shape[-1] ** -0.25
+    return convert.from_reference(
+        rng.standard_normal(shape, dtype=np.float32) * np.float32(scale),
+        dtype=dtype)
+
+
+def power_operand(n, dtype, seed, batch=None, eps=1.0 / 32):
+    """Row-stochastic matrix whose powers stay bounded and distinct:
+    ``(1 - eps) * P + eps * S``, P the permutation matrix of one random
+    n-cycle, S dense random row-stochastic, from a numpy seed.
+
+    Every power is row-stochastic, so A^96 neither overflows nor underflows.
+    A dense random S alone would not do: its second eigenvalue is near
+    1/sqrt(n), S^4 equals S^96 to rounding, and a chain that squared too few
+    times would pass. Here row i of A^p peaks at about (1 - eps)^p where
+    P^p sends i, so a wrong exponent moves the peak's place and its size.
+    """
+    rng = np.random.default_rng(seed)
+    count = 1 if batch is None else batch
+    out = np.empty((count, n, n), np.float32)
+    for m in out:
+        s = rng.random((n, n), dtype=np.float32) + np.float32(0.05)
+        m[:] = np.float32(eps) * s / s.sum(axis=-1, keepdims=True)
+        cycle = rng.permutation(n)
+        m[cycle, np.roll(cycle, -1)] += np.float32(1.0 - eps)
+    return convert.from_reference(out[0] if batch is None else out,
+                                  dtype=dtype)
+
+
+def f64_power(a, p, *, what):
+    """A^p in float64 on the card, after showing that the check can see the
+    exponent: A^p must differ from A^q, q the power one lost combine or
+    one lost multiply away, by at least half its own largest entry (the
+    loosest tolerance below is 0.15 of it)."""
+    a64 = a.double()
+    want = torch.linalg.matrix_power(a64, p)
+    if p == 0:
+        return want
+    q = WRONG_POWER if p == POWER else p - 1
+    _, rel = errors(torch.linalg.matrix_power(a64, q), want)
+    if rel < 0.5:
+        raise AssertionError(f"{what}: A^{q} is within {rel:.3e} of A^{p}: "
+                             f"the operand hides the exponent")
+    return want
+
+
+# ---------------------------------------------------------------------------
+# Phases
+# ---------------------------------------------------------------------------
+
+def phase_device() -> str:
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    emit("device", kind=name, count=torch.cuda.device_count(),
+         nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
+         matmul_settings=repro_torch.exact_matmul_settings(),
+         float32_matmul_precision=torch.get_float32_matmul_precision())
+    return smi
+
+
+def phase_build() -> None:
+    t0 = time.perf_counter()
+    _build.load()
+    emit("build", seconds=round(time.perf_counter() - t0, 2),
+         sources=[str(p.name) for p in _build.sources()],
+         flags=list(_build.NVCC_FLAGS))
+
+
+def kernel_case(name, dtype, operands, blocks, *, timed, rows, **limits):
+    """Run one kernel wrapper and its plain version on the same CUDA
+    tensors, compare, optionally time; append a row. ``limits`` moves the
+    squaring-tier limits (to force the panel kernel on a small operand)."""
+    bm, bn, bk = blocks
+    kw = dict(block_m=bm, block_n=bn, block_k=bk, **limits)
+    if name == "matmul":
+        a, b = operands
+        run = lambda: K.matmul_cuda(a, b, **kw)
+        plain = lambda: K.matmul_plain(a, b, **kw)
+        library = lambda: torch.matmul(a, b)
+        m, k, n = a.shape[-2], a.shape[-1], b.shape[-1]
+        batch = a.shape[0] if a.ndim == 3 else (
+            b.shape[0] if b.ndim == 3 else 1)
+        nbytes = (a.numel() + b.numel() + batch * m * n) * a.element_size()
+        shape = f"{tuple(a.shape)}@{tuple(b.shape)}"
+    else:
+        (a,) = operands
+        run = lambda: K.square_cuda(a, **kw)
+        plain = lambda: K.square_plain(a, **kw)
+        library = lambda: torch.matmul(a, a)
+        m = k = n = a.shape[-1]
+        batch = a.shape[0] if a.ndim == 3 else 1
+        nbytes = 2 * a.numel() * a.element_size()
+        shape = f"{tuple(a.shape)}^2"
+    before = K.launch_counts()
+    got = run()
+    torch.cuda.synchronize()
+    after = K.launch_counts()
+    if after[name] != before[name] + 1:
+        raise AssertionError(f"{name} {shape} {dtype}: expected one launch "
+                             f"of {name}, counters went {before} -> {after}")
+    want = plain()
+    abs_err, rel_peak = check_kernel(
+        got, want, dtype, what=f"kernel {name} {shape} {dtype}")
+    row = {"name": name, "dtype": str(dtype).removeprefix("torch."),
+           "shape": shape, "blocks": list(blocks), "max_abs_err": abs_err,
+           "rel_to_peak": rel_peak, "rel_to_peak_limit": KERNEL_RTOL[dtype]}
+    if timed:
+        b_ms, b_by = bound(2.0 * batch * m * n * k, nbytes, dtype)
+        row.update(ms=time_ms(run), plain_ms=time_ms(plain),
+                   library_ms=time_ms(library), bound_ms=b_ms, bound_by=b_by)
+        if name != "matmul":
+            # the same squaring through the two-operand kernel, to show what
+            # the tier buys (or costs) at this shape
+            row["two_operand_ms"] = time_ms(
+                lambda: K.matmul_cuda(a, a, block_m=bm, block_n=bn,
+                                      block_k=bk))
+    rows.append(row)
+    return row
+
+
+def phase_kernels() -> dict:
+    """K1, K2, K3 — 2-D and stacked — against their plain versions on the
+    card, for f32, bf16, f16 and f64; timed at the main path's shapes."""
+    rows = []
+    for dtype in DTYPES:
+        for tile, bk in ((32, 8), (64, 16), (128, 16)):
+            blocks = (tile, tile, bk)
+            a = randn((256, 384), dtype, 1)
+            b = randn((384, 128), dtype, 2, 384 ** -0.25)
+            kernel_case("matmul", dtype, (a, b), blocks, timed=False,
+                        rows=rows)
+        a3 = randn((3, 256, 384), dtype, 3)
+        b3 = randn((3, 384, 128), dtype, 4, 384 ** -0.25)
+        kernel_case("matmul", dtype, (a3, b3), (64, 64, 16), timed=False,
+                    rows=rows)
+        kernel_case("matmul", dtype, (a3, b), (64, 64, 16), timed=False,
+                    rows=rows)
+        kernel_case("matmul", dtype, (a, b3), (64, 64, 16), timed=False,
+                    rows=rows)
+        # whole-operand tier: the operand must fit a block's shared memory
+        p_whole = 128 if dtype == torch.float64 else 192
+        for tile in (32, 64):
+            kernel_case("square_whole", dtype,
+                        (randn((p_whole, p_whole), dtype, 5),),
+                        (tile, tile, 16), timed=False, rows=rows)
+        kernel_case("square_whole", dtype,
+                    (randn((32, 128, 128), dtype, 6),),
+                    (64, 64, 16), timed=False, rows=rows)
+        # panel tier
+        p_panel = 256 if dtype == torch.float64 else 512
+        for tile in (32, 64):
+            kernel_case("square_panel", dtype,
+                        (randn((p_panel, p_panel), dtype, 7),),
+                        (tile, tile, 16), timed=False, rows=rows,
+                        smem_limit=0)
+        kernel_case("square_panel", dtype,
+                    (randn((64, 256, 256), dtype, 8),),
+                    (64, 64, 16), timed=False, rows=rows, smem_limit=0)
+
+    # The main path's own shapes, timed: the n = 4096 chain runs K1 for its
+    # squarings and its combine; n = 192 squares in K2, n = 512 in K3. The
+    # operands are zero-mean here too, so a dropped K step, a transposed
+    # product or a misplaced tile moves entries by their own size.
+    timed = {}
+    for dtype in (torch.float32, torch.bfloat16, torch.float64):
+        a = randn((4096, 4096), dtype, 10)
+        b = randn((4096, 4096), dtype, 11)
+        blocks, _ = ops._square_blocks(4096, dtype)
+        row = kernel_case("matmul", dtype, (a, b), blocks, timed=True,
+                          rows=rows)
+        timed.setdefault("matmul", row)
+        if dtype == torch.float32:
+            # the same product at half the K step: what the default buys
+            kernel_case("matmul", dtype, (a, b),
+                        (blocks[0], blocks[1], blocks[2] // 2), timed=True,
+                        rows=rows)
+        del a, b
+    for name, n in (("square_whole", 192), ("square_panel", 512)):
+        for dtype in (torch.float32, torch.bfloat16):
+            a = randn((n, n), dtype, 12)
+            blocks, padded = ops._square_blocks(n, dtype)
+            assert padded == n
+            row = kernel_case(name, dtype, (a,), blocks, timed=True, rows=rows)
+            timed.setdefault(name, row)
+    # One more timed point each for the stacked shapes of phase 6.
+    kernel_case("square_panel", torch.float32,
+                (randn((64, 256, 256), torch.float32, 13),),
+                ops._square_blocks(256, torch.float32)[0], timed=True,
+                rows=rows)
+    kernel_case("square_whole", torch.float32,
+                (randn((32, 128, 128), torch.float32, 14),),
+                ops._square_blocks(128, torch.float32)[0], timed=True,
+                rows=rows)
+    emit("kernels", kernels=sorted(timed), cases=len(rows), rows=rows)
+    return timed
+
+
+def matpow_case(n, dtype, expect_tier, seed):
+    """One main-path request: A^96 through the fused chain, checked against
+    the float64 power and the ``"torch"`` route, launches counted."""
+    what = f"matpow_binary(n={n}, {dtype}, p={POWER}, cuda_chain)"
+    a = power_operand(n, dtype, seed)
+    keep = a.clone()
+    want = f64_power(a, POWER, what=what)
+
+    before = K.launch_counts()
+    got = matpow_binary(a, POWER, backend="cuda_chain")
+    torch.cuda.synchronize()
+    after = K.launch_counts()
+    delta = {k: after[k] - before[k] for k in after}
+    expected = {k: 0 for k in after}
+    if expect_tier == "two_operand":
+        expected["matmul"] = 7
+    else:
+        expected["square_" + expect_tier] = 6
+        expected["matmul"] = 1
+    if delta != expected:
+        raise AssertionError(f"matpow n={n} {dtype}: launches {delta}, "
+                             f"expected {expected}")
+    if not torch.equal(a, keep):
+        raise AssertionError(f"matpow n={n} {dtype}: caller's operand "
+                             f"was written")
+    abs_err, rel_peak, rtol, atol = check_close(
+        got, want, dtype, n=n, mults=MULTS,
+        what=what + " vs float64")
+    via_torch = matpow_binary(a, POWER, backend="torch")
+    t_abs, t_rel, _, _ = check_close(got, via_torch, dtype, n=n, mults=MULTS,
+                                     what=what + " vs torch route")
+    del want, via_torch
+    chain_ms = wall_ms(lambda: matpow_binary(a, POWER, backend="cuda_chain"))
+    torch_ms = wall_ms(lambda: matpow_binary(a, POWER, backend="torch"))
+    return {"n": n, "dtype": str(dtype).removeprefix("torch."),
+            "tier": expect_tier, "launches": delta,
+            "max_abs_err_vs_f64": abs_err, "rel_to_peak_vs_f64": rel_peak,
+            "max_abs_err_vs_torch": t_abs, "rtol": rtol, "atol": atol,
+            "rel_to_peak_limit": error_budget(dtype)[0],
+            "cuda_chain_ms": chain_ms, "torch_ms": torch_ms}
+
+
+def phase_matpow() -> tuple:
+    """The slice itself at full width. Counters are zeroed just before and
+    read just after; every kernel must have been launched."""
+    K.reset_launches()
+    rows = [
+        matpow_case(4096, torch.float32, "two_operand", 20),
+        matpow_case(4096, torch.bfloat16, "two_operand", 21),
+        matpow_case(3000, torch.float32, "two_operand", 22),
+        matpow_case(192, torch.float32, "whole", 23),
+        matpow_case(512, torch.float32, "panel", 24),
+        matpow_case(1024, torch.bfloat16, "panel", 25),
+        matpow_case(256, torch.bfloat16, "whole", 26),
+    ]
+    counts = K.launch_counts()
+    for name in ("matmul", "square_whole", "square_panel"):
+        if counts[name] < 1:
+            raise AssertionError(f"main path never launched {name}: {counts}")
+    plain = {k: v for k, v in counts.items() if k.startswith("plain_")}
+    if any(plain.values()):
+        raise AssertionError(f"main path took the plain route: {plain}")
+    emit("matpow", power=POWER, launches=counts, rows=rows)
+    return counts, rows
+
+
+def phase_entry_points() -> None:
+    n = 512
+    a = power_operand(n, torch.float32, 30)
+    out = {}
+    for backend in ("cuda", "cuda_chain"):
+        got = matpow_naive(a, 5, backend=backend)
+        out[f"naive_{backend}"] = check_close(
+            got, f64_power(a, 5, what="matpow_naive"), torch.float32, n=n,
+            mults=4, what=f"matpow_naive {backend}")[0]
+    for p in (0, 1, 13, 96):
+        want = f64_power(a, p, what=f"matpow_binary_traced p={p}")
+        mults = max(p.bit_length() - 1, 0) + max(bin(p).count("1") - 1, 0)
+        for backend in ("cuda", "cuda_chain"):
+            before = K.launch_counts()
+            got = matpow_binary_traced(
+                a, torch.tensor(p, device="cuda", dtype=torch.int32),
+                backend=backend)
+            torch.cuda.synchronize()
+            after = K.launch_counts()
+            launched = sum(after[k] - before[k] for k in
+                           ("matmul", "square_whole", "square_panel"))
+            if launched != mults:
+                raise AssertionError(f"traced p={p} {backend}: {launched} "
+                                     f"launches, expected {mults}")
+            out[f"traced_{backend}_p{p}"] = check_close(
+                got, want, torch.float32, n=n, mults=max(mults, 1),
+                what=f"matpow_binary_traced p={p} {backend}")[0]
+    if not torch.equal(matpow_binary_traced(a, -3, backend="cuda_chain"),
+                       torch.eye(n, device="cuda")):
+        raise AssertionError("negative traced power must give the identity")
+    per_call = wall_ms(lambda: matpow_binary(a, POWER, backend="cuda"))
+    chain = wall_ms(lambda: matpow_binary(a, POWER, backend="cuda_chain"))
+    emit("matpow_entry_points", n=n, max_abs_err=out,
+         per_call_cuda_ms=per_call, cuda_chain_ms=chain)
+
+
+def phase_batched() -> None:
+    stack = power_operand(256, torch.float32, 40, batch=64)
+    keep = stack.clone()
+    before = K.launch_counts()
+    got = batched_matpow(stack, 7, backend="cuda_chain")
+    torch.cuda.synchronize()
+    after = K.launch_counts()
+    delta = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    # p = 7: two stacked squarings, two stacked combines, one launch each.
+    if delta != {"square_panel": 2, "matmul": 2}:
+        raise AssertionError(f"batched_matpow launches {delta}")
+    if not torch.equal(stack, keep):
+        raise AssertionError("batched_matpow wrote the caller's stack")
+    pow_err = check_close(got, f64_power(stack, 7, what="batched_matpow"),
+                          torch.float32, n=256, mults=4,
+                          what="batched_matpow (64,256,256) p=7")[0]
+    pow_ms = wall_ms(lambda: batched_matpow(stack, 7, backend="cuda_chain"))
+    pow_torch_ms = wall_ms(lambda: batched_matpow(stack, 7, backend="torch"))
+
+    rng = np.random.default_rng(41)
+    mats = rng.standard_normal((32, 128, 128)) * 0.3
+    mats[0] = 60.0 * np.eye(128)
+    mats[1] = 100.0 * np.eye(128)
+    x = convert.from_reference(mats, dtype=torch.float32)
+    before = K.launch_counts()
+    got = batched_expm(x, backend="cuda_chain")
+    torch.cuda.synchronize()
+    after = K.launch_counts()
+    squarings = after["square_whole"] - before["square_whole"]
+    # s of the stack's largest member, 100 * I: ceil(log2(100 / theta13))
+    if squarings != 5 or after["matmul"] != before["matmul"]:
+        raise AssertionError(f"batched_expm: {squarings} stacked squarings "
+                             f"(expected 5), counters {before} -> {after}")
+    via_torch = batched_expm(x, backend="torch")
+    want = torch.linalg.matrix_exp(x.double())
+    small = got[0]
+    if not torch.isfinite(small).all():
+        raise AssertionError("expm: the early-finishing 60*I member is not "
+                             "finite")
+    e60 = float(np.exp(np.float32(60.0)))
+    if not torch.allclose(torch.diagonal(small),
+                          torch.full((128,), e60, device="cuda"), rtol=1e-5):
+        raise AssertionError("expm: the 60*I member lost its value")
+    if torch.isnan(got[1]).any():
+        raise AssertionError("expm: overflow of the 100*I member must be "
+                             "inf, never NaN")
+    if not torch.equal(torch.isnan(got), torch.isnan(via_torch)):
+        raise AssertionError("expm: NaN where the torch route has none")
+    exp_err = check_close(got[2:], want[2:], torch.float32, n=128, mults=8,
+                          what="batched_expm (32,128,128)")[0]
+    solo = expm(x[0], backend="cuda_chain")
+    if not torch.equal(solo, got[0]):
+        raise AssertionError("expm: batching perturbed the 60*I member")
+    emit("batched", matpow_max_abs_err=pow_err, matpow_launches=delta,
+         matpow_cuda_chain_ms=pow_ms, matpow_torch_ms=pow_torch_ms,
+         expm_max_abs_err=exp_err, expm_stacked_squarings=squarings)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke.py needs a CUDA device: torch.cuda.is_available() "
+              "is False", file=sys.stderr)
+        return 1
+    t0 = time.perf_counter()
+    smi = phase_device()
+    phase_build()
+    timed = phase_kernels()
+    counts, _ = phase_matpow()
+    phase_entry_points()
+    phase_batched()
+    torch.cuda.synchronize()
+
+    kernels = []
+    for name in ("matmul", "square_whole", "square_panel"):
+        row = timed[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": KERNEL_SOURCE,
+            "replaces": REPLACES[name], "launches": counts[name],
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "shape": row["shape"], "dtype": row["dtype"]})
+    emit("done", seconds=round(time.perf_counter() - t0, 1))
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

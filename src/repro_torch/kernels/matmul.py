@@ -1,0 +1,458 @@
+"""Tiled matmul and the tiered squaring kernels — wrappers, plain versions,
+tier policy and launch counters.
+
+The port of the reference's ``repro/kernels/matmul.py``. Three hand-written
+CUDA kernels (``csrc/gemm.cuh``) stand where its three Pallas kernels stood:
+
+  ``matmul_cuda``            K1, replaces ``matmul_pallas`` / ``matmul_kernel``
+  ``square_cuda`` "whole"    K2, replaces ``square_pallas`` / ``square_kernel``
+  ``square_cuda`` "panel"    K3, replaces ``square_pallas`` /
+                             ``square_panel_kernel``
+
+and the stacked ``(B, ., .)`` form of each is the same kernel with the stack
+on a grid axis — one launch for the stack (the reference's ``jax.vmap``).
+
+All three are bound by operations, not bytes, at the sizes the chain uses;
+``csrc/gemm.cuh`` says what the design does about it. What each squaring
+tier keeps out of device memory: "whole" stages A once per block and takes
+both panels of every output tile from that copy (no second read of A);
+"panel" stages a ``(block_m, P)`` row panel once per block and loops over
+the column tiles inside the block (no re-read of the row panel per output
+tile).
+
+Each wrapper computes on the device its operand lies on: a CUDA tensor goes
+to the kernel (or raises — nothing falls back when a build or a launch
+fails), a CPU tensor goes to the plain PyTorch version beside it
+(``matmul_plain`` / ``square_plain``), which runs the same checks and the
+same tier selection. ``LAUNCHES`` counts both routes so a run can show which
+way it went.
+
+Shapes must be block-divisible here — ``ops.matmul`` / ``ops.square`` / the
+chain executors pad arbitrary shapes.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch import accum_dtype, dtype_name
+from repro_torch.kernels import _build
+from repro_torch.kernels import ref as _ref
+
+__all__ = ["matmul_cuda", "matmul_plain", "square_cuda", "square_plain",
+           "square_tier", "panel_smem_footprint", "smem_footprint",
+           "DEFAULT_BLOCK", "KERNEL_TILES", "SMEM_PER_BLOCK", "L2_BYTES",
+           "SM_COUNT",
+           "SQUARE_SMEM_LIMIT", "SQUARE_PANEL_LIMIT", "LAUNCHES",
+           "reset_launches", "launch_counts"]
+
+#: Dynamic shared memory one block may use on Hopper (227 KB, opt-in).
+SMEM_PER_BLOCK = 232_448
+#: L2 cache of the H100.
+L2_BYTES = 50_000_000
+#: Streaming multiprocessors of the H100 (and H200): how many blocks it
+#: takes to give every SM one.
+SM_COUNT = 132
+#: Shared-memory row padding of the staged tiles, in elements (gemm.cuh).
+SMEM_PAD = 4
+#: Square output tiles the kernels are instantiated for.
+KERNEL_TILES = (32, 64, 128)
+
+# Default tile: 128 x 128 output tile per 256-thread block (an 8 x 8
+# register micro-tile per thread, 64 FMAs for four 16-byte shared loads),
+# K step 32. Staged operand tiles at fp32: 2 * 32 * 132 * 4 = 33 KB, so
+# several blocks share an SM. ``ops.pick_blocks`` drops to 64 / 32 tiles for
+# problems too small to fill the SMs with 128s.
+DEFAULT_BLOCK = (128, 128, 32)
+
+# "whole" tier: the operand itself (in its storage dtype) is the block's
+# dynamic shared memory, so the limit IS the per-block shared memory:
+# P <= 224 at 4 bytes, P <= 320 at 2 bytes for tile-divisible P.
+SQUARE_SMEM_LIMIT = SMEM_PER_BLOCK
+
+# "panel" tier: every block row streams the whole column panel again, so the
+# tier pays off only while those re-reads hit L2. Operand and result both
+# resident in the 50 MB L2 -> operand <= 25 MB. (Whether the (block_m, P)
+# row panel also fits shared memory depends on the tile and is decided per
+# call by ``panel_smem_footprint``; when it does not, the call is demoted to
+# the two-operand kernel.)
+SQUARE_PANEL_LIMIT = L2_BYTES // 2
+
+#: Launches per kernel since the last ``reset_launches()``. The kernel
+#: wrappers add one where they launch (``matmul``, ``square_whole``,
+#: ``square_panel``); the plain versions add one under ``plain_<name>``.
+LAUNCHES = {"matmul": 0, "square_whole": 0, "square_panel": 0,
+            "plain_matmul": 0, "plain_square_whole": 0,
+            "plain_square_panel": 0}
+
+
+def reset_launches() -> None:
+    """Set every launch counter to 0."""
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+
+
+def launch_counts() -> dict:
+    """A snapshot of the launch counters."""
+    return dict(LAUNCHES)
+
+
+# ---------------------------------------------------------------------------
+# Footprints and the tier policy
+# ---------------------------------------------------------------------------
+
+def _acc_itemsize(itemsize: int) -> int:
+    return 8 if itemsize == 8 else 4
+
+
+def smem_footprint(blocks, itemsize: int = 4) -> int:
+    """Shared-memory bytes of one K1 block: the transposed A tile and the B
+    tile of one K step, held at the accumulation width."""
+    bm, bn, bk = blocks
+    return bk * (bm + SMEM_PAD + bn + SMEM_PAD) * _acc_itemsize(itemsize)
+
+
+def panel_smem_footprint(p: int, block_m: int, block_n: int,
+                         itemsize: int = 4,
+                         block_k: int = DEFAULT_BLOCK[2]) -> int:
+    """Shared-memory bytes of one panel-tier block: the ``(block_m, P)`` row
+    panel in the storage dtype plus the staging tile of the streamed column
+    panel. The panel tier is usable only when this fits ``SMEM_PER_BLOCK`` —
+    ``square_cuda`` demotes to the two-operand kernel otherwise."""
+    return (block_m * p * itemsize
+            + block_k * (block_n + SMEM_PAD) * _acc_itemsize(itemsize))
+
+
+def square_tier(operand_bytes: int, smem_limit: int = SQUARE_SMEM_LIMIT,
+                panel_limit: int = SQUARE_PANEL_LIMIT) -> str:
+    """Memory-tier policy for C = A @ A: which kernel serves this operand.
+
+    ``"whole"``       — A fits ``smem_limit``: every block stages the entire
+                        operand once for both sides of the product (K2).
+    ``"panel"``       — A fits ``panel_limit``: a row panel is staged once
+                        per block, the column panel streams through L2 (K3).
+    ``"two_operand"`` — tiles of A stream twice through the matmul kernel
+                        (K1).
+
+    Boundaries are inclusive: an operand exactly at a limit takes the more
+    resident tier.
+    """
+    if operand_bytes <= smem_limit:
+        return "whole"
+    if operand_bytes <= panel_limit:
+        return "panel"
+    return "two_operand"
+
+
+def _resolve_tier(p, itemsize, block_m, block_n, block_k, smem_limit,
+                  panel_limit) -> str:
+    tier = square_tier(p * p * itemsize, smem_limit, panel_limit)
+    if tier == "panel" and panel_smem_footprint(
+            p, block_m, block_n, itemsize, block_k) > SMEM_PER_BLOCK:
+        # The operand qualifies by size but these tiles make the row panel
+        # itself bust shared memory — stream through the two-operand kernel.
+        tier = "two_operand"
+    return tier
+
+
+# ---------------------------------------------------------------------------
+# Shape contracts (shared by the kernel route and the plain route)
+# ---------------------------------------------------------------------------
+
+def _check_matmul(a, b, block_m, block_n, block_k):
+    """Validate ``a @ b``; returns (batch or None, m, k, n)."""
+    if (a.ndim not in (2, 3) or b.ndim not in (2, 3)
+            or a.shape[-1] != b.shape[-2]
+            or (a.ndim == 3 and b.ndim == 3 and a.shape[0] != b.shape[0])):
+        raise ValueError(f"bad matmul shapes {tuple(a.shape)} @ "
+                         f"{tuple(b.shape)}")
+    if a.dtype != b.dtype or a.device != b.device:
+        raise ValueError(f"matmul operands differ in dtype or device: "
+                         f"{a.dtype}@{a.device} vs {b.dtype}@{b.device}")
+    m, k = a.shape[-2:]
+    n = b.shape[-1]
+    if m % block_m or n % block_n or k % block_k:
+        raise ValueError(
+            f"shapes ({m},{k})x({k},{n}) not divisible by blocks "
+            f"({block_m},{block_n},{block_k}); use ops.matmul")
+    batch = a.shape[0] if a.ndim == 3 else (b.shape[0] if b.ndim == 3
+                                            else None)
+    return batch, m, k, n
+
+
+def _check_square(a):
+    """Validate the operand of ``a @ a``; returns (batch or None, p)."""
+    if a.ndim not in (2, 3) or a.shape[-1] != a.shape[-2]:
+        raise ValueError(f"square_cuda needs a square 2-D matrix (or a "
+                         f"stack of them), got {tuple(a.shape)}")
+    return (a.shape[0] if a.ndim == 3 else None), a.shape[-1]
+
+
+def _check_square_blocks(p, block_m, block_n):
+    if p % block_m or p % block_n:
+        raise ValueError(
+            f"shape ({p},{p}) not divisible by blocks ({block_m},{block_n}); "
+            "use ops.MatmulChain / ops.matmul for arbitrary shapes")
+
+
+def _deliver(result, out):
+    if out is None:
+        return result
+    if out.shape != result.shape or out.device != result.device:
+        raise ValueError(f"out has shape {tuple(out.shape)} on {out.device}, "
+                         f"expected {tuple(result.shape)} on {result.device}")
+    out.copy_(result)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Kernel-route hygiene
+# ---------------------------------------------------------------------------
+
+def _groups(shared_tiles: int, independent_blocks: int) -> int:
+    """Blocks that share one staged operand (K2) or row panel (K3): as few
+    as fill the SMs, at most one per output tile they share."""
+    want = -(-SM_COUNT // max(independent_blocks, 1))
+    return max(1, min(shared_tiles, want))
+
+
+def _kernel_tile(block_m, block_n, block_k, what) -> int:
+    if block_m != block_n or block_m not in KERNEL_TILES or block_k < 8 \
+            or block_k % 8:
+        raise ValueError(
+            f"{what}: the CUDA kernels take square output tiles of "
+            f"{KERNEL_TILES} and a K step that is a multiple of 8, got "
+            f"blocks ({block_m},{block_n},{block_k})")
+    return block_m
+
+
+def _kernel_operand(t, name, what):
+    if t.dtype not in (torch.float32, torch.float64, torch.float16,
+                       torch.bfloat16):
+        raise TypeError(f"{what}: {name} has dtype {t.dtype}; the kernels "
+                        f"take float32, float64, float16 and bfloat16")
+    if not t.is_contiguous():
+        raise ValueError(f"{what}: {name} must be contiguous, got strides "
+                         f"{t.stride()} for shape {tuple(t.shape)}")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{what}: {name} must be 16-byte aligned (the "
+                         f"kernels use 16-byte loads)")
+
+
+def _overlaps(x, y) -> bool:
+    x0, y0 = x.data_ptr(), y.data_ptr()
+    return (x0 < y0 + y.numel() * y.element_size()
+            and y0 < x0 + x.numel() * x.element_size())
+
+
+def _kernel_output(out, shape, kernel_dtype, like, inputs, what):
+    """The tensor the kernel writes: ``out`` when it can take the kernel's
+    output type directly, else a fresh one."""
+    if out is not None:
+        if tuple(out.shape) != tuple(shape) or out.device != like.device:
+            raise ValueError(
+                f"{what}: out has shape {tuple(out.shape)} on {out.device}, "
+                f"expected {tuple(shape)} on {like.device}")
+        if any(_overlaps(out, x) for x in inputs):
+            # Every block reads whole panels of the operands while others
+            # write the result: writing over an operand is a data race.
+            raise ValueError(f"{what}: out must not alias an operand")
+        if out.dtype == kernel_dtype:
+            _kernel_operand(out, "out", what)
+            return out
+    return torch.empty(shape, dtype=kernel_dtype, device=like.device)
+
+
+def _kernel_types(a, out_dtype):
+    """(final out dtype, dtype the kernel writes, out_acc flag)."""
+    out_dtype = out_dtype or a.dtype
+    acc = accum_dtype(a.dtype)
+    if out_dtype == a.dtype:
+        return out_dtype, a.dtype, 0
+    # Anything else is written at the accumulation width and cast after:
+    # still one rounding from the fp32 / fp64 accumulator.
+    return out_dtype, acc, 1
+
+
+def _finish(written, out, out_dtype):
+    if out is not None and written is not out:
+        out.copy_(written)
+        return out
+    if written.dtype != out_dtype:
+        return written.to(out_dtype)
+    return written
+
+
+def _launch(fn_name, a, args):
+    """Call the C launcher for ``a``'s dtype on ``a``'s device and PyTorch's
+    current stream there; raise unless it reports success."""
+    lib = _build.load()
+    fn = getattr(lib, f"{fn_name}_{_build.DTYPE_SUFFIX[dtype_name(a.dtype)]}")
+    index = a.device.index
+    # The raw handle, not ``torch.cuda.current_stream()``: building the
+    # Stream object costs more host time than a small kernel runs.
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if index == torch.cuda.current_device():
+        code = fn(*args, stream)
+    else:
+        with torch.cuda.device(index):
+            code = fn(*args, stream)
+    _build.check(code, fn_name)
+
+
+# ---------------------------------------------------------------------------
+# K1: C = A @ B
+# ---------------------------------------------------------------------------
+
+def matmul_plain(a: torch.Tensor, b: torch.Tensor, *,
+                 block_m: int = DEFAULT_BLOCK[0],
+                 block_n: int = DEFAULT_BLOCK[1],
+                 block_k: int = DEFAULT_BLOCK[2],
+                 out_dtype=None, out=None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`matmul_cuda`: the same shape contract,
+    then widen to the accumulation dtype, ``torch.matmul``, cast once."""
+    _check_matmul(a, b, block_m, block_n, block_k)
+    LAUNCHES["plain_matmul"] += 1
+    return _deliver(_ref.matmul_ref(a, b, out_dtype=out_dtype or a.dtype),
+                    out)
+
+
+def matmul_cuda(a: torch.Tensor, b: torch.Tensor, *,
+                block_m: int = DEFAULT_BLOCK[0],
+                block_n: int = DEFAULT_BLOCK[1],
+                block_k: int = DEFAULT_BLOCK[2],
+                out_dtype=None, out=None) -> torch.Tensor:
+    """Block-divisible tiled matmul, ``(M, K) @ (K, N)`` or a stack of them
+    (leading dim on either or both operands; a 2-D side is shared by the
+    stack). See ``ops.matmul`` for arbitrary shapes.
+
+    fp32 accumulation for f32/bf16/f16 operands (exact IEEE fp32, no TF32),
+    f64 for f64; one cast to ``out_dtype`` (default ``a.dtype``) at the
+    store. ``out`` receives the result when given and must not alias an
+    operand. On a CPU tensor this is :func:`matmul_plain`.
+    """
+    if a.device.type == "cpu":
+        return matmul_plain(a, b, block_m=block_m, block_n=block_n,
+                            block_k=block_k, out_dtype=out_dtype, out=out)
+    what = "matmul_cuda"
+    if a.device.type != "cuda":
+        raise ValueError(f"{what}: no kernel for device {a.device}")
+    batch, m, k, n = _check_matmul(a, b, block_m, block_n, block_k)
+    tile = _kernel_tile(block_m, block_n, block_k, what)
+    _kernel_operand(a, "a", what)
+    _kernel_operand(b, "b", what)
+    if batch is not None and batch > 65_535:
+        raise ValueError(f"{what}: a stack of {batch} exceeds the grid's "
+                         f"65535 limit on its stack axis")
+    if smem_footprint((tile, tile, block_k), a.element_size()) \
+            > SMEM_PER_BLOCK:
+        raise ValueError(f"{what}: blocks ({block_m},{block_n},{block_k}) "
+                         f"need more shared memory than a block has")
+    out_dtype, kernel_dtype, out_acc = _kernel_types(a, out_dtype)
+    shape = (m, n) if batch is None else (batch, m, n)
+    c = _kernel_output(out, shape, kernel_dtype, a, (a, b), what)
+    _launch("repro_matmul", a,
+            (a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k, tile, block_k,
+             m * k if a.ndim == 3 else 0, k * n if b.ndim == 3 else 0,
+             m * n if batch is not None else 0, batch or 1, out_acc))
+    LAUNCHES["matmul"] += 1
+    return _finish(c, out, out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# K2 / K3 (and K1 by tier): C = A @ A
+# ---------------------------------------------------------------------------
+
+def square_plain(a: torch.Tensor, *,
+                 block_m: int = DEFAULT_BLOCK[0],
+                 block_n: int = DEFAULT_BLOCK[1],
+                 block_k: int = DEFAULT_BLOCK[2],
+                 out_dtype=None,
+                 smem_limit: int = SQUARE_SMEM_LIMIT,
+                 panel_limit: int = SQUARE_PANEL_LIMIT,
+                 out=None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`square_cuda`: the same tier selection
+    and divisibility checks, then A @ A with fp32 (f64) accumulation."""
+    _, p = _check_square(a)
+    tier = _resolve_tier(p, a.element_size(), block_m, block_n, block_k,
+                         smem_limit, panel_limit)
+    if tier == "two_operand":
+        return matmul_plain(a, a, block_m=block_m, block_n=block_n,
+                            block_k=block_k, out_dtype=out_dtype, out=out)
+    _check_square_blocks(p, block_m, block_n)
+    LAUNCHES["plain_square_" + tier] += 1
+    return _deliver(_ref.matmul_ref(a, a, out_dtype=out_dtype or a.dtype),
+                    out)
+
+
+def square_cuda(a: torch.Tensor, *,
+                block_m: int = DEFAULT_BLOCK[0],
+                block_n: int = DEFAULT_BLOCK[1],
+                block_k: int = DEFAULT_BLOCK[2],
+                out_dtype=None,
+                smem_limit: int = SQUARE_SMEM_LIMIT,
+                panel_limit: int = SQUARE_PANEL_LIMIT,
+                out=None) -> torch.Tensor:
+    """C = A @ A for a block-divisible square A, ``(P, P)`` or a ``(B, P, P)``
+    stack — the squaring-chain step.
+
+    Kernel choice follows the ``square_tier`` policy on one matrix's bytes:
+    the whole-operand kernel up to ``smem_limit``, the panel kernel up to
+    ``panel_limit`` (demoted when ``panel_smem_footprint`` exceeds a block's
+    shared memory), the two-operand :func:`matmul_cuda` above that. Both
+    limits are arguments so a caller (or a tuned entry, later) can move
+    them.
+
+    The whole-operand and panel tiers need the shape divisible by
+    ``block_m`` and ``block_n``; the two-operand tier needs ``block_k`` to
+    divide too. A non-divisible shape raises ``ValueError`` — ``ops.square``
+    / ``ops.MatmulChain`` pad arbitrary shapes before calling in here.
+    ``out`` must not alias ``a``: every block reads whole panels of A while
+    others write C. On a CPU tensor this is :func:`square_plain`.
+    """
+    if a.device.type == "cpu":
+        return square_plain(a, block_m=block_m, block_n=block_n,
+                            block_k=block_k, out_dtype=out_dtype,
+                            smem_limit=smem_limit, panel_limit=panel_limit,
+                            out=out)
+    what = "square_cuda"
+    if a.device.type != "cuda":
+        raise ValueError(f"{what}: no kernel for device {a.device}")
+    batch, p = _check_square(a)
+    tier = _resolve_tier(p, a.element_size(), block_m, block_n, block_k,
+                         smem_limit, panel_limit)
+    if tier == "two_operand":
+        return matmul_cuda(a, a, block_m=block_m, block_n=block_n,
+                           block_k=block_k, out_dtype=out_dtype, out=out)
+    _check_square_blocks(p, block_m, block_n)
+    tile = _kernel_tile(block_m, block_n, block_k, what)
+    _kernel_operand(a, "a", what)
+    if batch is not None and batch > 65_535:
+        raise ValueError(f"{what}: a stack of {batch} exceeds the grid's "
+                         f"65535 limit on its stack axis")
+    if tier == "panel" and p % block_k:
+        raise ValueError(
+            f"shape ({p},{p}) not divisible by the K step {block_k} the "
+            f"panel kernel stages the column panel in; use ops.MatmulChain "
+            f"/ ops.matmul for arbitrary shapes")
+    if tier == "whole" and p * p * a.element_size() > SMEM_PER_BLOCK:
+        raise ValueError(
+            f"{what}: smem_limit={smem_limit} sends a ({p},{p}) "
+            f"{a.dtype} operand to the whole-operand kernel, but it does "
+            f"not fit a block's {SMEM_PER_BLOCK} bytes of shared memory")
+    out_dtype, kernel_dtype, out_acc = _kernel_types(a, out_dtype)
+    c = _kernel_output(out, a.shape, kernel_dtype, a, (a,), what)
+    stride = p * p if batch is not None else 0
+    tiles = p // tile
+    if tier == "whole":
+        groups = _groups(tiles * tiles, batch or 1)
+        _launch("repro_square_whole", a,
+                (a.data_ptr(), c.data_ptr(), p, tile, stride, stride,
+                 batch or 1, groups, out_acc))
+    else:
+        groups = _groups(tiles, tiles * (batch or 1))
+        _launch("repro_square_panel", a,
+                (a.data_ptr(), c.data_ptr(), p, tile, block_k, stride, stride,
+                 batch or 1, groups, out_acc))
+    LAUNCHES["square_" + tier] += 1
+    return _finish(c, out, out_dtype)

@@ -1,0 +1,288 @@
+"""Public wrappers around the kernels: arbitrary shapes, stacks, chains.
+
+The port of the dense half of the reference's ``repro/kernels/ops.py``.
+
+``matmul``      — arbitrary-shape tiled matmul: picks tiles, pads to tile
+                  multiples, runs K1, strips the padding. Leading stack dims
+                  are a grid axis of the same kernel (one launch).
+``square``      — C = A @ A through the tiered squaring kernels, same
+                  pad/dispatch contract as ``matmul``.
+``MatmulChain`` — fused chain executor for repeated-multiply workloads
+                  (matpow, expm): pads ONCE at entry, runs every multiply /
+                  squaring on the tile-divisible padded buffer (no per-call
+                  pad/unpad/tile-pick), un-pads once at exit, and squares
+                  between two buffers it owns instead of allocating one per
+                  step.
+``pick_blocks`` — tile selection for this card's shared memory and SM count
+                  (heuristic; the tuning cache wires into it later).
+
+The device rule of the package holds throughout: these functions compute
+where their tensors lie. On a CUDA tensor every multiply is one of the
+hand-written kernels; on a CPU tensor the same padding, tile and tier logic
+runs over the plain PyTorch versions — which is what the CPU tests exercise.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch import dtype_name
+from repro_torch.kernels.matmul import (DEFAULT_BLOCK, KERNEL_TILES, SM_COUNT,
+                                        SMEM_PER_BLOCK, SQUARE_PANEL_LIMIT,
+                                        SQUARE_SMEM_LIMIT, matmul_cuda,
+                                        smem_footprint, square_cuda)
+
+__all__ = ["matmul", "square", "pick_blocks", "pad_to_blocks", "PaddedChain",
+           "MatmulChain", "SMEM_BUDGET"]
+
+#: Shared memory ``pick_blocks`` lets one block's staged tiles take: half of
+#: a block's maximum, so at least two blocks share an SM and one computes
+#: while the other waits on its loads.
+SMEM_BUDGET = SMEM_PER_BLOCK // 2
+
+
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+def pick_blocks(m: int, n: int, k: int, dtype=None):
+    """Choose (block_m, block_n, block_k) for an (m, k) x (k, n) problem.
+
+    The paper's "an appropriate TILE size is used based on the problem and
+    local memory available", for this card: the largest square output tile
+    of ``KERNEL_TILES`` that still cuts the output into at least one tile
+    per SM (a 128-wide tile has the best FMA-to-load ratio, but sixteen of
+    them leave most of the card idle), never below 64 unless the whole
+    output fits one 32-wide tile; then the default K step, halved while the
+    staged tiles exceed the shared-memory budget (``SMEM_BUDGET``).
+
+    Invariants (tested): block_m == block_n is one of ``KERNEL_TILES``,
+    block_k divides both, and ``smem_footprint`` fits the budget.
+    """
+    itemsize = torch.empty((), dtype=dtype).element_size() \
+        if dtype is not None else 4
+    small, mid, large = KERNEL_TILES
+    if max(m, n) <= small:
+        tile = small
+    elif -(-m // large) * -(-n // large) >= SM_COUNT:
+        tile = large
+    else:
+        tile = mid
+    bk = DEFAULT_BLOCK[2]
+    while smem_footprint((tile, tile, bk), itemsize) > SMEM_BUDGET \
+            and bk > 8:
+        bk //= 2
+    return tile, tile, bk
+
+
+def _square_blocks(n: int, dtype, blocks=None):
+    """(blocks, padded_n) for an (n, n) squaring-chain problem.
+
+    The padded size must divide by all three block dims (the output of one
+    multiply feeds the next, so M = N = K): it is ``n`` rounded up to their
+    lcm. The picker's tiles are powers of two, so the lcm is the output
+    tile and n = 1000 pads to 1024. Explicitly supplied ``blocks`` are
+    always honoured.
+    """
+    if blocks is not None:
+        bm, bn, bk = blocks
+    else:
+        bm, bn, bk = pick_blocks(n, n, n, dtype=dtype)
+    return (bm, bn, bk), _round_up(n, math.lcm(bm, bn, bk))
+
+
+def pad_to_blocks(a: torch.Tensor, block_m: int, block_n: int) -> torch.Tensor:
+    """Zero-pad the trailing two dims of ``a`` up to block multiples.
+
+    No-op (returns ``a`` itself) when already divisible; otherwise a new
+    tensor. The chain executor calls this exactly once per chain; ``matmul``
+    once per operand.
+    """
+    m, n = a.shape[-2], a.shape[-1]
+    mp, np_ = _round_up(m, block_m), _round_up(n, block_n)
+    if (mp, np_) == (m, n):
+        return a
+    return F.pad(a, (0, np_ - n, 0, mp - m))
+
+
+def _as_stack(x: torch.Tensor):
+    """View (..., r, c) as 2-D or (B, r, c); returns (view, leading dims)."""
+    if x.ndim <= 3:
+        return x, None
+    return x.reshape(-1, *x.shape[-2:]), x.shape[:-2]
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor, *, blocks=None,
+           out_dtype=None) -> torch.Tensor:
+    """C = A @ B via the tiled kernel; arbitrary shapes and stacking.
+
+    a: (..., M, K), b: (..., K, N); leading dims must match exactly or be
+    absent on one side (a 2-D operand is shared by the whole stack). The
+    stack is one launch: a grid axis of the kernel, not a loop.
+    """
+    if a.ndim < 2 or b.ndim < 2:
+        raise ValueError(f"unsupported batch ranks {tuple(a.shape)} @ "
+                         f"{tuple(b.shape)}")
+    if a.ndim > 2 and b.ndim > 2 and a.shape[:-2] != b.shape[:-2]:
+        raise ValueError(f"unsupported batch ranks {tuple(a.shape)} @ "
+                         f"{tuple(b.shape)}")
+    if a.shape[-1] != b.shape[-2]:
+        raise ValueError(f"bad matmul shapes {tuple(a.shape)} @ "
+                         f"{tuple(b.shape)}")
+    m, k = a.shape[-2:]
+    n = b.shape[-1]
+    bm, bn, bk = blocks or pick_blocks(m, n, k, dtype=a.dtype)
+
+    a_s, lead_a = _as_stack(pad_to_blocks(a, bm, bk).contiguous())
+    b_s, lead_b = _as_stack(pad_to_blocks(b, bk, bn).contiguous())
+    out = matmul_cuda(a_s, b_s, block_m=bm, block_n=bn, block_k=bk,
+                      out_dtype=out_dtype or a.dtype)
+    if out.shape[-2:] != (m, n):
+        out = out[..., :m, :n]
+    lead = lead_a if lead_a is not None else lead_b
+    if lead is not None:
+        out = out.reshape(*lead, m, n)
+    return out
+
+
+def square(a: torch.Tensor, *, blocks=None, out_dtype=None) -> torch.Tensor:
+    """C = A @ A via the tiered squaring kernels; arbitrary square shapes,
+    2-D or stacked. Kernel choice (whole-operand / panel / two-operand)
+    follows the ``square_tier`` policy at the default limits."""
+    if a.ndim < 2 or a.shape[-1] != a.shape[-2]:
+        raise ValueError(f"square needs square matrices, got "
+                         f"{tuple(a.shape)}")
+    n = a.shape[-1]
+    (bm, bn, bk), padded_n = _square_blocks(n, a.dtype, blocks)
+    padded, lead = _as_stack(pad_to_blocks(a, padded_n, padded_n).contiguous())
+    out = square_cuda(padded, block_m=bm, block_n=bn, block_k=bk,
+                      out_dtype=out_dtype or a.dtype)
+    if padded_n != n:
+        out = out[..., :n, :n]
+    if lead is not None:
+        out = out.reshape(*lead, n, n)
+    return out
+
+
+class PaddedChain:
+    """Pad-once / unpad-once plumbing shared by the chain executors.
+
+    A chain of k same-shape square multiplies needs exactly ONE pad at entry
+    and ONE un-pad at exit — zero-padding is closed under multiplication
+    ([[A,0],[0,0]]^2 = [[A^2,0],[0,0]]):
+
+        x = chain.pad(a)            # once: (..., n, n) -> (..., P, P)
+        x = chain.square(x)         # k times on the padded buffer
+        out = chain.unpad(result)   # once: strip back to (..., n, n)
+
+    Subclasses set ``self.padded_n`` (the chain-invariant padded size P) in
+    their ``__init__`` and implement ``square``/``mm``. ``donate`` records
+    whether squarings consume their operand's buffer; ``pad`` honours it by
+    never handing the caller's own tensor into the chain.
+    """
+
+    def __init__(self, n: int, dtype, *, donate: bool = True):
+        self.n = int(n)
+        if self.n < 1:
+            # A 0-size chain would "work" — every pad/square/unpad is an
+            # empty-tensor no-op — and hand back identity-shaped garbage.
+            raise ValueError(f"chain matrices must have n >= 1, got n={n!r}")
+        dtype_name(dtype)  # raises TypeError on an unsupported dtype
+        self.dtype = dtype
+        self.donate = bool(donate)
+        self.padded_n = self.n
+
+    # -- chain boundary ----------------------------------------------------
+    def pad(self, a: torch.Tensor) -> torch.Tensor:
+        """Zero-pad (..., n, n) -> (..., P, P), contiguous. Called once per
+        chain.
+
+        When padding is a no-op and donation is on, the caller gets a copy
+        instead of its own tensor back: ``square`` reuses its operand's
+        buffer two steps later, and the chain must never write into the
+        caller's tensor.
+        """
+        if self.padded_n != self.n:
+            return pad_to_blocks(a, self.padded_n, self.padded_n)
+        if self.donate:
+            return a.clone(memory_format=torch.contiguous_format)
+        return a.contiguous()
+
+    def unpad(self, c: torch.Tensor) -> torch.Tensor:
+        """Strip back to (..., n, n). Called once per chain."""
+        if self.padded_n == self.n:
+            return c
+        return c[..., : self.n, : self.n]
+
+
+class MatmulChain(PaddedChain):
+    """Fused executor for a chain of same-shape square multiplies.
+
+    Hoists everything ``ops.matmul`` pays per call — tile pick, padding of
+    both operands, stripping — to the chain boundary (see
+    :class:`PaddedChain`):
+
+        chain = MatmulChain(a.shape[-1], a.dtype)
+        x = chain.pad(a)            # once
+        x = chain.square(x)         # k times, tile-divisible fast path
+        ...
+        out = chain.unpad(result)   # once
+
+    Tiles and the squaring-tier limits are fixed once per chain, so every
+    squaring of a chain runs the same kernel.
+
+    Donation. The reference donates the squaring operand's buffer to the
+    result; the PyTorch form is a chain that owns two padded buffers and
+    ping-pongs between them: ``square(x)`` writes into the chain's spare
+    buffer (``out=``, never ``x`` itself — the kernels read whole panels of
+    ``x`` while writing) and keeps ``x``'s buffer as the next spare. So with
+    ``donate=True`` treat the argument of ``square`` as CONSUMED: it is
+    overwritten by the squaring after next. Clone first if you hold another
+    reference (``core.matpow._binary_chain_body`` does). ``donate=False``
+    allocates a fresh result per squaring and never touches its operand.
+
+    Works on ``(..., P, P)`` stacks as well: the stack is a grid axis of the
+    kernels, one launch per multiply for all of it.
+    """
+
+    def __init__(self, n: int, dtype, *, blocks=None, donate: bool = True):
+        super().__init__(n, dtype, donate=donate)
+        self.blocks, self.padded_n = _square_blocks(self.n, self.dtype, blocks)
+        # Squaring-tier limits fixed once per chain, so every squaring of a
+        # chain uses the same kernel tier (the tuning cache will fill this
+        # pair; until then it is the defaults).
+        self.tiers = (SQUARE_SMEM_LIMIT, SQUARE_PANEL_LIMIT)
+        self._spare = None
+
+    # -- chain body (operands already padded) ------------------------------
+    def mm(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """x @ y on padded buffers — no pad/unpad, tiles fixed per chain.
+        Always a fresh result; neither operand is written."""
+        bm, bn, bk = self.blocks
+        xs, lead = _as_stack(x)
+        ys, _ = _as_stack(y)
+        out = matmul_cuda(xs, ys, block_m=bm, block_n=bn, block_k=bk,
+                          out_dtype=self.dtype)
+        return out if lead is None else out.reshape(x.shape)
+
+    def square(self, x: torch.Tensor) -> torch.Tensor:
+        """x @ x via the tiered squaring kernels; CONSUMES x when the chain
+        donates (see the class docstring)."""
+        bm, bn, bk = self.blocks
+        smem_limit, panel_limit = self.tiers
+        xs, lead = _as_stack(x)
+        out = None
+        if self.donate:
+            spare, self._spare = self._spare, xs
+            if spare is not None and spare.shape == xs.shape \
+                    and spare.dtype == self.dtype \
+                    and spare.device == xs.device \
+                    and spare.data_ptr() != xs.data_ptr():
+                out = spare
+        res = square_cuda(xs, block_m=bm, block_n=bn, block_k=bk,
+                          out_dtype=self.dtype, smem_limit=smem_limit,
+                          panel_limit=panel_limit, out=out)
+        return res if lead is None else res.reshape(x.shape)

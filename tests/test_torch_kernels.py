@@ -1,0 +1,213 @@
+"""Port kernels' plain versions vs the reference's Pallas kernels.
+
+The reference runs ``matmul_pallas`` / ``square_pallas`` in interpret mode
+(as ``tests/test_kernels.py`` does); the port runs ``matmul_plain`` /
+``square_plain`` — what its wrappers take for a CPU tensor — on the same
+numpy inputs. Tolerance: the port's ``error_budget(dtype, n=K)``. The CUDA
+kernels themselves cannot run without a GPU; ``chip_smoke.py`` holds each
+against its plain version on the card.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.matmul import matmul_pallas, square_pallas
+from repro_torch.kernels import matmul_kernels as K
+
+from _torch_parity import TORCH, as_f64, assert_close, pair, randn
+
+B128 = dict(block_m=128, block_n=128, block_k=128)
+
+# how each framework is forced into a squaring tier at a small size
+TIER_LIMITS = {
+    "whole": dict(ref={}, port=dict(smem_limit=1 << 30, panel_limit=1 << 31)),
+    "panel": dict(ref=dict(vmem_limit=1, panel_limit=1 << 30),
+                  port=dict(smem_limit=1, panel_limit=1 << 30)),
+    "two_operand": dict(ref=dict(vmem_limit=1, panel_limit=1),
+                        port=dict(smem_limit=1, panel_limit=1)),
+}
+
+
+@pytest.fixture(autouse=True)
+def _fresh_counters():
+    K.reset_launches()
+    yield
+
+
+class TestMatmulParity:
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("mkn", [
+        (128, 128, 128), (256, 128, 384), (512, 512, 512),
+        (384, 640, 256), (128, 1024, 128),
+    ])
+    def test_block_divisible(self, mkn, dtype):
+        m, k, n = mkn
+        ja, ta = pair(randn((m, k), 0, k ** -0.25), dtype)
+        jb, tb = pair(randn((k, n), 1, k ** -0.25), dtype)
+        want = matmul_pallas(ja, jb, interpret=True, **B128)
+        got = K.matmul_cuda(ta, tb, **B128)
+        assert got.dtype == TORCH[dtype] and got.shape == (m, n)
+        assert_close(got, want, dtype, n=k)
+
+    def test_deep_k_accumulates_in_fp32(self):
+        """K >> block_k with bf16 operands: one rounding, at the store."""
+        ja, ta = pair(randn((128, 2048), 6, 2048 ** -0.25), "bfloat16")
+        jb, tb = pair(randn((2048, 128), 7, 2048 ** -0.25), "bfloat16")
+        want = matmul_pallas(ja, jb, interpret=True, **B128)
+        assert_close(K.matmul_cuda(ta, tb, **B128), want, "bfloat16", n=2048)
+
+    def test_out_dtype_widens_once(self):
+        ja, ta = pair(randn((128, 128), 8, 0.3), "bfloat16")
+        want = matmul_pallas(ja, ja, interpret=True, out_dtype=np.float32,
+                             **B128)
+        got = K.matmul_cuda(ta, ta, out_dtype=torch.float32, **B128)
+        assert got.dtype == torch.float32
+        assert_close(got, want, "float32", n=128)
+
+    @pytest.mark.parametrize("dtype", ["float16", "float64"])
+    def test_dtypes_the_reference_does_not_sweep(self, dtype):
+        """f16 and f64 have no reference sweep on the CPU (x64 is off in
+        JAX): hold the plain version to a float64 numpy product."""
+        a = randn((64, 96), 9, 96 ** -0.25)
+        b = randn((96, 32), 10, 96 ** -0.25)
+        ta = torch.from_numpy(a).to(TORCH[dtype])
+        tb = torch.from_numpy(b).to(TORCH[dtype])
+        got = K.matmul_cuda(ta, tb, block_m=32, block_n=32, block_k=16)
+        assert got.dtype == TORCH[dtype]
+        assert_close(got, as_f64(ta) @ as_f64(tb), dtype, n=96)
+
+    @pytest.mark.parametrize("form", ["both", "left", "right"])
+    def test_stacked_forms(self, form):
+        a = randn((3, 64, 96), 11, 0.3)
+        b = randn((3, 96, 32), 12, 0.3)
+        if form == "left":
+            b = b[0]
+        if form == "right":
+            a = a[0]
+        got = K.matmul_cuda(torch.from_numpy(a), torch.from_numpy(b),
+                            block_m=32, block_n=32, block_k=32)
+        assert_close(got, np.matmul(a.astype(np.float64), b), "float32", n=96)
+        assert K.LAUNCHES["plain_matmul"] == 1   # one call for the stack
+
+    def test_out_buffer_receives_result(self):
+        a = torch.from_numpy(randn((64, 64), 13, 0.3))
+        out = torch.empty(64, 64)
+        res = K.matmul_cuda(a, a, block_m=32, block_n=32, block_k=32, out=out)
+        assert res is out
+        np.testing.assert_allclose(out.numpy(), (a @ a).numpy(), rtol=1e-5,
+                                   atol=1e-6)
+
+    def test_non_divisible_raises_like_the_reference(self):
+        ja, ta = pair(randn((100, 128), 14), "float32")
+        jb, tb = pair(randn((128, 128), 15), "float32")
+        with pytest.raises(ValueError, match="not divisible by blocks") as ref:
+            matmul_pallas(ja, jb, interpret=True, **B128)
+        with pytest.raises(ValueError, match="not divisible by blocks") as port:
+            K.matmul_cuda(ta, tb, **B128)
+        assert str(ref.value) == str(port.value)
+
+    @pytest.mark.parametrize("shapes", [((4, 5), (6, 4)), ((4,), (4, 4)),
+                                        ((2, 4, 4), (3, 4, 4))])
+    def test_bad_shapes(self, shapes):
+        a, b = (torch.zeros(s) for s in shapes)
+        with pytest.raises(ValueError, match="bad matmul shapes"):
+            K.matmul_cuda(a, b, block_m=1, block_n=1, block_k=1)
+
+
+class TestSquareParity:
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("p", [128, 256])
+    @pytest.mark.parametrize("tier", ["whole", "panel", "two_operand"])
+    def test_each_tier(self, tier, p, dtype):
+        ja, ta = pair(randn((p, p), p, p ** -0.25), dtype)
+        want = square_pallas(ja, interpret=True, **B128,
+                             **TIER_LIMITS[tier]["ref"])
+        got = K.square_cuda(ta, **B128, **TIER_LIMITS[tier]["port"])
+        assert_close(got, want, dtype, n=p)
+        counted = "plain_matmul" if tier == "two_operand" \
+            else "plain_square_" + tier
+        assert K.launch_counts()[counted] == 1
+        assert sum(K.launch_counts().values()) == 1
+
+    def test_tiers_agree_with_each_other(self):
+        a = torch.from_numpy(randn((256, 256), 10, 0.1))
+        outs = [K.square_cuda(a, **B128, **TIER_LIMITS[t]["port"])
+                for t in TIER_LIMITS]
+        for got in outs[1:]:
+            np.testing.assert_allclose(got.numpy(), outs[0].numpy(),
+                                       rtol=1e-5, atol=1e-6)
+
+    def test_stacked_square_is_one_call(self):
+        a = randn((4, 64, 64), 16, 0.2)
+        got = K.square_cuda(torch.from_numpy(a), block_m=32, block_n=32,
+                            block_k=32)
+        assert_close(got, np.matmul(a.astype(np.float64), a), "float32", n=64)
+        assert K.launch_counts()["plain_square_whole"] == 1
+
+    def test_non_divisible_raises_like_the_reference(self):
+        ja, ta = pair(randn((192, 192), 17), "float32")
+        with pytest.raises(ValueError, match="not divisible by blocks") as ref:
+            square_pallas(ja, interpret=True, **B128)
+        with pytest.raises(ValueError, match="not divisible by blocks") as port:
+            K.square_cuda(ta, **B128)
+        assert str(ref.value) == str(port.value)
+
+    def test_rejects_nonsquare(self):
+        with pytest.raises(ValueError, match="square"):
+            K.square_cuda(torch.ones(128, 256), **B128)
+
+
+class TestSquareTierPolicy:
+    def test_boundaries_are_inclusive(self):
+        assert K.square_tier(K.SQUARE_SMEM_LIMIT) == "whole"
+        assert K.square_tier(K.SQUARE_SMEM_LIMIT + 1) == "panel"
+        assert K.square_tier(K.SQUARE_PANEL_LIMIT) == "panel"
+        assert K.square_tier(K.SQUARE_PANEL_LIMIT + 1) == "two_operand"
+
+    def test_custom_thresholds(self):
+        assert K.square_tier(100, smem_limit=10, panel_limit=50) == \
+            "two_operand"
+        assert K.square_tier(30, smem_limit=10, panel_limit=50) == "panel"
+        assert K.square_tier(10, smem_limit=10, panel_limit=50) == "whole"
+
+    def test_default_limits_are_the_cards_own(self):
+        """Derived from a block's shared memory and the L2 cache — not the
+        reference's limits for another memory hierarchy."""
+        assert K.SQUARE_SMEM_LIMIT == K.SMEM_PER_BLOCK == 232_448
+        assert K.SQUARE_PANEL_LIMIT == K.L2_BYTES // 2
+        # a 192^2 fp32 operand is staged whole, 512^2 takes the panel
+        # kernel, and the full-width 4096^2 operand streams through K1
+        assert K.square_tier(192 * 192 * 4) == "whole"
+        assert K.square_tier(512 * 512 * 4) == "panel"
+        assert K.square_tier(4096 * 4096 * 4) == "two_operand"
+        assert K.square_tier(4096 * 4096 * 2) == "two_operand"
+
+    def test_panel_footprint_gates_the_panel_tier(self):
+        # 1024^2 fp32 qualifies for the panel tier by operand bytes, but a
+        # 128-row panel is 512 KB — more than a block's shared memory.
+        assert K.panel_smem_footprint(1024, 128, 128, itemsize=4) \
+            > K.SMEM_PER_BLOCK
+        assert K.panel_smem_footprint(512, 64, 64, itemsize=4) \
+            <= K.SMEM_PER_BLOCK
+        a = torch.from_numpy(randn((1024, 1024), 18, 0.03))
+        K.square_cuda(a, block_m=128, block_n=128, block_k=32)
+        assert K.launch_counts()["plain_matmul"] == 1      # demoted to K1
+        assert K.launch_counts()["plain_square_panel"] == 0
+        K.square_cuda(a[:512, :512].contiguous(), block_m=64, block_n=64,
+                      block_k=32)
+        assert K.launch_counts()["plain_square_panel"] == 1
+
+
+class TestLaunchCounters:
+    def test_cpu_tensors_count_the_plain_route_only(self):
+        a = torch.from_numpy(randn((64, 64), 19, 0.2))
+        K.matmul_cuda(a, a, block_m=32, block_n=32, block_k=32)
+        K.square_cuda(a, block_m=32, block_n=32, block_k=32)
+        counts = K.launch_counts()
+        assert counts["plain_matmul"] == 1
+        assert counts["plain_square_whole"] == 1
+        assert counts["matmul"] == counts["square_whole"] == \
+            counts["square_panel"] == 0
+        K.reset_launches()
+        assert not any(K.launch_counts().values())
