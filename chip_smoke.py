@@ -5,12 +5,17 @@
 
 builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (first use),
 holds every kernel against its plain PyTorch version on the card, then runs
-the slice end to end — ``matpow_binary(a, 96, backend="cuda_chain")`` at
+the slices end to end — ``matpow_binary(a, 96, backend="cuda_chain")`` at
 n = 4096 and in every squaring tier, the other matpow entry points, the
-stacked chain and ``expm`` — against float64 references. Each phase prints
-one JSON line; any failure raises and the script exits non-zero without the
-final ``"ok": true`` line. It needs a CUDA device and ``nvcc``; it imports
-``repro_torch`` only (never ``jax`` or the reference package).
+stacked chain and ``expm`` against float64 references; ``ops.attention``
+(flash attention, K5) at the widths of Qwen3-1.7B and Mixtral-8x7B against
+its plain version, with ``scaled_dot_product_attention`` timed beside it;
+and the tuning cache: measured sweeps recorded and then used by
+``ops.attention`` and by an A^96 chain. Each phase prints one JSON line; any
+failure raises and the script exits non-zero without the final
+``"ok": true`` line. It needs a CUDA device and ``nvcc``; it imports
+``repro_torch`` only (never ``jax`` or the reference package). The tuning
+cache it reads and writes is a temporary file of its own.
 
 Kernel timings are CUDA-event medians over replays of a CUDA graph of
 back-to-back calls (device time, without the host's per-call work); request
@@ -22,9 +27,12 @@ the H100 SXM data-sheet rates below.
 from __future__ import annotations
 
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -38,7 +46,9 @@ from repro_torch import convert  # noqa: E402
 from repro_torch.core import (batched_expm, batched_matpow, expm,  # noqa: E402
                               matpow_binary, matpow_binary_traced,
                               matpow_naive)
-from repro_torch.kernels import _build, error_budget, ops  # noqa: E402
+from repro_torch.kernels import (_build, autotune, error_budget, ops,  # noqa: E402
+                                 ref)
+from repro_torch.kernels import attention_kernels as A  # noqa: E402
 from repro_torch.kernels import matmul_kernels as K  # noqa: E402
 
 # NVIDIA H100 SXM data sheet, dense rates: tensor-core bf16/fp16; fp32 and
@@ -47,10 +57,14 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
               torch.float32: 67e12, torch.float64: 34e12}
 PEAK_BYTES = 3.35e12
 
-KERNEL_SOURCE = "src/repro_torch/kernels/csrc/gemm.cuh"
+SOURCES = {"matmul": "src/repro_torch/kernels/csrc/gemm.cuh",
+           "square_whole": "src/repro_torch/kernels/csrc/gemm.cuh",
+           "square_panel": "src/repro_torch/kernels/csrc/gemm.cuh",
+           "flash_attention": "src/repro_torch/kernels/csrc/attention.cuh"}
 REPLACES = {"matmul": "src/repro/kernels/matmul.py:111",
             "square_whole": "src/repro/kernels/matmul.py:275",
-            "square_panel": "src/repro/kernels/matmul.py:287"}
+            "square_panel": "src/repro/kernels/matmul.py:287",
+            "flash_attention": "src/repro/kernels/attention.py:155"}
 DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.float64)
 POWER = 96          # 6 squarings + 1 combine
 MULTS = 7
@@ -64,6 +78,15 @@ WRONG_POWER = 64    # what a chain that lost its combine would return
 # sums that cancelled and carry the error of the large ones).
 KERNEL_RTOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2,
                torch.float16: 2e-3, torch.float64: 1e-12}
+# K5 is held to the same numbers PER QUERY ROW: each row's largest error over
+# that row's largest entry (``ref.row_relative_error``). An attention
+# output's scale varies by row — row 0 of a causal output is v[0], a row
+# that averages n keys is about n^-1/2 of that — so a limit on the whole
+# output's peak would pass a kernel that dropped a KV tile for the later
+# rows. Per row, 1e-2 in bf16 and 2e-3 in f16 are 1.3 and 2 units in the
+# last place of the row's largest entry. K5 computes float64 inputs in fp32,
+# as the reference does: its limit there is the fp32 one.
+ATTN_RTOL = {**KERNEL_RTOL, torch.float64: 1e-4}
 
 
 def emit(phase: str, **fields) -> None:
@@ -71,41 +94,12 @@ def emit(phase: str, **fields) -> None:
 
 
 def time_ms(fn, *, reps: int = 5) -> float:
-    """Median device time of one ``fn()`` in milliseconds.
-
-    ``fn`` is captured into a CUDA graph — a run of back-to-back calls — and
-    each sample times one replay with two events and divides by the count,
-    so the host's work per call (shape checks, the ctypes call, allocator)
-    is outside the measurement: at small shapes it is several times the
-    kernel. The run is sized from a first replay to last about 2 ms (1 to
-    50 calls). The 50 MB L2 is not flushed between calls: inside a chain the
-    operand of every multiply was written by the one before.
-    """
-    fn()                                  # build / warm up outside capture
-    torch.cuda.synchronize()
-
-    def capture(count):
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            for _ in range(count):
-                fn()
-        return graph
-
-    def sample(graph, count):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        graph.replay()
-        stop.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(stop) / count
-
-    one = capture(1)
-    sample(one, 1)
-    count = max(1, min(50, int(2.0 / max(sample(one, 1), 1e-3))))
-    graph = capture(count) if count > 1 else one
-    return statistics.median(sample(graph, count) for _ in range(reps))
+    """Median device time of one ``fn()`` in milliseconds: CUDA-event
+    timings of replays of a CUDA graph of back-to-back calls
+    (``autotune.device_times_us``), so the host's work per call is outside
+    the measurement. The 50 MB L2 is not flushed between calls: inside a
+    chain the operand of every multiply was written by the one before."""
+    return statistics.median(autotune.device_times_us(fn, reps)) / 1e3
 
 
 def wall_ms(fn) -> float:
@@ -157,20 +151,26 @@ def check_close(got, want, dtype, *, n, mults=1, what) -> tuple:
     return abs_err, rel_peak, rtol, atol
 
 
-def check_kernel(got, want, dtype, *, what) -> tuple:
-    """Hold a kernel's result to its plain version's under ``KERNEL_RTOL``,
-    relative to the plain result's largest entry."""
+def check_kernel(got, want, dtype, *, what, rtol=KERNEL_RTOL,
+                 per_row=False) -> tuple:
+    """Hold a kernel's result to its plain version's under ``rtol[dtype]``,
+    relative to the plain result's largest entry — or, with ``per_row``, to
+    each row's largest entry (``ref.row_relative_error``). Returns (max abs
+    error, error over the largest entry, worst row's error over its largest
+    entry)."""
     if not torch.isfinite(got).all():
         raise AssertionError(f"{what}: non-finite values in the result")
     if got.shape != want.shape or got.dtype != want.dtype:
         raise AssertionError(f"{what}: {tuple(got.shape)} {got.dtype} != "
                              f"{tuple(want.shape)} {want.dtype}")
     abs_err, rel_peak = errors(got, want)
-    if rel_peak > KERNEL_RTOL[dtype]:
+    rel_row = ref.row_relative_error(got, want)
+    if rel_peak > rtol[dtype] or (per_row and rel_row > rtol[dtype]):
         raise AssertionError(
             f"{what}: max_abs_err={abs_err:.3e} is {rel_peak:.3e} of the "
-            f"largest entry, limit {KERNEL_RTOL[dtype]:.1e}")
-    return abs_err, rel_peak
+            f"largest entry and up to {rel_row:.3e} of a row's largest, "
+            f"limit {rtol[dtype]:.1e}" + (" per row" if per_row else ""))
+    return abs_err, rel_peak, rel_row
 
 
 def randn(shape, dtype, seed, scale=None):
@@ -281,7 +281,7 @@ def kernel_case(name, dtype, operands, blocks, *, timed, rows, **limits):
         raise AssertionError(f"{name} {shape} {dtype}: expected one launch "
                              f"of {name}, counters went {before} -> {after}")
     want = plain()
-    abs_err, rel_peak = check_kernel(
+    abs_err, rel_peak, _ = check_kernel(
         got, want, dtype, what=f"kernel {name} {shape} {dtype}")
     row = {"name": name, "dtype": str(dtype).removeprefix("torch."),
            "shape": shape, "blocks": list(blocks), "max_abs_err": abs_err,
@@ -537,25 +537,259 @@ def phase_batched() -> None:
          expm_max_abs_err=exp_err, expm_stacked_squarings=squarings)
 
 
+#: ops.attention's main-path shapes: (name, leading dims, Sq, Skv, d, dtype,
+#: causal, window, timed). Qwen3-1.7B prefill (configs/qwen3_1_7b.py: 16
+#: query heads of d_head 128) at 4096 tokens; Mixtral-8x7B's sliding window
+#: (configs/mixtral_8x7b.py: window 4096, d_head 4096 / 32 = 128) over 8192
+#: tokens, and the same without the window (what the band skip saves);
+#: decode alignment (128 new queries against 4096 keys); Sq > Skv (no key
+#: for rows 0..127); float16, float64 and a head width that pads.
+ATTN_CASES = (
+    ("qwen3_1.7b_prefill", (16,), 4096, 4096, 128, torch.bfloat16, True,
+     None, True),
+    ("mixtral_8x7b_window", (8,), 8192, 8192, 128, torch.bfloat16, True,
+     4096, True),
+    ("mixtral_8x7b_causal", (8,), 8192, 8192, 128, torch.bfloat16, True,
+     None, True),
+    ("decode_f32", (16,), 128, 4096, 128, torch.float32, True, None, True),
+    ("sq_gt_skv", (1,), 256, 128, 64, torch.float32, True, None, False),
+    ("f16", (4,), 512, 512, 64, torch.float16, True, None, False),
+    ("f64_window", (2,), 256, 256, 128, torch.float64, True, 100, False),
+    ("d48_pads", (2, 3), 192, 192, 48, torch.float32, False, None, False),
+)
+
+
+def attention_pairs(sq, skv, causal, window) -> int:
+    """(query, key) pairs the masks leave visible — the work a kernel that
+    skips masked tiles has to do for one slice."""
+    q_pos = torch.arange(sq, dtype=torch.int64)[:, None] + (skv - sq)
+    k_pos = torch.arange(skv, dtype=torch.int64)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window is not None:
+        mask &= k_pos > q_pos - window
+    return int(mask.sum())
+
+
+def sdpa_call(q, k, v, causal, window):
+    """The library's fused attention on the same function: is_causal where
+    the mask is the square causal one, else an explicit boolean mask
+    (right-aligned or windowed). The heads go on a fourth axis, (1, H, S,
+    D): on 3-D inputs the library takes its unfused path. Timed as the
+    yardstick only."""
+    sq, skv = q.shape[-2], k.shape[-2]
+    q, k, v = (x.reshape(1, -1, *x.shape[-2:]) for x in (q, k, v))
+    if causal and window is None and sq == skv:
+        return lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True)
+    q_pos = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
+    k_pos = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window is not None:
+        mask &= k_pos > q_pos - window
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask)
+
+
+def phase_attention() -> tuple:
+    """K5 through ``ops.attention`` (blocks from the tuning cache, empty
+    here, so the heuristic's), counted; then each output against the plain
+    version on the same inputs, and the timed shapes against their bound
+    and the library's call."""
+    cases = []
+    for i, (name, lead, sq, skv, d, dtype, causal, window, timed) in \
+            enumerate(ATTN_CASES):
+        rng = np.random.default_rng(50 + i)
+        q, k, v = (convert.from_reference(
+            rng.standard_normal((*lead, s, d), dtype=np.float32), dtype=dtype)
+            for s in (sq, skv, skv))
+        cases.append((name, q, k, v, causal, window, timed))
+
+    A.reset_launches()
+    outs = [ops.attention(q, k, v, causal=causal, window=window)
+            for _, q, k, v, causal, window, _ in cases]
+    torch.cuda.synchronize()
+    counts = A.launch_counts()
+    if counts != {"flash_attention": len(cases), "plain_flash_attention": 0}:
+        raise AssertionError(f"ops.attention launches {counts}, expected "
+                             f"{len(cases)} kernel launches")
+
+    rows = []
+    for (name, q, k, v, causal, window, timed), got in zip(cases, outs):
+        kw = dict(causal=causal, window=window)
+        want = A.flash_attention_plain(q, k, v, **kw)
+        abs_err, rel_peak, rel_row = check_kernel(
+            got, want, q.dtype, what=f"flash_attention {name}",
+            rtol=ATTN_RTOL, per_row=True)
+        sq, skv, d = q.shape[-2], k.shape[-2], q.shape[-1]
+        blocks = ops.pick_attn_blocks(sq, skv, d, dtype=q.dtype)
+        row = {"name": name, "dtype": str(q.dtype).removeprefix("torch."),
+               "shape": f"q{tuple(q.shape)} kv{tuple(k.shape)}",
+               "causal": causal, "window": window, "blocks": list(blocks),
+               "tile": list(A.kernel_tile(*blocks, d)),
+               "max_abs_err": abs_err, "rel_to_peak": rel_peak,
+               "rel_to_row": rel_row, "rel_to_row_limit": ATTN_RTOL[q.dtype]}
+        if name == "sq_gt_skv":
+            if not torch.equal(got[..., :sq - skv, :],
+                               torch.zeros_like(got[..., :sq - skv, :])):
+                raise AssertionError("flash_attention: query rows before "
+                                     "every key must be exactly 0")
+            row["rows_without_key_all_zero"] = True
+        if timed:
+            heads = q.numel() // (sq * d)
+            pairs = attention_pairs(sq, skv, causal, window)
+            flops = 4.0 * heads * pairs * d
+            nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+            b_ms, b_by = bound(flops, nbytes, q.dtype)
+            library = sdpa_call(q, k, v, causal, window)
+            _, lib_rel = errors(library().reshape(want.shape), want)
+            row.update(
+                ms=time_ms(lambda: ops.attention(q, k, v, **kw)),
+                plain_ms=time_ms(lambda: A.flash_attention_plain(q, k, v,
+                                                                 **kw)),
+                library_ms=time_ms(library), library_rel_to_peak=lib_rel,
+                bound_ms=b_ms, bound_by=b_by, gflop=flops / 1e9,
+                visible_pairs_per_slice=pairs)
+        rows.append(row)
+        del want
+    by_name = {r["name"]: r for r in rows}
+    ratio = (by_name["mixtral_8x7b_window"]["ms"]
+             / by_name["mixtral_8x7b_causal"]["ms"])
+    pair_ratio = (by_name["mixtral_8x7b_window"]["visible_pairs_per_slice"]
+                  / by_name["mixtral_8x7b_causal"]["visible_pairs_per_slice"])
+    emit("attention", launches=counts, rows=rows,
+         window_to_causal_ms_ratio=ratio,
+         window_to_causal_pair_ratio=pair_ratio)
+    return counts, by_name["qwen3_1.7b_prefill"]
+
+
+def phase_tuning() -> None:
+    """Measured sweeps into the (temporary) tuning cache, then the entry
+    points under them: ``ops.attention`` given no blocks must launch the
+    attention entry the cache holds; an A^96 chain at n = 512 runs on the
+    tuned matmul tiles and squaring tiers and is held to ``error_budget``."""
+    t0 = time.perf_counter()
+    default_attn = ops.pick_attn_blocks(4096, 4096, 128, dtype=torch.bfloat16,
+                                        use_cache=False)
+    best_attn, attn_results = autotune.sweep_attention(
+        4096, 4096, 128, torch.bfloat16)
+    key = "attention/4096x4096x128/bfloat16/cuda"
+    entry = autotune.load_cache()[key]
+    if not entry["measured"] or tuple(entry["blocks"]) != best_attn:
+        raise AssertionError(f"attention sweep recorded {entry}")
+    # The heuristic alone launches default_attn, so a launch of the winner
+    # shows the cache was read only where the two differ. Where they do not,
+    # the best measured pair other than the default takes the entry's place.
+    expect = best_attn
+    if best_attn == default_attn:
+        runner_up = next(r for r in attn_results
+                         if r["blocks"] != default_attn
+                         and r["score"] < float("inf"))
+        expect = runner_up["blocks"]
+        autotune.record(4096, 4096, 128, expect, dtype=torch.bfloat16,
+                        backend="cuda", score=runner_up["score"],
+                        measured=True, kernel="attention")
+
+    rng = np.random.default_rng(60)
+    q, k, v = (convert.from_reference(
+        rng.standard_normal((16, 4096, 128), dtype=np.float32),
+        dtype=torch.bfloat16) for _ in range(3))
+    A.reset_launches()
+    got = ops.attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    used = (A.last_launch["block_q"], A.last_launch["block_k"])
+    if A.launch_counts()["flash_attention"] != 1 or used != expect:
+        raise AssertionError(f"ops.attention launched blocks {used} "
+                             f"({A.launch_counts()}), the cache holds "
+                             f"{expect}, the heuristic gives {default_attn}")
+    check_kernel(got, A.flash_attention_plain(q, k, v, causal=True),
+                 torch.bfloat16, what="ops.attention on tuned blocks",
+                 rtol=ATTN_RTOL, per_row=True)
+    del q, k, v, got
+
+    default_mm = {n: ops.pick_blocks(n, n, n, dtype=torch.float32,
+                                     use_cache=False) for n in (4096, 512)}
+    mm = {n: autotune.sweep(n, n, n, torch.float32) for n in (4096, 512)}
+    # Two unrecorded repeats of the tier sweep show whether it is stable.
+    tier_repeats = [autotune.sweep_square_tiers(torch.float32, save=False)
+                    for _ in range(2)]
+    tiers = autotune.sweep_square_tiers(torch.float32)
+
+    n = 512
+    chain = ops.MatmulChain(n, torch.float32, device="cuda")
+    if chain.tiers != tiers or chain.blocks != mm[n][0]:
+        raise AssertionError(f"chain took blocks {chain.blocks} tiers "
+                             f"{chain.tiers}; the cache holds {mm[n][0]} "
+                             f"{tiers}")
+    a = power_operand(n, torch.float32, 61)
+    want = f64_power(a, POWER, what="tuned chain")
+    K.reset_launches()
+    got = matpow_binary(a, POWER, backend="cuda_chain")
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in K.launch_counts().items() if v}
+    if sum(launches.values()) != MULTS or any(
+            k.startswith("plain_") for k in launches):
+        raise AssertionError(f"tuned chain launches {launches}")
+    abs_err, rel_peak, rtol, atol = check_close(
+        got, want, torch.float32, n=n, mults=MULTS,
+        what=f"matpow_binary(n={n}, p={POWER}) on tuned tiles and tiers")
+    emit("tuning", seconds=round(time.perf_counter() - t0, 2),
+         attention={"shape": "16 x (4096, 4096, 128) bf16 causal",
+                    "default": list(default_attn), "winner": list(best_attn),
+                    "scores_us": {str(r["blocks"]): r["score"]
+                                  for r in attn_results},
+                    "cache_entry_used": list(expect),
+                    "runner_up_planted": expect != best_attn,
+                    "launched": list(used)},
+         matmul={str(n): {"default": list(default_mm[n]),
+                          "winner": list(mm[n][0]),
+                          "scores_us": {str(r["blocks"]): r["score"]
+                                        for r in mm[n][1]}}
+                 for n in mm},
+         square_tiers={"default": list(autotune.DEFAULT_SQUARE_TIERS),
+                       "recorded": list(tiers),
+                       "repeats": [list(t) for t in tier_repeats],
+                       "probes_us": autotune.load_cache()[
+                           "square_panel/tiers/float32/cuda"]["probes_us"]},
+         chain={"n": n, "blocks": list(chain.blocks),
+                "tiers": list(chain.tiers), "launches": launches,
+                "max_abs_err_vs_f64": abs_err, "rel_to_peak_vs_f64": rel_peak,
+                "rtol": rtol, "atol": atol})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device: torch.cuda.is_available() "
               "is False", file=sys.stderr)
         return 1
     t0 = time.perf_counter()
-    smi = phase_device()
-    phase_build()
-    timed = phase_kernels()
-    counts, _ = phase_matpow()
-    phase_entry_points()
-    phase_batched()
-    torch.cuda.synchronize()
+    cache_dir = tempfile.mkdtemp(prefix="chip-smoke-autotune-")
+    os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = str(
+        Path(cache_dir) / "autotune_torch.json")
+    autotune.clear_memory_cache()
+    try:
+        smi = phase_device()
+        phase_build()
+        timed = phase_kernels()
+        counts, _ = phase_matpow()
+        phase_entry_points()
+        phase_batched()
+        attn_counts, attn_row = phase_attention()
+        phase_tuning()
+        torch.cuda.synchronize()
+    finally:
+        shutil.rmtree(cache_dir, ignore_errors=True)
 
+    counts = {**counts, **attn_counts}
+    timed = {**timed, "flash_attention": attn_row}
     kernels = []
-    for name in ("matmul", "square_whole", "square_panel"):
+    for name in ("matmul", "square_whole", "square_panel", "flash_attention"):
         row = timed[name]
         kernels.append({
-            "name": name, "route": "cuda", "source": KERNEL_SOURCE,
+            "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": counts[name],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],

@@ -39,11 +39,12 @@ class BatchedMatmulChain(_kops.MatmulChain):
     """
 
     def __init__(self, batch: int, n: int, dtype, *, blocks=None,
-                 donate: bool = True):
+                 donate: bool = True, device=None):
         if not isinstance(batch, int) or isinstance(batch, bool) or batch < 1:
             raise ValueError(f"batched chains need a static batch >= 1, "
                              f"got {batch!r}")
-        super().__init__(n, dtype, blocks=blocks, donate=donate)
+        super().__init__(n, dtype, blocks=blocks, donate=donate,
+                         device=device)
         self.batch = batch
 
     # -- chain boundary ----------------------------------------------------
@@ -84,7 +85,8 @@ def batched_matpow(a: torch.Tensor, p: int, *, backend: str = "torch") -> torch.
                          f"got shape {tuple(a.shape)}")
     if p == 0:
         return _matpow._eye_like(a)
-    chain = BatchedMatmulChain(a.shape[0], a.shape[-1], a.dtype)
+    chain = BatchedMatmulChain(a.shape[0], a.shape[-1], a.dtype,
+                               device=a.device)
     return chain.unpad(_matpow._binary_chain_body(chain.pad(a), p, chain))
 
 

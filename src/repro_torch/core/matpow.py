@@ -89,7 +89,8 @@ def chain_for(a: torch.Tensor, backend: str, donate: bool = True):
         matmul_backend(backend)  # raises on an unknown name
         return None
     from repro_torch.kernels import ops as kops
-    return kops.MatmulChain(a.shape[-1], a.dtype, donate=donate)
+    return kops.MatmulChain(a.shape[-1], a.dtype, donate=donate,
+                            device=a.device)
 
 
 def _check_square(a: torch.Tensor) -> int:

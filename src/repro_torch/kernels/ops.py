@@ -13,8 +13,18 @@ The port of the dense half of the reference's ``repro/kernels/ops.py``.
                   pad/unpad/tile-pick), un-pads once at exit, and squares
                   between two buffers it owns instead of allocating one per
                   step.
-``pick_blocks`` — tile selection for this card's shared memory and SM count
-                  (heuristic; the tuning cache wires into it later).
+``attention``   — flash attention (K5) with the same device rule: the plain
+                  version on a CPU tensor, the kernel on a CUDA tensor.
+``pick_blocks`` — matmul tile selection: the persistent tuning cache first
+                  (``repro_torch.kernels.autotune``), then a heuristic for
+                  this card's shared memory and SM count.
+``pick_attn_blocks``
+                — the flash-attention (block_q, block_k) face of the same
+                  tuning subsystem (``attention`` cache namespace).
+
+Cache keys carry the device type of the operands (``"cuda"`` / ``"cpu"``):
+the wrappers pass it; a caller without a tensor at hand (``MatmulChain``
+built from a size) passes its ``device``, which defaults to ``"cuda"``.
 
 The device rule of the package holds throughout: these functions compute
 where their tensors lie. On a CUDA tensor every multiply is one of the
@@ -30,13 +40,15 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import dtype_name
+from repro_torch.kernels import autotune
+from repro_torch.kernels.attention import (ATTN_TILES, flash_attention,
+                                           head_dim_for)
 from repro_torch.kernels.matmul import (DEFAULT_BLOCK, KERNEL_TILES, SM_COUNT,
-                                        SMEM_PER_BLOCK, SQUARE_PANEL_LIMIT,
-                                        SQUARE_SMEM_LIMIT, matmul_cuda,
+                                        SMEM_PER_BLOCK, matmul_cuda,
                                         smem_footprint, square_cuda)
 
-__all__ = ["matmul", "square", "pick_blocks", "pad_to_blocks", "PaddedChain",
-           "MatmulChain", "SMEM_BUDGET"]
+__all__ = ["matmul", "square", "attention", "pick_blocks", "pick_attn_blocks",
+           "pad_to_blocks", "PaddedChain", "MatmulChain", "SMEM_BUDGET"]
 
 #: Shared memory ``pick_blocks`` lets one block's staged tiles take: half of
 #: a block's maximum, so at least two blocks share an SM and one computes
@@ -48,11 +60,19 @@ def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
 
 
-def pick_blocks(m: int, n: int, k: int, dtype=None):
+def pick_blocks(m: int, n: int, k: int, dtype=None, use_cache: bool = True,
+                backend=None):
     """Choose (block_m, block_n, block_k) for an (m, k) x (k, n) problem.
 
-    The paper's "an appropriate TILE size is used based on the problem and
-    local memory available", for this card: the largest square output tile
+    Consults the tuning cache first (``autotune.lookup`` under ``backend``,
+    the operands' device type, ``"cuda"`` by default); an entry is used
+    only if the kernels can run it (``autotune.valid_blocks``: an
+    instantiated square tile, a K step that is a multiple of 8, a footprint
+    within a block's shared memory), else it falls through to the
+    heuristic, never raises.
+
+    The heuristic is the paper's "an appropriate TILE size is used based on
+    the problem and local memory available", for this card: the largest square output tile
     of ``KERNEL_TILES`` that still cuts the output into at least one tile
     per SM (a 128-wide tile has the best FMA-to-load ratio, but sixteen of
     them leave most of the card idle), never below 64 unless the whole
@@ -64,6 +84,10 @@ def pick_blocks(m: int, n: int, k: int, dtype=None):
     """
     itemsize = torch.empty((), dtype=dtype).element_size() \
         if dtype is not None else 4
+    if use_cache:
+        tuned = autotune.lookup(m, n, k, dtype=dtype, backend=backend)
+        if tuned is not None and autotune.valid_blocks(tuned, itemsize):
+            return tuned
     small, mid, large = KERNEL_TILES
     if max(m, n) <= small:
         tile = small
@@ -78,20 +102,89 @@ def pick_blocks(m: int, n: int, k: int, dtype=None):
     return tile, tile, bk
 
 
-def _square_blocks(n: int, dtype, blocks=None):
+def pick_attn_blocks(sq: int, skv: int, d: int, dtype=None,
+                     use_cache: bool = True, backend=None):
+    """Choose (block_q, block_k) for a flash-attention (sq, skv, d) problem.
+
+    The attention face of the tuning subsystem: the cache's ``attention``
+    namespace first, under ``backend`` (the operands' device type,
+    ``"cuda"`` by default). An entry is used only if K5 can run it
+    (``autotune.attn_blocks_usable``: each block, clamped to its length,
+    divides it, and an instantiated tile within a block's shared memory
+    holds the pair); an invalid entry falls through to the heuristic, never
+    raises.
+
+    The heuristic starts from the widest instantiated tile (128) clamped to
+    the length; a ragged length takes its largest divisor up to 128 (333 ->
+    111), and a length whose only such divisors are below 16 takes the whole
+    axis as one block. While no instantiated tile holds the pair, a block
+    steps down to the next smaller divisor of its length (at least 16): the
+    query block if no tile is tall enough for it, else the key block.
+    ``ValueError`` when no tiling can exist (a prime length above 128, a
+    head dim above the widest instantiated one): pad the sequence.
+    """
+    if use_cache:
+        tuned = autotune.lookup(sq, skv, d, dtype=dtype, backend=backend,
+                                kernel="attention")
+        if tuned is not None and autotune.attn_blocks_usable(sq, skv, d,
+                                                             tuned):
+            return tuned
+    widest = max(t for tiles in ATTN_TILES.values() for pair in tiles
+                 for t in pair)
+
+    def seq_block(s):
+        b = min(widest, s)
+        if s % b == 0:
+            return b
+        b = max(x for x in range(1, b + 1) if s % x == 0)
+        return s if b < 16 < s else b
+
+    def smaller(s, b):
+        return next((x for x in range(b - 1, 15, -1) if s % x == 0), None)
+
+    def usable(bq, bk):
+        return autotune.attn_blocks_usable(sq, skv, d, (bq, bk))
+
+    bq, bk = seq_block(sq), seq_block(skv)
+    tiles = ATTN_TILES[head_dim_for(d)] if d <= max(ATTN_TILES) else ()
+    tallest = max((t[0] for t in tiles), default=0)
+    while not usable(bq, bk):
+        if (bq > tallest or smaller(skv, bk) is None) \
+                and smaller(sq, bq) is not None:
+            bq = smaller(sq, bq)
+        elif smaller(skv, bk) is not None:
+            bk = smaller(skv, bk)
+        else:
+            break
+    if not usable(bq, bk):
+        raise ValueError(
+            f"no usable attention tiling for seq lens ({sq},{skv}) at d={d}: "
+            f"no block that divides them fits an instantiated tile "
+            f"(head dims {sorted(ATTN_TILES)}, tiles {ATTN_TILES}); pad the "
+            f"sequence to a multiple of 32")
+    return bq, bk
+
+
+def _square_blocks(n: int, dtype, blocks=None, backend=None):
     """(blocks, padded_n) for an (n, n) squaring-chain problem.
 
     The padded size must divide by all three block dims (the output of one
     multiply feeds the next, so M = N = K): it is ``n`` rounded up to their
-    lcm. The picker's tiles are powers of two, so the lcm is the output
-    tile and n = 1000 pads to 1024. Explicitly supplied ``blocks`` are
-    always honoured.
+    lcm. The heuristic's tiles are powers of two, so the lcm is the output
+    tile and n = 1000 pads to 1024. A tiling from the CACHE whose lcm would
+    blow the padding up (e.g. a K step of 24 beside a 32 tile -> lcm 96 for
+    n = 20) falls back to the uncached heuristic. Explicitly supplied
+    ``blocks`` are always honoured.
     """
     if blocks is not None:
         bm, bn, bk = blocks
-    else:
-        bm, bn, bk = pick_blocks(n, n, n, dtype=dtype)
-    return (bm, bn, bk), _round_up(n, math.lcm(bm, bn, bk))
+        return (bm, bn, bk), _round_up(n, math.lcm(bm, bn, bk))
+    bm, bn, bk = pick_blocks(n, n, n, dtype=dtype, backend=backend)
+    step = math.lcm(bm, bn, bk)
+    if step > 2 * _round_up(n, KERNEL_TILES[0]):
+        bm, bn, bk = pick_blocks(n, n, n, dtype=dtype, use_cache=False)
+        step = math.lcm(bm, bn, bk)
+    return (bm, bn, bk), _round_up(n, step)
 
 
 def pad_to_blocks(a: torch.Tensor, block_m: int, block_n: int) -> torch.Tensor:
@@ -134,7 +227,8 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, blocks=None,
                          f"{tuple(b.shape)}")
     m, k = a.shape[-2:]
     n = b.shape[-1]
-    bm, bn, bk = blocks or pick_blocks(m, n, k, dtype=a.dtype)
+    bm, bn, bk = blocks or pick_blocks(m, n, k, dtype=a.dtype,
+                                       backend=a.device.type)
 
     a_s, lead_a = _as_stack(pad_to_blocks(a, bm, bk).contiguous())
     b_s, lead_b = _as_stack(pad_to_blocks(b, bk, bn).contiguous())
@@ -151,15 +245,19 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, blocks=None,
 def square(a: torch.Tensor, *, blocks=None, out_dtype=None) -> torch.Tensor:
     """C = A @ A via the tiered squaring kernels; arbitrary square shapes,
     2-D or stacked. Kernel choice (whole-operand / panel / two-operand)
-    follows the ``square_tier`` policy at the default limits."""
+    follows the ``square_tier`` policy with limits from the tuning cache
+    (``autotune.square_tiers``), resolved once per call."""
     if a.ndim < 2 or a.shape[-1] != a.shape[-2]:
         raise ValueError(f"square needs square matrices, got "
                          f"{tuple(a.shape)}")
     n = a.shape[-1]
-    (bm, bn, bk), padded_n = _square_blocks(n, a.dtype, blocks)
+    backend = a.device.type
+    (bm, bn, bk), padded_n = _square_blocks(n, a.dtype, blocks, backend)
+    smem_limit, panel_limit = autotune.square_tiers(a.dtype, backend)
     padded, lead = _as_stack(pad_to_blocks(a, padded_n, padded_n).contiguous())
     out = square_cuda(padded, block_m=bm, block_n=bn, block_k=bk,
-                      out_dtype=out_dtype or a.dtype)
+                      out_dtype=out_dtype or a.dtype, smem_limit=smem_limit,
+                      panel_limit=panel_limit)
     if padded_n != n:
         out = out[..., :n, :n]
     if lead is not None:
@@ -231,8 +329,9 @@ class MatmulChain(PaddedChain):
         ...
         out = chain.unpad(result)   # once
 
-    Tiles and the squaring-tier limits are fixed once per chain, so every
-    squaring of a chain runs the same kernel.
+    Tiles and the squaring-tier limits are fixed once per chain (the tuning
+    cache's entries for ``device``'s type, or the heuristic and the
+    defaults), so every squaring of a chain runs the same kernel.
 
     Donation. The reference donates the squaring operand's buffer to the
     result; the PyTorch form is a chain that owns two padded buffers and
@@ -248,13 +347,15 @@ class MatmulChain(PaddedChain):
     kernels, one launch per multiply for all of it.
     """
 
-    def __init__(self, n: int, dtype, *, blocks=None, donate: bool = True):
+    def __init__(self, n: int, dtype, *, blocks=None, donate: bool = True,
+                 device=None):
         super().__init__(n, dtype, donate=donate)
-        self.blocks, self.padded_n = _square_blocks(self.n, self.dtype, blocks)
+        backend = None if device is None else torch.device(device).type
+        self.blocks, self.padded_n = _square_blocks(self.n, self.dtype, blocks,
+                                                    backend)
         # Squaring-tier limits fixed once per chain, so every squaring of a
-        # chain uses the same kernel tier (the tuning cache will fill this
-        # pair; until then it is the defaults).
-        self.tiers = (SQUARE_SMEM_LIMIT, SQUARE_PANEL_LIMIT)
+        # chain uses the same kernel tier.
+        self.tiers = autotune.square_tiers(self.dtype, backend)
         self._spare = None
 
     # -- chain body (operands already padded) ------------------------------
@@ -286,3 +387,18 @@ class MatmulChain(PaddedChain):
                           out_dtype=self.dtype, smem_limit=smem_limit,
                           panel_limit=panel_limit, out=out)
         return res if lead is None else res.reshape(x.shape)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window=None, scale=None, block_q=None,
+              block_k=None) -> torch.Tensor:
+    """Flash attention, q: (..., Sq, D), k/v: (..., Skv, D).
+
+    A CPU tensor runs the plain version, a CUDA tensor K5
+    (``attention.flash_attention``). ``block_q`` / ``block_k`` default to
+    ``None``, resolved through ``pick_attn_blocks`` (cache entry first,
+    heuristic on a miss); explicit ints are honoured and must divide the
+    sequence lengths after clamping (``ValueError`` otherwise).
+    """
+    return flash_attention(q, k, v, causal=causal, window=window, scale=scale,
+                           block_q=block_q, block_k=block_k)

@@ -10,6 +10,9 @@ bit-identity across the two frameworks is not claimed — they sum in
 different orders and round bf16 at different places.
 """
 
+import os
+import tempfile
+
 import numpy as np
 import jax.numpy as jnp
 import torch
@@ -21,6 +24,14 @@ JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16,
        "float16": jnp.float16}
 TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16,
          "float16": torch.float16, "float64": torch.float64}
+
+# The port's tuning cache: the tests neither read a developer's tuned entries
+# (tile assertions would depend on the machine) nor write ~/.cache — the
+# reference's tests/conftest.py does the same for the reference's cache. No
+# file is made here; tests of the cache itself point the variable at their
+# own temporary file.
+os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = os.path.join(
+    tempfile.gettempdir(), f"repro-torch-autotune-test-{os.getpid()}.json")
 
 
 def pair(array, dtype: str):

@@ -1,0 +1,321 @@
+"""``repro_torch`` flash attention vs ``repro`` (interpret mode).
+
+The same numpy q, k, v (rounded once to the working dtype, by JAX) go
+through the reference's ``ops.attention(..., interpret=True)`` — its Pallas
+kernel body on the CPU — and the port's ``ops.attention`` on CPU tensors,
+where the wrapper runs the same shape and block checks as on the card and
+then the plain version.
+
+Tolerance, on the largest error over the largest entry of the reference's
+output: 1e-5 in float32 (both compute the scores and the softmax in fp32 and
+differ by summation order), 2^-8 in bfloat16 and 2^-10 in float16 (one unit
+in the last place of the output type: the two round their fp32 results
+once, at nearby values).
+"""
+
+import re
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.kernels import attention_kernels as A
+from repro_torch.kernels import autotune, ops, ref
+
+from _torch_parity import as_f64, pair
+
+RTOL = {"float32": 1e-5, "bfloat16": 2.0 ** -8, "float16": 2.0 ** -10}
+
+
+@pytest.fixture(autouse=True)
+def _fresh_counters():
+    A.reset_launches()
+    yield
+
+
+def _qkv(lead, sq, skv, d, dtype, seed):
+    rng = np.random.default_rng(seed)
+    return [pair(rng.standard_normal((*lead, s, d)), dtype)
+            for s in (sq, skv, skv)]
+
+
+def _assert_close(got, want, dtype):
+    g, w = as_f64(got), as_f64(want)
+    assert g.shape == w.shape, (g.shape, w.shape)
+    assert np.isfinite(g).all()
+    peak = np.abs(w).max()
+    err = np.abs(g - w).max()
+    assert err <= RTOL[dtype] * peak, (
+        f"max error {err:.3e} is {err / peak:.3e} of the largest entry, "
+        f"limit {RTOL[dtype]:.1e}")
+
+
+def _reference(q, k, v, **kw):
+    return jops.attention(q, k, v, interpret=True, **kw)
+
+
+class TestReferenceCases:
+    """The cases of tests/test_kernels.py::TestAttentionKernel, plus f16."""
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+    @pytest.mark.parametrize("cfg", [
+        dict(sq=256, skv=256, d=64, causal=True, window=None),
+        dict(sq=128, skv=512, d=64, causal=True, window=None),
+        dict(sq=256, skv=256, d=128, causal=True, window=64),
+        dict(sq=256, skv=256, d=64, causal=False, window=None),
+    ])
+    def test_flash_vs_reference(self, cfg, dtype):
+        (jq, tq), (jk, tk), (jv, tv) = _qkv((), cfg["sq"], cfg["skv"],
+                                            cfg["d"], dtype, 10)
+        kw = dict(causal=cfg["causal"], window=cfg["window"])
+        want = _reference(jq, jk, jv, block_q=128, block_k=128, **kw)
+        got = ops.attention(tq, tk, tv, **kw)
+        assert got.dtype == tq.dtype
+        _assert_close(got, want, dtype)
+        assert A.launch_counts() == {"flash_attention": 0,
+                                     "plain_flash_attention": 1}
+
+    def test_online_softmax_stability(self):
+        """Large score magnitudes must not overflow the running max."""
+        q = torch.full((128, 64), 30.0)
+        rng = np.random.default_rng(13)
+        v = torch.from_numpy(rng.standard_normal((128, 64)).astype(np.float32))
+        got = ops.attention(q, q, v, causal=True, block_q=128, block_k=128)
+        assert not torch.isnan(got).any()
+
+
+class TestMasksAndShapes:
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+    @pytest.mark.parametrize("cfg", [
+        dict(sq=256, skv=256, d=64, causal=True, window=32),
+        dict(sq=64, skv=1024, d=64, causal=True, window=None),   # decode
+        dict(sq=128, skv=512, d=128, causal=True, window=200),
+        dict(sq=333, skv=333, d=64, causal=True, window=None),   # ragged
+        dict(sq=192, skv=192, d=48, causal=True, window=None),   # d pads
+        dict(sq=96, skv=96, d=256, causal=False, window=16),
+    ])
+    def test_vs_reference(self, cfg, dtype):
+        (jq, tq), (jk, tk), (jv, tv) = _qkv((), cfg["sq"], cfg["skv"],
+                                            cfg["d"], dtype, 20)
+        kw = dict(causal=cfg["causal"], window=cfg["window"])
+        _assert_close(ops.attention(tq, tk, tv, **kw),
+                      _reference(jq, jk, jv, **kw), dtype)
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_stack_is_the_vmap_of_the_reference(self, dtype):
+        (jq, tq), (jk, tk), (jv, tv) = _qkv((2, 3), 128, 256, 64, dtype, 21)
+        one = lambda q, k, v: _reference(q, k, v, causal=True, block_q=64,
+                                         block_k=64)
+        want = jax.vmap(jax.vmap(one))(jq, jk, jv)
+        got = ops.attention(tq, tk, tv, causal=True)
+        assert got.shape == (2, 3, 128, 64)
+        _assert_close(got, want, dtype)
+        assert A.launch_counts()["plain_flash_attention"] == 1  # one call
+
+    def test_query_rows_before_every_key_are_zero(self):
+        """Sq > Skv, causal: rows 0..127 sit before every key. Held against
+        the reference's ORACLE, not its kernel: the kernel masks with the
+        finite -1e30, so such a row gets exp(0) = 1 for every key and
+        returns mean(v) (ROADMAP queue 3), where the oracle and its
+        docstring give 0."""
+        (jq, tq), (jk, tk), (jv, tv) = _qkv((), 256, 128, 64, "float32", 22)
+        got = ops.attention(tq, tk, tv, causal=True)
+        want = jref.flash_attention_ref(jq, jk, jv, causal=True)
+        assert torch.equal(got[:128], torch.zeros(128, 64))
+        _assert_close(got, want, "float32")
+        kernel = np.asarray(_reference(jq, jk, jv, causal=True, block_q=128,
+                                       block_k=128))
+        np.testing.assert_allclose(kernel[:128], np.broadcast_to(
+            np.asarray(jv).mean(0), (128, 64)), atol=1e-6)
+
+    def test_zero_padded_head_dim_is_exact(self):
+        """What the kernel route does for a head dim it is not instantiated
+        for: zero columns add nothing to q.k^T or p.v, and the scale stays
+        that of the true width."""
+        rng = np.random.default_rng(23)
+        q, k, v = (torch.from_numpy(rng.standard_normal((2, 64, 48))
+                                    .astype(np.float32)) for _ in range(3))
+        assert A.head_dim_for(48) == 64
+        pad = lambda x: F.pad(x, (0, 16))
+        got = A.flash_attention_plain(pad(q), pad(k), pad(v), causal=True,
+                                      scale=48 ** -0.5)[..., :48]
+        want = A.flash_attention_plain(q, k, v, causal=True)
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+    @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+    def test_ref_computes_float64_in_fp32(self, dtype):
+        rng = np.random.default_rng(24)
+        q, k, v = (torch.from_numpy(rng.standard_normal((64, 64)))
+                   .to(dtype) for _ in range(3))
+        got = A.flash_attention_plain(q, k, v)
+        assert got.dtype == dtype
+        want = A.flash_attention_plain(q.float(), k.float(), v.float())
+        torch.testing.assert_close(got.float(), want, rtol=0, atol=0)
+
+
+class TestBlocks:
+    def test_explicit_blocks_are_honoured_and_checked(self):
+        (jq, tq), (jk, tk), (jv, tv) = _qkv((), 256, 256, 64, "float32", 30)
+        got = ops.attention(tq, tk, tv, block_q=64, block_k=64)
+        _assert_close(got, _reference(jq, jk, jv, block_q=64, block_k=64),
+                      "float32")
+        with pytest.raises(ValueError, match="not divisible"):
+            ops.attention(tq, tk, tv, block_q=96, block_k=64)
+        with pytest.raises(ValueError, match="not divisible"):
+            jops.attention(jq, jk, jv, interpret=True, block_q=96, block_k=64)
+
+    def test_blocks_clamp_to_the_sequence(self):
+        (jq, tq), (jk, tk), (jv, tv) = _qkv((), 48, 48, 64, "float32", 31)
+        got = ops.attention(tq, tk, tv, block_q=128, block_k=128)
+        _assert_close(got, _reference(jq, jk, jv, block_q=128, block_k=128),
+                      "float32")
+
+    def test_a_block_no_tile_holds_raises_naming_the_tiles(self):
+        (_, tq), (_, tk), (_, tv) = _qkv((), 512, 512, 128, "float32", 32)
+        with pytest.raises(ValueError, match=r"instantiated.*\(128, 64\)"):
+            ops.attention(tq, tk, tv, block_q=128, block_k=128)
+        with pytest.raises(ValueError, match="instantiated"):
+            ops.attention(tq, tk, tv, block_q=256, block_k=64)
+        assert A.launch_counts()["plain_flash_attention"] == 0
+
+    @pytest.mark.parametrize("d,tiles", [(16, 64), (64, 64), (65, 128),
+                                         (128, 128), (200, 256), (256, 256)])
+    def test_head_dims_pad_to_the_next_instantiated_width(self, d, tiles):
+        assert A.head_dim_for(d) == tiles
+
+    def test_head_dim_above_the_widest_raises(self):
+        with pytest.raises(ValueError, match="head dim 300"):
+            A.head_dim_for(300)
+
+    @pytest.mark.parametrize("block,d,tile", [
+        ((64, 64), 128, (64, 64)), ((111, 37), 64, (128, 64)),
+        ((32, 16), 64, (64, 32)), ((128, 128), 128, None),
+        ((96, 100), 256, None), ((64, 100), 128, (64, 128))])
+    def test_kernel_tile_is_the_smallest_that_holds_the_block(self, block, d,
+                                                              tile):
+        assert A.kernel_tile(*block, d) == tile
+
+    def test_tile_table_is_the_kernels(self):
+        """``ATTN_TILES`` and the REPRO_ATTN_TILE lines of attention.cuh
+        name the same (head width, tile_q, tile_k) instantiations: a tile the
+        picker could choose but the library lacks would only show as a -1
+        from the launcher on the card."""
+        src = (Path(A.__file__).parent / "csrc" / "attention.cuh").read_text()
+        lines = re.findall(r"^\s*REPRO_ATTN_TILE\((\d+), (\d+), (\d+)\)\s*$",
+                           src, flags=re.M)
+        in_cuda = sorted(tuple(int(x) for x in line) for line in lines)
+        in_python = sorted((d, tq, tk) for d, tiles in A.ATTN_TILES.items()
+                           for tq, tk in tiles)
+        assert in_cuda == in_python and len(in_cuda) == 13
+
+    def test_every_tile_fits_shared_memory(self):
+        for d, tiles in A.ATTN_TILES.items():
+            for tile in tiles:
+                assert A.attn_smem_footprint(*tile, d) <= 232_448
+        # the issue's figure: q, k, v and score tiles at 64 x 64, d 128
+        assert 110_000 < A.attn_smem_footprint(64, 64, 128) < 125_000
+
+
+class TestContracts:
+    @pytest.mark.parametrize("shapes", [
+        ((64, 32), (64, 16), (64, 16)), ((2, 64, 32), (3, 64, 32), (3, 64, 32)),
+        ((64, 32), (64, 32), (32, 32)), ((32,), (32,), (32,)),
+        ((0, 32), (64, 32), (64, 32))])
+    def test_bad_shapes_raise(self, shapes):
+        q, k, v = (torch.zeros(s) for s in shapes)
+        with pytest.raises(ValueError, match="attention"):
+            ops.attention(q, k, v)
+
+    def test_mixed_dtypes_raise(self):
+        q = torch.zeros(64, 32)
+        with pytest.raises(ValueError, match="dtype"):
+            ops.attention(q, q.double(), q)
+
+    def test_cpu_counts_the_plain_route_only(self):
+        q = torch.zeros(64, 32)
+        ops.attention(q, q, q)
+        A.flash_attention(q, q, q)
+        assert A.launch_counts() == {"flash_attention": 0,
+                                     "plain_flash_attention": 2}
+        A.reset_launches()
+        assert not any(A.launch_counts().values())
+
+    def test_auto_blocks_come_from_the_cache(self, tmp_path, monkeypatch):
+        monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE",
+                           str(tmp_path / "cache.json"))
+        autotune.clear_memory_cache()
+        try:
+            autotune.record(256, 256, 64, (64, 32), kernel="attention",
+                            dtype=torch.float32, backend="cpu")
+            seen = {}
+            real = ops.pick_attn_blocks
+
+            def spy(*args, **kwargs):
+                seen["blocks"] = real(*args, **kwargs)
+                seen["backend"] = kwargs.get("backend")
+                return seen["blocks"]
+
+            monkeypatch.setattr(ops, "pick_attn_blocks", spy)
+            (jq, tq), (jk, tk), (jv, tv) = _qkv((), 256, 256, 64, "float32",
+                                                33)
+            got = A.flash_attention(tq, tk, tv, causal=True)
+            assert seen == {"blocks": (64, 32), "backend": "cpu"}
+            _assert_close(got, jref.flash_attention_ref(jq, jk, jv),
+                          "float32")
+        finally:
+            autotune.clear_memory_cache()
+
+
+class TestRowRelativeError:
+    """The yardstick K5 is held to on the card (``chip_smoke.py``,
+    tests/test_torch_gpu.py): each query row's error over that row's
+    largest entry."""
+
+    @staticmethod
+    def _dropping_a_tile(q, k, v, first_row, keys):
+        """Causal attention in which rows from ``first_row`` on never see
+        ``keys``: what a kernel that skipped one KV tile for the later query
+        tiles would return."""
+        sq, d = q.shape[-2:]
+        pos = torch.arange(sq)
+        mask = pos[None, :] <= pos[:, None]
+        mask[first_row:, keys] = False
+        scores = (q.float() @ k.float().transpose(-1, -2)) * d ** -0.5
+        probs = torch.softmax(scores.masked_fill(~mask, float("-inf")), -1)
+        return (probs @ v.float()).to(q.dtype)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_catches_a_dropped_tile_that_the_peak_limit_passes(self, dtype):
+        """Small scores (q at a quarter of unit scale) spread each late row
+        over ~1500 keys: its entries are a few hundredths, while row 0 is
+        v[0] itself. Dropping 64 keys from rows 1536 on moves the output by
+        under 1e-2 of its peak but by a third of those rows' own scale."""
+        rng = np.random.default_rng(40)
+        q, k, v = (torch.from_numpy(rng.standard_normal((2, 2048, 64))
+                                    .astype(np.float32) * scale).to(dtype)
+                   for scale in (0.25, 1.0, 1.0))
+        want = A.flash_attention_plain(q, k, v, causal=True)
+        bad = self._dropping_a_tile(q, k, v, 1536, slice(1024, 1088))
+        peak_rel = ((bad.double() - want.double()).abs().max()
+                    / want.double().abs().max()).item()
+        assert peak_rel < 1e-2                 # a peak-relative limit passes it
+        assert ref.row_relative_error(bad, want) > 0.3
+        # a rounding-sized change of every entry stays inside the limit
+        near = (want.float() * (1 + 2.0 ** -9)).to(dtype)
+        assert ref.row_relative_error(near, want) <= 2.0 ** -7
+
+    def test_a_row_that_must_be_zero_must_be_exactly_zero(self):
+        want = torch.zeros(2, 4, 8)
+        want[:, 2:] = 1.0
+        got = want.clone()
+        assert ref.row_relative_error(got, want) == 0.0
+        got[0, 1, 3] = 1e-30
+        assert ref.row_relative_error(got, want) == float("inf")
+        got = want.clone()
+        got[1, 3, 0] = 1.01
+        assert ref.row_relative_error(got, want) == pytest.approx(0.01)

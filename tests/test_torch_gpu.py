@@ -15,7 +15,8 @@ import pytest
 import torch
 
 from repro_torch.core import batched_matpow, matpow_binary
-from repro_torch.kernels import error_budget, ops
+from repro_torch.kernels import attention_kernels as A
+from repro_torch.kernels import autotune, error_budget, ops, ref
 from repro_torch.kernels import matmul_kernels as K
 
 pytestmark = pytest.mark.gpu
@@ -24,10 +25,14 @@ B64 = dict(block_m=64, block_n=64, block_k=32)
 
 
 @pytest.fixture
-def cuda():
+def cuda(tmp_path, monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE",
+                       str(tmp_path / "autotune_torch.json"))
+    autotune.clear_memory_cache()
     K.reset_launches()
+    A.reset_launches()
     return torch.device("cuda")
 
 
@@ -41,6 +46,11 @@ def _randn(shape, dtype, device, seed=0):
 # of the output type at most; the limit is relative to the largest entry.
 KERNEL_RTOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2,
                torch.float16: 2e-3, torch.float64: 1e-12}
+# K5 is held to the same numbers per query row (each row's largest error over
+# that row's largest entry): an attention output's scale varies by row, and
+# a limit on the whole output's peak would pass a dropped KV tile. It
+# computes float64 inputs in fp32, as the reference does.
+ATTN_RTOL = {**KERNEL_RTOL, torch.float64: 1e-4}
 
 
 def _close(got, want, dtype):
@@ -48,6 +58,12 @@ def _close(got, want, dtype):
     assert got.shape == want.shape and torch.isfinite(got).all()
     err = (got.double() - want.double()).abs().max().item()
     assert err <= KERNEL_RTOL[dtype] * want.double().abs().max().item()
+
+
+def _attn_close(got, want, dtype):
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    assert ref.row_relative_error(got, want) <= ATTN_RTOL[dtype]
 
 
 def _power_operand(n, device, seed):
@@ -148,3 +164,70 @@ def test_ops_matmul_pads_and_strips_on_the_gpu(cuda):
     b = _randn((257, 129), torch.float32, cuda, 7)
     _close(ops.matmul(a, b), (a.double() @ b.double()).float(), torch.float32)
     assert K.launch_counts()["matmul"] == 1
+
+
+def _qkv(lead, sq, skv, d, dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.standard_normal((*lead, s, d)))
+                 .to(device=device, dtype=dtype) for s in (sq, skv, skv))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16, torch.float64])
+@pytest.mark.parametrize("cfg", [
+    dict(lead=(2,), sq=256, skv=256, d=64, causal=True, window=None),
+    dict(lead=(2,), sq=128, skv=512, d=128, causal=True, window=None),
+    dict(lead=(2, 3), sq=256, skv=256, d=128, causal=True, window=64),
+    dict(lead=(1,), sq=256, skv=256, d=64, causal=False, window=None),
+    dict(lead=(2,), sq=192, skv=192, d=48, causal=True, window=None),
+    dict(lead=(1,), sq=64, skv=64, d=256, causal=False, window=32),
+])
+def test_flash_attention_kernel_vs_plain(cuda, cfg, dtype):
+    q, k, v = _qkv(cfg["lead"], cfg["sq"], cfg["skv"], cfg["d"], dtype, cuda)
+    kw = dict(causal=cfg["causal"], window=cfg["window"])
+    got = A.flash_attention(q, k, v, **kw)
+    assert A.launch_counts()["flash_attention"] == 1      # one launch
+    want = A.flash_attention_plain(q, k, v, **kw)
+    assert got.dtype == dtype
+    _attn_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("blocks", [(64, 32), (64, 64), (64, 128), (128, 32),
+                                    (128, 64), (128, 128), (111, 37),
+                                    (32, 16)])
+def test_flash_attention_every_tile_and_ragged_blocks(cuda, blocks):
+    sq = skv = 333 if blocks == (111, 37) else 256
+    q, k, v = _qkv((2,), sq, skv, 64, torch.float32, cuda, 1)
+    got = A.flash_attention(q, k, v, block_q=blocks[0], block_k=blocks[1])
+    _attn_close(got, A.flash_attention_plain(q, k, v), torch.float32)
+    assert A.last_launch["block_q"] == blocks[0]
+    assert A.last_launch["tile"] == A.kernel_tile(*blocks, 64)
+
+
+def test_flash_attention_row_with_no_key_is_zero(cuda):
+    """Sq > Skv, causal: query rows 0..127 sit before every key."""
+    q, k, v = _qkv((1,), 256, 128, 64, torch.float32, cuda, 2)
+    got = ops.attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got[:, :128], torch.zeros_like(got[:, :128]))
+    _attn_close(got, A.flash_attention_plain(q, k, v, causal=True),
+                torch.float32)
+
+
+def test_flash_attention_uses_the_cached_blocks(cuda):
+    autotune.record(512, 512, 128, (64, 32), kernel="attention",
+                    dtype=torch.bfloat16, backend="cuda")
+    q, k, v = _qkv((4,), 512, 512, 128, torch.bfloat16, cuda, 3)
+    ops.attention(q, k, v)
+    assert (A.last_launch["block_q"], A.last_launch["block_k"]) == (64, 32)
+
+
+def test_flash_attention_refuses_what_it_does_not_take(cuda):
+    q, k, v = _qkv((1,), 256, 256, 128, torch.float32, cuda, 4)
+    with pytest.raises(ValueError, match="not divisible"):
+        A.flash_attention(q, k, v, block_q=96, block_k=64)
+    with pytest.raises(ValueError, match="instantiated"):
+        A.flash_attention(q, k, v, block_q=128, block_k=128)
+    with pytest.raises(TypeError, match="dtype"):
+        A.flash_attention(q.int(), k.int(), v.int(), block_q=64, block_k=64)
+    assert A.launch_counts()["flash_attention"] == 0

@@ -113,9 +113,10 @@ class TestDeviceRule:
 
     def test_kernel_route_has_no_fallback(self):
         """The wrappers choose by the tensor's device and never catch a
-        failed build or launch: no ``try`` in the kernel module."""
-        tree = ast.parse((PKG / "kernels" / "matmul.py").read_text())
-        assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
+        failed build or launch: no ``try`` in the kernel modules."""
+        for name in ("matmul.py", "attention.py"):
+            tree = ast.parse((PKG / "kernels" / name).read_text())
+            assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
 
     def test_accum_dtype_table(self):
         for dt in (torch.float32, torch.bfloat16, torch.float16):
@@ -148,8 +149,9 @@ class TestNoJax:
         names = {p.relative_to(PKG).as_posix() for p in PKG.rglob("*.py")}
         assert {"__init__.py", "convert.py", "kernels/__init__.py",
                 "kernels/_build.py", "kernels/matmul.py", "kernels/ops.py",
-                "kernels/ref.py", "kernels/fastmm.py", "core/__init__.py",
-                "core/matpow.py", "core/batched.py",
+                "kernels/ref.py", "kernels/fastmm.py",
+                "kernels/attention.py", "kernels/autotune.py",
+                "core/__init__.py", "core/matpow.py", "core/batched.py",
                 "core/expm.py"} <= names
 
     def test_importing_everything_loads_neither(self):
@@ -190,6 +192,12 @@ class TestBuildLayout:
             assert f"__global__ void __launch_bounds__(kThreads)\n{kernel}(" \
                 in src
         assert "torch/" not in src and "ATen" not in src   # plain C interface
+        assert {"attention.cuh", "attention_f32.cu", "attention_f64.cu",
+                "attention_f16.cu", "attention_bf16.cu"} <= names
+        src = (PKG / "kernels" / "csrc" / "attention.cuh").read_text()
+        assert "__global__ void __launch_bounds__(kThreads)\n" \
+            "flash_attention_kernel(" in src
+        assert "torch/" not in src and "ATen" not in src
 
     def test_build_flags_target_hopper(self):
         assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
@@ -198,7 +206,8 @@ class TestBuildLayout:
     def test_every_c_function_has_argtypes(self):
         assert set(_build._SIGNATURES) == {"repro_matmul",
                                            "repro_square_whole",
-                                           "repro_square_panel"}
+                                           "repro_square_panel",
+                                           "repro_flash_attention"}
         assert set(_build.DTYPE_SUFFIX) == set(repro_torch.DTYPES)
 
     def test_build_directory_is_git_ignored(self):
