@@ -4,9 +4,12 @@
     python3 chip_smoke.py
 
 builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (first use),
-holds every kernel against its plain PyTorch version on the card, then runs
-the slices end to end — ``matpow_binary(a, 96, backend="cuda_chain")`` at
-n = 4096 and in every squaring tier, the other matpow entry points, the
+holds every kernel against its plain PyTorch version on the card — the FMA
+kernels of ``gemm.cuh`` in f32 / f64 (and K2 in every dtype), the
+tensor-core K1 / K3 of ``gemm_tc.cuh`` at every instantiated (tile, K step,
+output type) in bf16 / f16 — then runs the slices end to end —
+``matpow_binary(a, 96, backend="cuda_chain")`` at n = 4096 (f32, bf16, f16)
+and in every squaring tier, the other matpow entry points, the
 stacked chain and ``expm`` against float64 references; ``ops.attention``
 (flash attention, K5) at the widths of Qwen3-1.7B and Mixtral-8x7B against
 its plain version, with ``scaled_dot_product_attention`` timed beside it;
@@ -58,14 +61,26 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
 PEAK_BYTES = 3.35e12
 
 SOURCES = {"matmul": "src/repro_torch/kernels/csrc/gemm.cuh",
+           "matmul_tc": "src/repro_torch/kernels/csrc/gemm_tc.cuh",
            "square_whole": "src/repro_torch/kernels/csrc/gemm.cuh",
            "square_panel": "src/repro_torch/kernels/csrc/gemm.cuh",
+           "square_panel_tc": "src/repro_torch/kernels/csrc/gemm_tc.cuh",
            "flash_attention": "src/repro_torch/kernels/csrc/attention.cuh"}
 REPLACES = {"matmul": "src/repro/kernels/matmul.py:111",
+            "matmul_tc": "src/repro/kernels/matmul.py:111",
             "square_whole": "src/repro/kernels/matmul.py:275",
             "square_panel": "src/repro/kernels/matmul.py:287",
+            "square_panel_tc": "src/repro/kernels/matmul.py:287",
             "flash_attention": "src/repro/kernels/attention.py:155"}
+#: The rows of the ``{"kernels": [...]}`` line: (kernel, dtype of its timed
+#: main-path shape).
+KERNEL_ROWS = (("matmul", "float32"), ("matmul_tc", "bfloat16"),
+               ("matmul_tc", "float16"), ("square_whole", "float32"),
+               ("square_panel", "float32"), ("square_panel_tc", "bfloat16"),
+               ("square_panel_tc", "float16"),
+               ("flash_attention", "bfloat16"))
 DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.float64)
+SIXTEEN_BIT = (torch.bfloat16, torch.float16)
 POWER = 96          # 6 squarings + 1 combine
 MULTS = 7
 WRONG_POWER = 64    # what a chain that lost its combine would return
@@ -248,12 +263,15 @@ def phase_build() -> None:
          flags=list(_build.NVCC_FLAGS))
 
 
-def kernel_case(name, dtype, operands, blocks, *, timed, rows, **limits):
+def kernel_case(name, dtype, operands, blocks, *, timed, rows,
+                out_dtype=None, **limits):
     """Run one kernel wrapper and its plain version on the same CUDA
     tensors, compare, optionally time; append a row. ``limits`` moves the
-    squaring-tier limits (to force the panel kernel on a small operand)."""
+    squaring-tier limits (to force the panel kernel on a small operand);
+    ``out_dtype`` asks for another output type than the operands'."""
     bm, bn, bk = blocks
-    kw = dict(block_m=bm, block_n=bn, block_k=bk, **limits)
+    kw = dict(block_m=bm, block_n=bn, block_k=bk, out_dtype=out_dtype,
+              **limits)
     if name == "matmul":
         a, b = operands
         run = lambda: K.matmul_cuda(a, b, **kw)
@@ -273,19 +291,25 @@ def kernel_case(name, dtype, operands, blocks, *, timed, rows, **limits):
         batch = a.shape[0] if a.ndim == 3 else 1
         nbytes = 2 * a.numel() * a.element_size()
         shape = f"{tuple(a.shape)}^2"
+    kernel = K.kernel_name(name, dtype)
+    out_dtype = out_dtype or dtype
     before = K.launch_counts()
     got = run()
     torch.cuda.synchronize()
     after = K.launch_counts()
-    if after[name] != before[name] + 1:
+    if after[kernel] != before[kernel] + 1 or sum(after.values()) \
+            != sum(before.values()) + 1:
         raise AssertionError(f"{name} {shape} {dtype}: expected one launch "
-                             f"of {name}, counters went {before} -> {after}")
+                             f"of {kernel}, counters went {before} -> "
+                             f"{after}")
     want = plain()
     abs_err, rel_peak, _ = check_kernel(
-        got, want, dtype, what=f"kernel {name} {shape} {dtype}")
-    row = {"name": name, "dtype": str(dtype).removeprefix("torch."),
+        got, want, out_dtype, what=f"kernel {kernel} {shape} {dtype} -> "
+                                   f"{out_dtype}")
+    row = {"name": kernel, "dtype": str(dtype).removeprefix("torch."),
+           "out_dtype": str(out_dtype).removeprefix("torch."),
            "shape": shape, "blocks": list(blocks), "max_abs_err": abs_err,
-           "rel_to_peak": rel_peak, "rel_to_peak_limit": KERNEL_RTOL[dtype]}
+           "rel_to_peak": rel_peak, "rel_to_peak_limit": KERNEL_RTOL[out_dtype]}
     if timed:
         b_ms, b_by = bound(2.0 * batch * m * n * k, nbytes, dtype)
         row.update(ms=time_ms(run), plain_ms=time_ms(plain),
@@ -302,22 +326,32 @@ def kernel_case(name, dtype, operands, blocks, *, timed, rows, **limits):
 
 def phase_kernels() -> dict:
     """K1, K2, K3 — 2-D and stacked — against their plain versions on the
-    card, for f32, bf16, f16 and f64; timed at the main path's shapes."""
+    card, for f32, bf16, f16 and f64 (the 16-bit K1 and K3 at every
+    instantiated (tile, K step) and both output types); timed at the main
+    path's shapes."""
     rows = []
     for dtype in DTYPES:
-        for tile, bk in ((32, 8), (64, 16), (128, 16)):
-            blocks = (tile, tile, bk)
-            a = randn((256, 384), dtype, 1)
-            b = randn((384, 128), dtype, 2, 384 ** -0.25)
+        if dtype in SIXTEEN_BIT:
+            tilings = [((t, t, bk), out) for t, bk in K.TC_BLOCKS
+                       for out in (None, torch.float32)]
+            stacked = (64, 64, 32)
+        else:
+            tilings = [((t, t, bk), None)
+                       for t, bk in ((32, 8), (64, 16), (128, 16))]
+            stacked = (64, 64, 16)
+        # M != N != K, K a multiple of every K step and several ring stages
+        a = randn((256, 384), dtype, 1)
+        b = randn((384, 128), dtype, 2, 384 ** -0.25)
+        for blocks, out in tilings:
             kernel_case("matmul", dtype, (a, b), blocks, timed=False,
-                        rows=rows)
+                        rows=rows, out_dtype=out)
         a3 = randn((3, 256, 384), dtype, 3)
         b3 = randn((3, 384, 128), dtype, 4, 384 ** -0.25)
-        kernel_case("matmul", dtype, (a3, b3), (64, 64, 16), timed=False,
+        kernel_case("matmul", dtype, (a3, b3), stacked, timed=False,
                     rows=rows)
-        kernel_case("matmul", dtype, (a3, b), (64, 64, 16), timed=False,
+        kernel_case("matmul", dtype, (a3, b), stacked, timed=False,
                     rows=rows)
-        kernel_case("matmul", dtype, (a, b3), (64, 64, 16), timed=False,
+        kernel_case("matmul", dtype, (a, b3), stacked, timed=False,
                     rows=rows)
         # whole-operand tier: the operand must fit a block's shared memory
         p_whole = 128 if dtype == torch.float64 else 192
@@ -330,40 +364,49 @@ def phase_kernels() -> dict:
                     (64, 64, 16), timed=False, rows=rows)
         # panel tier
         p_panel = 256 if dtype == torch.float64 else 512
-        for tile in (32, 64):
-            kernel_case("square_panel", dtype,
-                        (randn((p_panel, p_panel), dtype, 7),),
-                        (tile, tile, 16), timed=False, rows=rows,
-                        smem_limit=0)
+        if dtype not in SIXTEEN_BIT:
+            tilings = [((t, t, 16), None) for t in (32, 64)]
+        a = randn((p_panel, p_panel), dtype, 7)
+        for blocks, out in tilings:
+            kernel_case("square_panel", dtype, (a,), blocks, timed=False,
+                        rows=rows, out_dtype=out, smem_limit=0)
         kernel_case("square_panel", dtype,
                     (randn((64, 256, 256), dtype, 8),),
-                    (64, 64, 16), timed=False, rows=rows, smem_limit=0)
+                    stacked, timed=False, rows=rows, smem_limit=0)
 
     # The main path's own shapes, timed: the n = 4096 chain runs K1 for its
-    # squarings and its combine; n = 192 squares in K2, n = 512 in K3. The
-    # operands are zero-mean here too, so a dropped K step, a transposed
-    # product or a misplaced tile moves entries by their own size.
+    # squarings and its combine; n = 192 (f32, bf16) squares in K2, n = 512
+    # f32 and n = 1024 bf16 in K3 (phase matpow). K3 is also timed at 512²
+    # in bf16 and f16, PR 12's point of comparison; the kernels line takes
+    # a kernel's last row here, the main path's. The operands are zero-mean
+    # here too, so a dropped K step, a transposed product or a misplaced
+    # tile moves entries by their own size.
     timed = {}
-    for dtype in (torch.float32, torch.bfloat16, torch.float64):
+    for dtype in (torch.float32, torch.bfloat16, torch.float16,
+                  torch.float64):
         a = randn((4096, 4096), dtype, 10)
         b = randn((4096, 4096), dtype, 11)
         blocks, _ = ops._square_blocks(4096, dtype)
         row = kernel_case("matmul", dtype, (a, b), blocks, timed=True,
                           rows=rows)
-        timed.setdefault("matmul", row)
-        if dtype == torch.float32:
+        timed.setdefault((row["name"], row["dtype"]), row)
+        if dtype in (torch.float32, torch.bfloat16):
             # the same product at half the K step: what the default buys
             kernel_case("matmul", dtype, (a, b),
                         (blocks[0], blocks[1], blocks[2] // 2), timed=True,
                         rows=rows)
         del a, b
-    for name, n in (("square_whole", 192), ("square_panel", 512)):
-        for dtype in (torch.float32, torch.bfloat16):
+    for name, n, dtypes in (
+            ("square_whole", 192, (torch.float32, torch.bfloat16)),
+            ("square_panel", 512, (torch.float32, torch.bfloat16,
+                                   torch.float16)),
+            ("square_panel", 1024, (torch.bfloat16,))):
+        for dtype in dtypes:
             a = randn((n, n), dtype, 12)
             blocks, padded = ops._square_blocks(n, dtype)
             assert padded == n
             row = kernel_case(name, dtype, (a,), blocks, timed=True, rows=rows)
-            timed.setdefault(name, row)
+            timed[(row["name"], row["dtype"])] = row
     # One more timed point each for the stacked shapes of phase 6.
     kernel_case("square_panel", torch.float32,
                 (randn((64, 256, 256), torch.float32, 13),),
@@ -373,7 +416,8 @@ def phase_kernels() -> dict:
                 (randn((32, 128, 128), torch.float32, 14),),
                 ops._square_blocks(128, torch.float32)[0], timed=True,
                 rows=rows)
-    emit("kernels", kernels=sorted(timed), cases=len(rows), rows=rows)
+    emit("kernels", kernels=sorted(f"{k} {d}" for k, d in timed),
+         cases=len(rows), rows=rows)
     return timed
 
 
@@ -391,11 +435,12 @@ def matpow_case(n, dtype, expect_tier, seed):
     after = K.launch_counts()
     delta = {k: after[k] - before[k] for k in after}
     expected = {k: 0 for k in after}
+    k1 = K.kernel_name("matmul", dtype)
     if expect_tier == "two_operand":
-        expected["matmul"] = 7
+        expected[k1] = 7
     else:
-        expected["square_" + expect_tier] = 6
-        expected["matmul"] = 1
+        expected[K.kernel_name("square_" + expect_tier, dtype)] = 6
+        expected[k1] = 1
     if delta != expected:
         raise AssertionError(f"matpow n={n} {dtype}: launches {delta}, "
                              f"expected {expected}")
@@ -426,6 +471,7 @@ def phase_matpow() -> tuple:
     rows = [
         matpow_case(4096, torch.float32, "two_operand", 20),
         matpow_case(4096, torch.bfloat16, "two_operand", 21),
+        matpow_case(4096, torch.float16, "two_operand", 27),
         matpow_case(3000, torch.float32, "two_operand", 22),
         matpow_case(192, torch.float32, "whole", 23),
         matpow_case(512, torch.float32, "panel", 24),
@@ -433,7 +479,7 @@ def phase_matpow() -> tuple:
         matpow_case(256, torch.bfloat16, "whole", 26),
     ]
     counts = K.launch_counts()
-    for name in ("matmul", "square_whole", "square_panel"):
+    for name in K.KERNELS:
         if counts[name] < 1:
             raise AssertionError(f"main path never launched {name}: {counts}")
     plain = {k: v for k, v in counts.items() if k.startswith("plain_")}
@@ -462,8 +508,7 @@ def phase_entry_points() -> None:
                 backend=backend)
             torch.cuda.synchronize()
             after = K.launch_counts()
-            launched = sum(after[k] - before[k] for k in
-                           ("matmul", "square_whole", "square_panel"))
+            launched = sum(after[k] - before[k] for k in K.KERNELS)
             if launched != mults:
                 raise AssertionError(f"traced p={p} {backend}: {launched} "
                                      f"launches, expected {mults}")
@@ -717,6 +762,12 @@ def phase_tuning() -> None:
     tier_repeats = [autotune.sweep_square_tiers(torch.float32, save=False)
                     for _ in range(2)]
     tiers = autotune.sweep_square_tiers(torch.float32)
+    # The same for the tensor-core kernels: K1's tilings at 4096 bf16, and
+    # whether K3 still beats K1 at the panel probe.
+    default_tc = ops.pick_blocks(4096, 4096, 4096, dtype=torch.bfloat16,
+                                 use_cache=False)
+    mm_tc = autotune.sweep(4096, 4096, 4096, torch.bfloat16)
+    tiers_tc = autotune.sweep_square_tiers(torch.bfloat16)
 
     n = 512
     chain = ops.MatmulChain(n, torch.float32, device="cuda")
@@ -754,6 +805,14 @@ def phase_tuning() -> None:
                        "repeats": [list(t) for t in tier_repeats],
                        "probes_us": autotune.load_cache()[
                            "square_panel/tiers/float32/cuda"]["probes_us"]},
+         matmul_bf16_4096={"default": list(default_tc),
+                           "winner": list(mm_tc[0]),
+                           "scores_us": {str(r["blocks"]): r["score"]
+                                         for r in mm_tc[1]}},
+         square_tiers_bf16={"recorded": list(tiers_tc),
+                            "probes_us": autotune.load_cache()[
+                                "square_panel/tiers/bfloat16/cuda"][
+                                "probes_us"]},
          chain={"n": n, "blocks": list(chain.blocks),
                 "tiers": list(chain.tiers), "launches": launches,
                 "max_abs_err_vs_f64": abs_err, "rel_to_peak_vs_f64": rel_peak,
@@ -784,10 +843,10 @@ def main() -> int:
         shutil.rmtree(cache_dir, ignore_errors=True)
 
     counts = {**counts, **attn_counts}
-    timed = {**timed, "flash_attention": attn_row}
+    timed = {**timed, ("flash_attention", "bfloat16"): attn_row}
     kernels = []
-    for name in ("matmul", "square_whole", "square_panel", "flash_attention"):
-        row = timed[name]
+    for name, dtype in KERNEL_ROWS:
+        row = timed[(name, dtype)]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": counts[name],

@@ -1,8 +1,9 @@
 """repro_torch.kernels — hand-written Hopper kernels for the compute hot-spots.
 
-csrc/        : the CUDA C++ sources (gemm.cuh, attention.cuh and one
-               translation unit per element type for each), compiled for
-               sm_90a at first use.
+csrc/        : the CUDA C++ sources (gemm.cuh, the FMA kernels; gemm_tc.cuh,
+               the 16-bit tensor-core K1 / K3; attention.cuh; one
+               translation unit per element type), compiled for sm_90a at
+               first use.
 _build.py    : build-at-first-use with nvcc, ctypes binding, launch-error
                check.
 matmul.py    : the tiled matmul kernel (K1) and the tiered squaring kernels

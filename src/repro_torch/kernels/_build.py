@@ -150,10 +150,13 @@ def check(code: int, what: str) -> None:
 
     A refused launch (too much shared memory, a bad grid) never runs and is
     reported only by this code; -1 means the library has no instantiation
-    for the requested tile.
+    for the requested tile, -2 that a TMA tensor map could not be encoded.
     """
     if code == 0:
         return
     if code == -1:
         raise ValueError(f"{what}: no kernel is instantiated for this tile")
+    if code == -2:
+        raise RuntimeError(f"{what}: could not encode a TMA tensor map for "
+                           f"the operands")
     raise RuntimeError(f"{what}: CUDA launch failed with cudaError {code}")

@@ -61,13 +61,14 @@ from repro_torch.kernels.attention import (ATTN_TILES, attn_smem_footprint,
                                            head_dim_for, kernel_tile)
 from repro_torch.kernels.matmul import (KERNEL_TILES, SM_COUNT,
                                         SMEM_PER_BLOCK, SQUARE_PANEL_LIMIT,
-                                        SQUARE_SMEM_LIMIT,
+                                        SQUARE_SMEM_LIMIT, TC_BLOCKS,
                                         panel_smem_footprint,
                                         smem_footprint)
 
 __all__ = [
     "cache_path", "load_cache", "save_cache", "clear_memory_cache",
-    "lookup", "record", "sweep", "DEFAULT_CANDIDATES", "valid_blocks",
+    "lookup", "record", "sweep", "DEFAULT_CANDIDATES", "TC_CANDIDATES",
+    "valid_blocks",
     "smem_footprint",
     "KERNELS", "DEFAULT_ATTN_CANDIDATES", "attn_smem_footprint",
     "attn_blocks_usable", "modeled_score", "modeled_attn_score",
@@ -82,13 +83,18 @@ _ENV_VAR = "REPRO_TORCH_AUTOTUNE_CACHE"
 #: Kernel namespaces the cache knows about (the first segment of every key).
 KERNELS = ("matmul", "attention", "square_panel")
 
-#: Matmul candidates: the instantiated square tiles, each with K steps that
-#: are multiples of 8; every one fits a block's shared memory at fp64.
+#: Matmul candidates of the f32 / f64 FMA kernels: the instantiated square
+#: tiles, each with K steps that are multiples of 8; every one fits a
+#: block's shared memory at fp64.
 DEFAULT_CANDIDATES: tuple = (
     (32, 32, 8), (32, 32, 16), (32, 32, 32),
     (64, 64, 16), (64, 64, 32), (64, 64, 64),
     (128, 128, 16), (128, 128, 32), (128, 128, 64),
 )
+
+#: Matmul candidates of the 16-bit tensor-core kernels: every instantiated
+#: (tile, K step) pair.
+TC_CANDIDATES: tuple = tuple((t, t, bk) for t, bk in TC_BLOCKS)
 
 #: (block_q, block_k) candidates: the instantiated attention tiles (the
 #: widest head dims take only some; the others score inf there).
@@ -209,12 +215,17 @@ def _valid_entry(entry) -> bool:
 
 def valid_blocks(blocks, itemsize: int = 4) -> bool:
     """Whether a matmul tiling can run on the kernels: a square output tile
-    they are instantiated for (``KERNEL_TILES``), a K step that is a
-    multiple of 8, and a footprint within a block's shared memory (227 KB,
-    above which the launch is refused)."""
+    with a footprint within a block's shared memory (227 KB, above which the
+    launch is refused) and, for 16-bit operands (``itemsize`` 2), a
+    (tile, K step) pair the tensor-core kernels are instantiated for
+    (``TC_BLOCKS``); else a tile of ``KERNEL_TILES`` and a K step that is a
+    multiple of 8."""
     bm, bn, bk = blocks
-    return (bm == bn and bm in KERNEL_TILES and bk >= 8 and bk % 8 == 0
-            and smem_footprint(blocks, itemsize) <= SMEM_PER_BLOCK)
+    if bm != bn or smem_footprint(blocks, itemsize) > SMEM_PER_BLOCK:
+        return False
+    if itemsize == 2:
+        return (bm, bk) in TC_BLOCKS
+    return bm in KERNEL_TILES and bk >= 8 and bk % 8 == 0
 
 
 def attn_blocks_usable(sq: int, skv: int, d: int, blocks) -> bool:
@@ -524,14 +535,15 @@ def sweep(m: int, n: int, k: int, dtype=torch.float32,
           reps: int = 3, save: bool = True):
     """Score every candidate matmul tiling, record the winner under the
     ``matmul`` namespace, return ``(best, results)`` (results sorted
-    best-first). ``measure=None`` measures on ``"cuda"`` and models
-    otherwise."""
+    best-first). The candidates default to the kernels' own:
+    ``TC_CANDIDATES`` for 16-bit operands, ``DEFAULT_CANDIDATES`` else.
+    ``measure=None`` measures on ``"cuda"`` and models otherwise."""
     backend = _backend(backend)
-    candidates = [tuple(int(x) for x in c)
-                  for c in (candidates or DEFAULT_CANDIDATES)]
+    itemsize = _itemsize(dtype)
+    default = TC_CANDIDATES if itemsize == 2 else DEFAULT_CANDIDATES
+    candidates = [tuple(int(x) for x in c) for c in (candidates or default)]
     if measure is None:
         measure = backend == "cuda"
-    itemsize = _itemsize(dtype)
 
     def measured(b):
         if not valid_blocks(b, itemsize):

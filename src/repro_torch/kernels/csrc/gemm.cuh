@@ -32,9 +32,9 @@
 // What bounds them: all three are bound by operations, not bytes, at every
 // size the chain uses (a 4096^3 product is 137 GFLOP over 201 MB). They run
 // on the CUDA cores with exact IEEE fp32 / fp64 FMAs -- no TF32 -- which is
-// what keeps a 7-multiply fp32 chain inside its error budget; 16-bit inputs
-// are widened to fp32 when staged and use the same FMA pipeline (tensor-core
-// `wgmma` and an asynchronous copy pipeline are follow-up work). The design
+// what keeps a 7-multiply fp32 chain inside its error budget. For 16-bit
+// inputs K1 and K3 are the tensor-core kernels of gemm_tc.cuh; of this file
+// they use only K2, which widens them to fp32 as it reads them. The design
 // therefore spends its effort on the FMA : shared-load ratio: micro-tiles up
 // to 8 x 8 (64 FMAs for four 16-byte shared loads), A staged transposed so
 // both fragments are contiguous, fragments split in two 64-column halves so
@@ -511,7 +511,17 @@ static int square_panel_dispatch(const void* a, void* c, int P, int tile,
 
 // One translation unit per element type (they compile in parallel) expands
 // this once: REPRO_DEFINE_C_API(f32, float) defines repro_matmul_f32,
-// repro_square_whole_f32 and repro_square_panel_f32.
+// repro_square_whole_f32 and repro_square_panel_f32. The 16-bit units take
+// K1 and K3 from gemm_tc.cuh and only K2 from here
+// (REPRO_DEFINE_SQUARE_WHOLE_API).
+#define REPRO_DEFINE_SQUARE_WHOLE_API(SUFFIX, TYPE)                           \
+  extern "C" int repro_square_whole_##SUFFIX(                                 \
+      const void* a, void* c, int P, int tile, long long sA, long long sC,   \
+      int batch, int groups, int out_acc, void* stream) {                     \
+    return repro::square_whole_dispatch<TYPE>(a, c, P, tile, sA, sC, batch,  \
+                                              groups, out_acc, stream);       \
+  }
+
 #define REPRO_DEFINE_C_API(SUFFIX, TYPE)                                      \
   extern "C" int repro_matmul_##SUFFIX(                                       \
       const void* a, const void* b, void* c, int M, int N, int K, int tile,  \
@@ -520,16 +530,11 @@ static int square_panel_dispatch(const void* a, void* c, int P, int tile,
     return repro::matmul_dispatch<TYPE>(a, b, c, M, N, K, tile, bk, sA, sB,  \
                                         sC, batch, out_acc, stream);          \
   }                                                                           \
-  extern "C" int repro_square_whole_##SUFFIX(                                 \
-      const void* a, void* c, int P, int tile, long long sA, long long sC,   \
-      int batch, int groups, int out_acc, void* stream) {                     \
-    return repro::square_whole_dispatch<TYPE>(a, c, P, tile, sA, sC, batch,  \
-                                              groups, out_acc, stream);       \
-  }                                                                           \
   extern "C" int repro_square_panel_##SUFFIX(                                 \
       const void* a, void* c, int P, int tile, int bk, long long sA,         \
       long long sC, int batch, int groups, int out_acc, void* stream) {       \
     return repro::square_panel_dispatch<TYPE>(a, c, P, tile, bk, sA, sC,     \
                                               batch, groups, out_acc,         \
                                               stream);                        \
-  }
+  }                                                                           \
+  REPRO_DEFINE_SQUARE_WHOLE_API(SUFFIX, TYPE)

@@ -1,7 +1,8 @@
-// K1-K3 (matmul, whole-operand squaring, panel squaring) for __half operands.
-// The kernels are the templates of gemm.cuh; each element type is its own
-// translation unit so the four build in parallel.
+// K1-K3 (matmul, whole-operand squaring, panel squaring) for __half operands:
+// K1 and K3 are the tensor-core kernels of gemm_tc.cuh, K2 the kernel of
+// gemm.cuh. Each element type is its own translation unit so the four build
+// in parallel.
 
-#include "gemm.cuh"
+#include "gemm_tc.cuh"
 
-REPRO_DEFINE_C_API(f16, __half)
+REPRO_DEFINE_TC_API(f16, __half)

@@ -1,19 +1,23 @@
 """Tiled matmul and the tiered squaring kernels — wrappers, plain versions,
 tier policy and launch counters.
 
-The port of the reference's ``repro/kernels/matmul.py``. Three hand-written
-CUDA kernels (``csrc/gemm.cuh``) stand where its three Pallas kernels stood:
+The port of the reference's ``repro/kernels/matmul.py``. Hand-written CUDA
+kernels stand where its three Pallas kernels stood:
 
   ``matmul_cuda``            K1, replaces ``matmul_pallas`` / ``matmul_kernel``
   ``square_cuda`` "whole"    K2, replaces ``square_pallas`` / ``square_kernel``
   ``square_cuda`` "panel"    K3, replaces ``square_pallas`` /
                              ``square_panel_kernel``
 
-and the stacked ``(B, ., .)`` form of each is the same kernel with the stack
-on a grid axis — one launch for the stack (the reference's ``jax.vmap``).
+For f32 and f64 all three are the FMA kernels of ``csrc/gemm.cuh``. For bf16
+and f16, K1 and K3 are the tensor-core kernels of ``csrc/gemm_tc.cuh``
+(``wgmma`` fed by a TMA ring; ``mma.sync`` at tile 32), counted under
+``matmul_tc`` / ``square_panel_tc``, and K2 stays on ``gemm.cuh``. The
+stacked ``(B, ., .)`` form of each is the same kernel with the stack on a
+grid axis — one launch for the stack (the reference's ``jax.vmap``).
 
-All three are bound by operations, not bytes, at the sizes the chain uses;
-``csrc/gemm.cuh`` says what the design does about it. What each squaring
+All of them are bound by operations, not bytes, at the sizes the chain uses;
+the two ``.cuh`` files say what each design does about it. What each squaring
 tier keeps out of device memory: "whole" stages A once per block and takes
 both panels of every output tile from that copy (no second read of A);
 "panel" stages a ``(block_m, P)`` row panel once per block and loops over
@@ -41,8 +45,9 @@ from repro_torch.kernels import ref as _ref
 
 __all__ = ["matmul_cuda", "matmul_plain", "square_cuda", "square_plain",
            "square_tier", "panel_smem_footprint", "smem_footprint",
+           "tc_smem_bytes", "kernel_name",
            "DEFAULT_BLOCK", "KERNEL_TILES", "SMEM_PER_BLOCK", "L2_BYTES",
-           "SM_COUNT",
+           "SM_COUNT", "TC_BLOCKS", "TC_DEFAULT_BK", "KERNELS",
            "SQUARE_SMEM_LIMIT", "SQUARE_PANEL_LIMIT", "LAUNCHES",
            "reset_launches", "launch_counts"]
 
@@ -57,6 +62,24 @@ SM_COUNT = 132
 SMEM_PAD = 4
 #: Square output tiles the kernels are instantiated for.
 KERNEL_TILES = (32, 64, 128)
+#: (tile, K step) pairs the 16-bit tensor-core K1 / K3 are instantiated for
+#: (the ``REPRO_TC_TILE`` lines of csrc/gemm_tc.cuh): tile 32 on
+#: ``mma.sync``, 64 and 128 on ``wgmma``, whose K step is 32 or 64.
+TC_BLOCKS = ((32, 32), (64, 32), (64, 64), (128, 32), (128, 64))
+#: K step ``ops.pick_blocks`` starts from for 16-bit operands (at most the
+#: tile).
+TC_DEFAULT_BK = 64
+# The constants of gemm_tc.cuh that its shared-memory formulas use
+# (``tc_smem_bytes``): swizzled tiles start 1024-aligned (the launchers ask
+# for 1024 bytes of slack), a K1 ring takes at most half a block's shared
+# memory (two blocks per SM), K3 streams its column tiles through 4 stages,
+# the tile-32 buffers pad each row by 8 elements, and an mbarrier is 8
+# bytes.
+TC_ALIGN = 1024
+TC_RING_BUDGET = SMEM_PER_BLOCK // 2
+TC_PANEL_STAGES = 4
+TC_MMA_PAD = 8
+TC_BARRIER = 8
 
 # Default tile: 128 x 128 output tile per 256-thread block (an 8 x 8
 # register micro-tile per thread, 64 FMAs for four 16-byte shared loads),
@@ -78,12 +101,28 @@ SQUARE_SMEM_LIMIT = SMEM_PER_BLOCK
 # the two-operand kernel.)
 SQUARE_PANEL_LIMIT = L2_BYTES // 2
 
+#: The kernels, by the name their launches are counted under.
+KERNELS = ("matmul", "matmul_tc", "square_whole", "square_panel",
+           "square_panel_tc")
+
 #: Launches per kernel since the last ``reset_launches()``. The kernel
-#: wrappers add one where they launch (``matmul``, ``square_whole``,
-#: ``square_panel``); the plain versions add one under ``plain_<name>``.
-LAUNCHES = {"matmul": 0, "square_whole": 0, "square_panel": 0,
+#: wrappers add one where they launch (``KERNELS``: the ``_tc`` names are
+#: the 16-bit tensor-core K1 and K3); the plain versions add one under
+#: ``plain_<name>``.
+LAUNCHES = {**{name: 0 for name in KERNELS},
             "plain_matmul": 0, "plain_square_whole": 0,
             "plain_square_panel": 0}
+
+
+def kernel_name(op: str, dtype) -> str:
+    """The counter of ``KERNELS`` that a launch of ``op`` — ``"matmul"``
+    (K1), ``"square_whole"`` (K2) or ``"square_panel"`` (K3) — on ``dtype``
+    operands goes to: K1 and K3 of bf16 / f16 are the tensor-core kernels."""
+    if op not in ("matmul", "square_whole", "square_panel"):
+        raise ValueError(f"no kernel for op {op!r}")
+    if dtype in (torch.float16, torch.bfloat16) and op != "square_whole":
+        return op + "_tc"
+    return op
 
 
 def reset_launches() -> None:
@@ -105,20 +144,54 @@ def _acc_itemsize(itemsize: int) -> int:
     return 8 if itemsize == 8 else 4
 
 
+def tc_smem_bytes(tile: int, block_k: int, p: int | None = None) -> int:
+    """Dynamic shared-memory bytes a 16-bit launcher of gemm_tc.cuh asks
+    for at a square ``tile`` and K step ``block_k``: K1's, or K3's over a
+    ``(p, p)`` operand. The ``Ring`` / ``PanelRing`` / ``MmaTiles`` formulas
+    of the ``.cuh`` (a test evaluates them against this one):
+
+    tile 32 (``mma.sync``): two ``cp.async`` buffers of B tiles, padded, and
+    for K1 two of A, for K3 the resident row panel, padded. Above it
+    (``wgmma``): K1 a ring of 4 stages of A and B boxes, 3 where 4 would
+    take more than ``TC_RING_BUDGET``; K3 the row panel and
+    ``TC_PANEL_STAGES`` stages of B boxes and one barrier for the panel.
+    Every ring stage carries a full and an empty barrier, and every ring
+    the alignment slack."""
+    b_pitch = tile + TC_MMA_PAD
+    if tile == 32:
+        if p is None:
+            return 2 * (tile * (block_k + TC_MMA_PAD) + block_k * b_pitch) * 2
+        return tile * (p + TC_MMA_PAD) * 2 + 2 * block_k * b_pitch * 2
+    barriers = 2 * TC_BARRIER
+    if p is None:
+        stage = 2 * tile * block_k * 2 + barriers
+        stages = 4 if TC_ALIGN + 4 * stage <= TC_RING_BUDGET else 3
+        return TC_ALIGN + stages * stage
+    return (TC_ALIGN + tile * p * 2
+            + TC_PANEL_STAGES * (block_k * tile * 2 + barriers) + TC_BARRIER)
+
+
 def smem_footprint(blocks, itemsize: int = 4) -> int:
-    """Shared-memory bytes of one K1 block: the transposed A tile and the B
-    tile of one K step, held at the accumulation width."""
+    """Dynamic shared-memory bytes one K1 block asks for: for f32 / f64
+    (gemm.cuh) the transposed A tile and the B tile of one K step, held at
+    the accumulation width; for 16-bit ``tc_smem_bytes``."""
     bm, bn, bk = blocks
+    if itemsize == 2:
+        return tc_smem_bytes(bm, bk)
     return bk * (bm + SMEM_PAD + bn + SMEM_PAD) * _acc_itemsize(itemsize)
 
 
 def panel_smem_footprint(p: int, block_m: int, block_n: int,
                          itemsize: int = 4,
                          block_k: int = DEFAULT_BLOCK[2]) -> int:
-    """Shared-memory bytes of one panel-tier block: the ``(block_m, P)`` row
-    panel in the storage dtype plus the staging tile of the streamed column
-    panel. The panel tier is usable only when this fits ``SMEM_PER_BLOCK`` —
-    ``square_cuda`` demotes to the two-operand kernel otherwise."""
+    """Dynamic shared-memory bytes one panel-tier block asks for: the
+    ``(block_m, P)`` row panel in the storage dtype plus the buffers the
+    column panel streams through — for f32 / f64 one staging tile at the
+    accumulation width; for 16-bit ``tc_smem_bytes``. The panel tier is
+    usable only when this fits ``SMEM_PER_BLOCK`` — ``square_cuda`` demotes
+    to the two-operand kernel otherwise."""
+    if itemsize == 2:
+        return tc_smem_bytes(block_m, block_k, p)
     return (block_m * p * itemsize
             + block_k * (block_n + SMEM_PAD) * _acc_itemsize(itemsize))
 
@@ -216,7 +289,16 @@ def _groups(shared_tiles: int, independent_blocks: int) -> int:
     return max(1, min(shared_tiles, want))
 
 
-def _kernel_tile(block_m, block_n, block_k, what) -> int:
+def _kernel_tile(block_m, block_n, block_k, what, tc=False) -> int:
+    """The square output tile of a launch; ``tc`` for the 16-bit
+    tensor-core K1 / K3, which take only the ``TC_BLOCKS`` pairs."""
+    if tc:
+        if block_m != block_n or (block_m, block_k) not in TC_BLOCKS:
+            raise ValueError(
+                f"{what}: the 16-bit tensor-core kernels take square output "
+                f"tiles with the (tile, K step) pairs {TC_BLOCKS}, got blocks "
+                f"({block_m},{block_n},{block_k})")
+        return block_m
     if block_m != block_n or block_m not in KERNEL_TILES or block_k < 8 \
             or block_k % 8:
         raise ValueError(
@@ -328,8 +410,10 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor, *,
 
     fp32 accumulation for f32/bf16/f16 operands (exact IEEE fp32, no TF32),
     f64 for f64; one cast to ``out_dtype`` (default ``a.dtype``) at the
-    store. ``out`` receives the result when given and must not alias an
-    operand. On a CPU tensor this is :func:`matmul_plain`.
+    store. bf16 / f16 run the tensor-core kernel (blocks from
+    ``TC_BLOCKS``), f32 / f64 the FMA kernel. ``out`` receives the result
+    when given and must not alias an operand. On a CPU tensor this is
+    :func:`matmul_plain`.
     """
     if a.device.type == "cpu":
         return matmul_plain(a, b, block_m=block_m, block_n=block_n,
@@ -338,7 +422,9 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor, *,
     if a.device.type != "cuda":
         raise ValueError(f"{what}: no kernel for device {a.device}")
     batch, m, k, n = _check_matmul(a, b, block_m, block_n, block_k)
-    tile = _kernel_tile(block_m, block_n, block_k, what)
+    name = kernel_name("matmul", a.dtype)
+    tile = _kernel_tile(block_m, block_n, block_k, what,
+                        tc=name.endswith("_tc"))
     _kernel_operand(a, "a", what)
     _kernel_operand(b, "b", what)
     if batch is not None and batch > 65_535:
@@ -355,7 +441,7 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor, *,
             (a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k, tile, block_k,
              m * k if a.ndim == 3 else 0, k * n if b.ndim == 3 else 0,
              m * n if batch is not None else 0, batch or 1, out_acc))
-    LAUNCHES["matmul"] += 1
+    LAUNCHES[name] += 1
     return _finish(c, out, out_dtype)
 
 
@@ -401,7 +487,9 @@ def square_cuda(a: torch.Tensor, *,
     ``panel_limit`` (demoted when ``panel_smem_footprint`` exceeds a block's
     shared memory), the two-operand :func:`matmul_cuda` above that. Both
     limits are arguments so a caller (or a tuned entry, later) can move
-    them.
+    them. For bf16 / f16 the panel tier is the tensor-core K3, which takes
+    the ``TC_BLOCKS`` pairs only; K2 takes any square tile of
+    ``KERNEL_TILES``.
 
     The whole-operand and panel tiers need the shape divisible by
     ``block_m`` and ``block_n``; the two-operand tier needs ``block_k`` to
@@ -425,7 +513,9 @@ def square_cuda(a: torch.Tensor, *,
         return matmul_cuda(a, a, block_m=block_m, block_n=block_n,
                            block_k=block_k, out_dtype=out_dtype, out=out)
     _check_square_blocks(p, block_m, block_n)
-    tile = _kernel_tile(block_m, block_n, block_k, what)
+    name = kernel_name("square_" + tier, a.dtype)
+    tile = _kernel_tile(block_m, block_n, block_k, what,
+                        tc=name.endswith("_tc"))
     _kernel_operand(a, "a", what)
     if batch is not None and batch > 65_535:
         raise ValueError(f"{what}: a stack of {batch} exceeds the grid's "
@@ -454,5 +544,5 @@ def square_cuda(a: torch.Tensor, *,
         _launch("repro_square_panel", a,
                 (a.data_ptr(), c.data_ptr(), p, tile, block_k, stride, stride,
                  batch or 1, groups, out_acc))
-    LAUNCHES["square_" + tier] += 1
+    LAUNCHES[name] += 1
     return _finish(c, out, out_dtype)

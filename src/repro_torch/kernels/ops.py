@@ -44,7 +44,8 @@ from repro_torch.kernels import autotune
 from repro_torch.kernels.attention import (ATTN_TILES, flash_attention,
                                            head_dim_for)
 from repro_torch.kernels.matmul import (DEFAULT_BLOCK, KERNEL_TILES, SM_COUNT,
-                                        SMEM_PER_BLOCK, matmul_cuda,
+                                        SMEM_PER_BLOCK, TC_BLOCKS,
+                                        TC_DEFAULT_BK, matmul_cuda,
                                         smem_footprint, square_cuda)
 
 __all__ = ["matmul", "square", "attention", "pick_blocks", "pick_attn_blocks",
@@ -67,8 +68,8 @@ def pick_blocks(m: int, n: int, k: int, dtype=None, use_cache: bool = True,
     Consults the tuning cache first (``autotune.lookup`` under ``backend``,
     the operands' device type, ``"cuda"`` by default); an entry is used
     only if the kernels can run it (``autotune.valid_blocks``: an
-    instantiated square tile, a K step that is a multiple of 8, a footprint
-    within a block's shared memory), else it falls through to the
+    instantiated square tile, a K step the dtype's kernel takes, a
+    footprint within a block's shared memory), else it falls through to the
     heuristic, never raises.
 
     The heuristic is the paper's "an appropriate TILE size is used based on
@@ -77,10 +78,13 @@ def pick_blocks(m: int, n: int, k: int, dtype=None, use_cache: bool = True,
     per SM (a 128-wide tile has the best FMA-to-load ratio, but sixteen of
     them leave most of the card idle), never below 64 unless the whole
     output fits one 32-wide tile; then the default K step, halved while the
-    staged tiles exceed the shared-memory budget (``SMEM_BUDGET``).
+    staged tiles exceed the shared-memory budget (``SMEM_BUDGET``). For
+    bf16 / f16 the K step is the largest one of ``TC_BLOCKS`` for the tile
+    that is at most ``TC_DEFAULT_BK`` and whose ring fits the budget.
 
     Invariants (tested): block_m == block_n is one of ``KERNEL_TILES``,
-    block_k divides both, and ``smem_footprint`` fits the budget.
+    block_k divides both, ``smem_footprint`` fits the budget, and a 16-bit
+    pair is an instantiated one.
     """
     itemsize = torch.empty((), dtype=dtype).element_size() \
         if dtype is not None else 4
@@ -95,6 +99,10 @@ def pick_blocks(m: int, n: int, k: int, dtype=None, use_cache: bool = True,
         tile = large
     else:
         tile = mid
+    if itemsize == 2:
+        return tile, tile, max(
+            bk for t, bk in TC_BLOCKS if t == tile and bk <= TC_DEFAULT_BK
+            and smem_footprint((tile, tile, bk), itemsize) <= SMEM_BUDGET)
     bk = DEFAULT_BLOCK[2]
     while smem_footprint((tile, tile, bk), itemsize) > SMEM_BUDGET \
             and bk > 8:

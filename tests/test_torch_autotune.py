@@ -298,6 +298,36 @@ class TestSweep:
         for blocks in autotune.DEFAULT_CANDIDATES:
             assert autotune.valid_blocks(blocks, itemsize=8)
 
+    @pytest.mark.parametrize("tile,bk", K.TC_BLOCKS)
+    def test_sixteen_bit_accepts_each_instantiated_pair(self, tile, bk):
+        assert autotune.valid_blocks((tile, tile, bk), itemsize=2)
+
+    @pytest.mark.parametrize("tile", K.KERNEL_TILES)
+    def test_sixteen_bit_refuses_k_step_8(self, tile):
+        assert not autotune.valid_blocks((tile, tile, 8), itemsize=2)
+        assert autotune.valid_blocks((tile, tile, 8), itemsize=4)
+
+    def test_sixteen_bit_refuses_a_ring_over_shared_memory(self):
+        assert not autotune.valid_blocks((128, 128, 128), itemsize=2)
+        assert not autotune.valid_blocks((64, 64, 16), itemsize=2)
+
+    def test_sixteen_bit_sweep_scores_the_instantiated_pairs(self, tmp_cache):
+        best, results = autotune.sweep(512, 512, 512, dtype=BF16,
+                                       backend="cpu")
+        assert sorted(r["blocks"] for r in results) == \
+            sorted(autotune.TC_CANDIDATES)
+        assert all(math.isfinite(r["score"]) for r in results)
+        assert (best[0], best[2]) in K.TC_BLOCKS
+
+    def test_sixteen_bit_entry_the_kernels_lack_falls_through(self,
+                                                              tmp_cache):
+        autotune.record(1024, 1024, 1024, (64, 64, 16), dtype=BF16)
+        assert ops.pick_blocks(1024, 1024, 1024, dtype=BF16) == \
+            ops.pick_blocks(1024, 1024, 1024, dtype=BF16, use_cache=False)
+        autotune.record(1024, 1024, 1024, (128, 128, 32), dtype=BF16)
+        assert ops.pick_blocks(1024, 1024, 1024, dtype=BF16) == \
+            (128, 128, 32)
+
     def test_chain_uses_tuned_blocks(self, tmp_cache):
         autotune.record(200, 200, 200, (128, 128, 32), dtype=F32,
                         backend="cpu")

@@ -78,13 +78,16 @@ def _power_operand(n, device, seed):
     return torch.from_numpy(m).to(device, torch.float32)
 
 
+SIXTEEN_BIT = (torch.bfloat16, torch.float16)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16, torch.float64])
 def test_matmul_kernel_vs_plain(cuda, dtype):
     a = _randn((256, 384), dtype, cuda, 1)
     b = _randn((384, 128), dtype, cuda, 2)
     _close(K.matmul_cuda(a, b, **B64), K.matmul_plain(a, b, **B64), dtype)
-    assert K.launch_counts()["matmul"] == 1
+    assert K.launch_counts()[K.kernel_name("matmul", dtype)] == 1
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
@@ -96,7 +99,8 @@ def test_square_tiers_vs_plain(cuda, tier, limits, dtype):
     a = _randn((3, 128, 128), dtype, cuda, 3)
     got = K.square_cuda(a, **B64, **limits)
     _close(got, K.square_plain(a, **B64, **limits), dtype)
-    assert K.launch_counts()[tier] == 1           # one launch for the stack
+    # one launch for the stack
+    assert K.launch_counts()[K.kernel_name(tier, dtype)] == 1
 
 
 def test_out_must_not_alias_the_operand(cuda):
@@ -132,6 +136,113 @@ def test_out_dtype_other_than_operand_rounds_once(cuda):
     assert wide.dtype == torch.float32
     _close(wide, K.matmul_plain(a, a, **B64, out_dtype=torch.float32),
            torch.float32)
+
+
+# -- the 16-bit tensor-core K1 / K3 (csrc/gemm_tc.cuh) ----------------------
+
+TC_TILINGS = [pytest.param(t, bk, id=f"{t}x{bk}") for t, bk in K.TC_BLOCKS]
+
+
+@pytest.mark.parametrize("out_dtype", [None, torch.float32])
+@pytest.mark.parametrize("dtype", SIXTEEN_BIT)
+@pytest.mark.parametrize("tile,bk", TC_TILINGS)
+def test_tc_matmul_every_tiling(cuda, tile, bk, dtype, out_dtype):
+    """Every instantiated (tile, K step), M != N != K, both output types."""
+    m, n, k = 2 * tile, 3 * tile, 5 * bk
+    a = _randn((m, k), dtype, cuda, 10)
+    b = _randn((k, n), dtype, cuda, 11)
+    kw = dict(block_m=tile, block_n=tile, block_k=bk, out_dtype=out_dtype)
+    got = K.matmul_cuda(a, b, **kw)
+    assert got.dtype == (out_dtype or dtype)
+    _close(got, K.matmul_plain(a, b, **kw), out_dtype or dtype)
+    assert K.launch_counts()["matmul_tc"] == 1
+    assert K.launch_counts()["matmul"] == 0
+
+
+@pytest.mark.parametrize("dtype", SIXTEEN_BIT)
+@pytest.mark.parametrize("tile,bk", TC_TILINGS)
+@pytest.mark.parametrize("depth", ["one_stage", "4096"])
+def test_tc_matmul_depth(cuda, tile, bk, dtype, depth):
+    """K of one ring stage, and K = 4096: many trips round the ring."""
+    k = bk if depth == "one_stage" else 4096
+    a = _randn((tile, k), dtype, cuda, 12)
+    b = _randn((k, 2 * tile), dtype, cuda, 13)
+    kw = dict(block_m=tile, block_n=tile, block_k=bk)
+    _close(K.matmul_cuda(a, b, **kw), K.matmul_plain(a, b, **kw), dtype)
+
+
+@pytest.mark.parametrize("dtype", SIXTEEN_BIT)
+@pytest.mark.parametrize("blocks", [(32, 32, 32), (64, 64, 64),
+                                    (128, 128, 32)])
+@pytest.mark.parametrize("form", ["both", "left", "right"])
+def test_tc_matmul_stacked_and_broadcast(cuda, form, blocks, dtype):
+    """A stack on both sides, or a 2-D operand shared by the stack on
+    either side (stride 0: the tensor map's row coordinate stays put)."""
+    t, _, bk = blocks
+    a = _randn((3, 2 * t, 4 * bk), dtype, cuda, 14)
+    b = _randn((3, 4 * bk, t), dtype, cuda, 15)
+    if form == "left":
+        b = b[1].contiguous()
+    if form == "right":
+        a = a[2].contiguous()
+    kw = dict(block_m=t, block_n=t, block_k=bk)
+    _close(K.matmul_cuda(a, b, **kw), K.matmul_plain(a, b, **kw), dtype)
+    assert K.launch_counts()["matmul_tc"] == 1     # one launch for the stack
+
+
+@pytest.mark.parametrize("out_dtype", [None, torch.float32])
+@pytest.mark.parametrize("dtype", SIXTEEN_BIT)
+@pytest.mark.parametrize("tile,bk", TC_TILINGS)
+def test_tc_square_panel_every_tiling(cuda, tile, bk, dtype, out_dtype):
+    """K3 on tensor cores, forced into the panel tier, 2-D and stacked."""
+    p = {32: 256, 64: 384, 128: 256}[tile]
+    kw = dict(block_m=tile, block_n=tile, block_k=bk, smem_limit=0,
+              out_dtype=out_dtype)
+    for shape in ((p, p), (3, p, p)):
+        a = _randn(shape, dtype, cuda, 16)
+        got = K.square_cuda(a, **kw)
+        assert got.dtype == (out_dtype or dtype)
+        _close(got, K.square_plain(a, **kw), out_dtype or dtype)
+    assert K.launch_counts()["square_panel_tc"] == 2
+    assert K.launch_counts()["square_panel"] == 0
+
+
+def test_tc_refuses_a_k_step_it_does_not_instantiate(cuda):
+    a = _randn((128, 128), torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="tensor-core"):
+        K.matmul_cuda(a, a, block_m=64, block_n=64, block_k=16)
+    with pytest.raises(ValueError, match="tensor-core"):
+        K.square_cuda(a, block_m=64, block_n=64, block_k=8, smem_limit=0)
+    assert not any(K.launch_counts().values())
+
+
+def _rel_to_peak(got, want):
+    """Largest error over the largest entry of ``want``."""
+    want = want.double()
+    return ((got.double() - want).abs().max()
+            / want.abs().max()).item()
+
+
+def test_tc_chain_at_1024_bf16(cuda):
+    """A^96 at n = 1024 bf16: six K3 squarings and one K1 combine, all on
+    the tensor cores. Held, as ``chip_smoke.check_close`` holds it, to the
+    budget's elementwise limits and to the bf16 rtol of the largest entry of
+    the float64 power (the budget's absolute floor, 0.875 here, is above
+    every entry of A^96); and to the ``"torch"`` route at the kernels'
+    limit. The check sees the exponent: A^64 misses A^96 by half its peak."""
+    a = _power_operand(1024, cuda, 17).to(torch.bfloat16)
+    got = matpow_binary(a, 96, backend="cuda_chain")
+    counts = {k: v for k, v in K.launch_counts().items() if v}
+    assert counts == {"square_panel_tc": 6, "matmul_tc": 1}
+    assert torch.isfinite(got).all()
+    rtol, atol = error_budget(torch.bfloat16, n=1024, mults=7)
+    want = torch.linalg.matrix_power(a.double(), 96)
+    assert _rel_to_peak(torch.linalg.matrix_power(a.double(), 64), want) \
+        > 0.5
+    assert torch.allclose(got.double(), want, rtol=rtol, atol=atol)
+    assert _rel_to_peak(got, want) <= error_budget(torch.bfloat16)[0]
+    via_torch = matpow_binary(a, 96, backend="torch")
+    assert _rel_to_peak(got, via_torch) <= KERNEL_RTOL[torch.bfloat16]
 
 
 def test_chain_launches_and_leaves_operand_alone(cuda):

@@ -8,6 +8,9 @@ kernels themselves cannot run without a GPU; ``chip_smoke.py`` holds each
 against its plain version on the card.
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -199,6 +202,147 @@ class TestSquareTierPolicy:
         assert K.launch_counts()["plain_square_panel"] == 1
 
 
+GEMM_TC = Path(K.__file__).parent / "csrc" / "gemm_tc.cuh"
+TC_PAIRS = [pytest.param(t, bk, id=f"{t}x{bk}") for t, bk in K.TC_BLOCKS]
+
+
+def _cuh_expr(expr: str, names: dict) -> int:
+    """Evaluate one integer expression of the ``.cuh`` as C++ would: casts
+    dropped, ``/`` on integers, ``c ? a : b``."""
+    expr = re.sub(r"\((?:size_t|long long)\)", "", expr).replace("/", "//")
+    ternary = re.fullmatch(r"(.*)\?(.*):(.*)", expr, flags=re.S)
+    if ternary:
+        cond, yes, no = ternary.groups()
+        expr = f"({yes}) if ({cond}) else ({no})"
+    return eval(f"({expr})", {"__builtins__": {}}, dict(names))
+
+
+def _cuh_constants(src=None) -> dict:
+    """The namespace-level ``constexpr int k...`` constants of gemm_tc.cuh."""
+    consts = {}
+    for name, expr in re.findall(r"^constexpr int (k\w+) = ([^;]+);",
+                                 src or GEMM_TC.read_text(), flags=re.M):
+        consts[name] = _cuh_expr(expr, consts)
+    return consts
+
+
+def _cuh_struct(name, src=None, **params) -> dict:
+    """The members of gemm_tc.cuh's ``struct name`` at the given template
+    parameters (and ``P``), evaluated in order: each ``static constexpr
+    int`` member, and ``bytes`` for the value its ``bytes(P)`` returns."""
+    src = src or GEMM_TC.read_text()
+    body = re.search(rf"^template <[^>]*> struct {name} \{{\n(.*?)^\}};",
+                     src, flags=re.M | re.S).group(1)
+    names = {**_cuh_constants(src), **params}
+    for member, expr in re.findall(r"static constexpr int (\w+) =\s*(.*?);",
+                                   body, flags=re.S):
+        names[member] = _cuh_expr(expr, names)
+    returned = re.search(r"bytes\(int P\) \{\s*return (.*?);", body,
+                         flags=re.S)
+    if returned and "P" in params:
+        names["bytes"] = _cuh_expr(returned.group(1), names)
+    return names
+
+
+class TestTensorCoreContract:
+    """What the Python side knows of csrc/gemm_tc.cuh: the (tile, K step)
+    table and the shared memory each launcher asks for. A pair the picker
+    could choose but the library lacks would only show as a -1 from the
+    launcher on the card; a footprint that disagreed with the launcher's
+    request would pass a tiling the card refuses."""
+
+    def test_tc_table_is_the_kernels(self):
+        lines = re.findall(r"^\s*REPRO_TC_TILE\((\d+), (\d+)\)\s*$",
+                           GEMM_TC.read_text(), flags=re.M)
+        in_cuda = sorted(tuple(int(x) for x in line) for line in lines)
+        assert in_cuda == sorted(K.TC_BLOCKS) and len(in_cuda) == 5
+
+    def test_layout_constants_are_the_kernels(self):
+        consts = _cuh_constants()
+        assert consts["kAlign"] == K.TC_ALIGN == 1024
+        assert consts["kRingBudget"] == K.TC_RING_BUDGET == 232_448 // 2
+        assert consts["kPanelStages"] == K.TC_PANEL_STAGES == 4
+        assert consts["kMmaPad"] == K.TC_MMA_PAD == 8
+        assert consts["kBarrier"] == K.TC_BARRIER == 8
+
+    @pytest.mark.parametrize("tile,bk", TC_PAIRS)
+    def test_pairs_are_instantiated_tiles_and_k16_steps(self, tile, bk):
+        assert tile in K.KERNEL_TILES and bk % 16 == 0
+        assert bk in (32, 64)       # wgmma K steps; tile 32's is one of them
+
+    @pytest.mark.parametrize("tile,bk", TC_PAIRS)
+    def test_k1_footprint_is_the_stage_formula(self, tile, bk):
+        """What ``smem_footprint`` says K1 asks for is what the ``.cuh``'s
+        ``Ring`` / ``MmaTiles`` formulas, evaluated as written, give."""
+        got = K.smem_footprint((tile, tile, bk), itemsize=2)
+        if tile == 32:
+            assert got == _cuh_struct("MmaTiles", BK=bk)["BYTES"]
+        else:
+            ring = _cuh_struct("Ring", TILE=tile, BK=bk)
+            assert ring["STAGES"] == (3 if (tile, bk) == (128, 64) else 4)
+            assert got == ring["BYTES"]
+        assert got == K.tc_smem_bytes(tile, bk)
+        assert got <= K.SMEM_PER_BLOCK // 2 <= K.SMEM_PER_BLOCK
+
+    @pytest.mark.parametrize("p", [256, 512, 1024])
+    @pytest.mark.parametrize("tile,bk", TC_PAIRS)
+    def test_k3_footprint_is_the_stage_formula(self, tile, bk, p):
+        got = K.panel_smem_footprint(p, tile, tile, itemsize=2, block_k=bk)
+        if tile == 32:
+            want = _cuh_struct("MmaTiles", BK=bk, P=p)["bytes"]
+        else:
+            want = _cuh_struct("PanelRing", TILE=tile, BK=bk, P=p)["bytes"]
+        assert got == want == K.tc_smem_bytes(tile, bk, p)
+        # the main path's 1024^2 bf16 squaring fits at tile 64, not at 128
+        assert (got <= K.SMEM_PER_BLOCK) == (p < 1024 or tile < 128)
+
+    def test_the_formula_reader_sees_a_changed_formula(self):
+        """The C++ formulas are read from the source, not restated: a ring
+        whose barriers were dropped evaluates to a different size."""
+        src = GEMM_TC.read_text().replace(
+            "STAGES * (STAGE + 2 * kBarrier);", "STAGES * STAGE;", 1)
+        assert _cuh_struct("Ring", src, TILE=128, BK=64)["BYTES"] \
+            != K.tc_smem_bytes(128, 64)
+
+    def test_f32_footprints_are_unchanged(self):
+        assert K.smem_footprint((128, 128, 32)) == 32 * 264 * 4
+        assert K.panel_smem_footprint(512, 64, 64, 4, 16) == \
+            64 * 512 * 4 + 16 * 68 * 4
+
+    @pytest.mark.parametrize("blocks", [(64, 64, 16), (128, 128, 16),
+                                        (32, 32, 8), (64, 64, 128),
+                                        (128, 64, 64)])
+    def test_the_tc_launch_refuses_pairs_it_lacks(self, blocks):
+        with pytest.raises(ValueError, match="tensor-core"):
+            K._kernel_tile(*blocks, "matmul_cuda", tc=True)
+        assert K._kernel_tile(64, 64, 64, "matmul_cuda", tc=True) == 64
+
+    @pytest.mark.parametrize("op,dtype,name", [
+        ("matmul", torch.float32, "matmul"),
+        ("matmul", torch.float64, "matmul"),
+        ("matmul", torch.bfloat16, "matmul_tc"),
+        ("matmul", torch.float16, "matmul_tc"),
+        ("square_whole", torch.bfloat16, "square_whole"),
+        ("square_whole", torch.float32, "square_whole"),
+        ("square_panel", torch.float32, "square_panel"),
+        ("square_panel", torch.bfloat16, "square_panel_tc"),
+        ("square_panel", torch.float16, "square_panel_tc")])
+    def test_kernel_name_is_the_counter_a_launch_goes_to(self, op, dtype,
+                                                         name):
+        assert K.kernel_name(op, dtype) == name and name in K.KERNELS
+
+    def test_kernel_name_refuses_an_op_without_a_kernel(self):
+        with pytest.raises(ValueError, match="no kernel"):
+            K.kernel_name("square_two_operand", torch.float32)
+
+    def test_a_tier_is_demoted_when_the_16_bit_panel_busts_shared_memory(
+            self):
+        assert K._resolve_tier(1408, 2, 64, 64, 64, K.SQUARE_SMEM_LIMIT,
+                               K.SQUARE_PANEL_LIMIT) == "panel"
+        assert K._resolve_tier(1536, 2, 128, 128, 64, K.SQUARE_SMEM_LIMIT,
+                               K.SQUARE_PANEL_LIMIT) == "two_operand"
+
+
 class TestLaunchCounters:
     def test_cpu_tensors_count_the_plain_route_only(self):
         a = torch.from_numpy(randn((64, 64), 19, 0.2))
@@ -209,5 +353,6 @@ class TestLaunchCounters:
         assert counts["plain_square_whole"] == 1
         assert counts["matmul"] == counts["square_whole"] == \
             counts["square_panel"] == 0
+        assert counts["matmul_tc"] == counts["square_panel_tc"] == 0
         K.reset_launches()
         assert not any(K.launch_counts().values())

@@ -41,6 +41,30 @@ class TestPickBlocks:
         assert K.smem_footprint((bm, bn, bk), itemsize) <= ops.SMEM_BUDGET
         assert K.smem_footprint((bm, bn, bk), itemsize) <= K.SMEM_PER_BLOCK
 
+    @pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+    @pytest.mark.parametrize("n", [1, 7, 32, 33, 96, 200, 1000, 1536, 3000,
+                                   4096])
+    def test_sixteen_bit_picks_an_instantiated_pair(self, n, dtype):
+        bm, bn, bk = ops.pick_blocks(n, n, n, dtype=TORCH[dtype])
+        assert bm == bn and (bm, bk) in K.TC_BLOCKS and bm % bk == 0
+        assert K.smem_footprint((bm, bn, bk), 2) <= ops.SMEM_BUDGET
+
+    def test_sixteen_bit_k_step_is_the_default_where_it_fits(self):
+        assert ops.pick_blocks(4096, 4096, 4096, dtype=torch.bfloat16) == \
+            (128, 128, K.TC_DEFAULT_BK)
+        assert ops.pick_blocks(512, 512, 512, dtype=torch.float16) == \
+            (64, 64, K.TC_DEFAULT_BK)
+        assert ops.pick_blocks(20, 20, 20, dtype=torch.bfloat16) == \
+            (32, 32, 32)                          # at most the tile
+
+    @pytest.mark.parametrize("n,padded", [(20, 32), (200, 256), (1000, 1024),
+                                          (3000, 3072), (4096, 4096)])
+    def test_sixteen_bit_padding_is_unchanged(self, n, padded):
+        """The K step of the tensor-core kernels never pads a chain
+        further than the f32 tiles do."""
+        assert ops._square_blocks(n, torch.bfloat16)[1] == padded
+        assert ops._square_blocks(n, torch.float32)[1] == padded
+
     def test_small_problems_do_not_take_the_largest_tile(self):
         """Sixteen 128-tiles would leave most SMs idle at n = 512."""
         assert ops.pick_blocks(512, 512, 512)[0] == 64
