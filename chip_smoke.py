@@ -11,10 +11,13 @@ output type) in bf16 / f16 — then runs the slices end to end —
 ``matpow_binary(a, 96, backend="cuda_chain")`` at n = 4096 (f32, bf16, f16)
 and in every squaring tier, the other matpow entry points, the
 stacked chain and ``expm`` against float64 references; ``ops.attention``
-(flash attention, K5) at the widths of Qwen3-1.7B and Mixtral-8x7B against
-its plain version, with ``scaled_dot_product_attention`` timed beside it;
-and the tuning cache: measured sweeps recorded and then used by
-``ops.attention`` and by an A^96 chain. Each phase prints one JSON line; any
+(flash attention, K5: the tensor-core kernel of ``attention_tc.cuh`` in
+bf16 / f16, the FMA kernel of ``attention.cuh`` in f32 / f64, split-KV and
+its combine kernel at decode shapes) at the widths of Qwen3-1.7B and
+Mixtral-8x7B against its plain version, with
+``scaled_dot_product_attention`` timed beside it; and the tuning cache:
+measured sweeps recorded and then used by ``ops.attention`` and by an A^96
+chain. Each phase prints one JSON line; any
 failure raises and the script exits non-zero without the final
 ``"ok": true`` line. It needs a CUDA device and ``nvcc``; it imports
 ``repro_torch`` only (never ``jax`` or the reference package). The tuning
@@ -65,20 +68,27 @@ SOURCES = {"matmul": "src/repro_torch/kernels/csrc/gemm.cuh",
            "square_whole": "src/repro_torch/kernels/csrc/gemm.cuh",
            "square_panel": "src/repro_torch/kernels/csrc/gemm.cuh",
            "square_panel_tc": "src/repro_torch/kernels/csrc/gemm_tc.cuh",
-           "flash_attention": "src/repro_torch/kernels/csrc/attention.cuh"}
+           "flash_attention": "src/repro_torch/kernels/csrc/attention.cuh",
+           "flash_attention_tc":
+               "src/repro_torch/kernels/csrc/attention_tc.cuh",
+           "attn_combine": "src/repro_torch/kernels/csrc/attention.cuh"}
 REPLACES = {"matmul": "src/repro/kernels/matmul.py:111",
             "matmul_tc": "src/repro/kernels/matmul.py:111",
             "square_whole": "src/repro/kernels/matmul.py:275",
             "square_panel": "src/repro/kernels/matmul.py:287",
             "square_panel_tc": "src/repro/kernels/matmul.py:287",
-            "flash_attention": "src/repro/kernels/attention.py:155"}
+            "flash_attention": "src/repro/kernels/attention.py:155",
+            "flash_attention_tc": "src/repro/kernels/attention.py:155",
+            "attn_combine": "src/repro/kernels/attention.py:155"}
 #: The rows of the ``{"kernels": [...]}`` line: (kernel, dtype of its timed
-#: main-path shape).
+#: main-path shape). K5 on the tensor cores at Qwen3-1.7B prefill, K5 on the
+#: FMA pipeline at f32 decode, the combine at bf16 decode.
 KERNEL_ROWS = (("matmul", "float32"), ("matmul_tc", "bfloat16"),
                ("matmul_tc", "float16"), ("square_whole", "float32"),
                ("square_panel", "float32"), ("square_panel_tc", "bfloat16"),
                ("square_panel_tc", "float16"),
-               ("flash_attention", "bfloat16"))
+               ("flash_attention_tc", "bfloat16"),
+               ("flash_attention", "float32"), ("attn_combine", "bfloat16"))
 DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.float64)
 SIXTEEN_BIT = (torch.bfloat16, torch.float16)
 POWER = 96          # 6 squarings + 1 combine
@@ -587,8 +597,9 @@ def phase_batched() -> None:
 #: query heads of d_head 128) at 4096 tokens; Mixtral-8x7B's sliding window
 #: (configs/mixtral_8x7b.py: window 4096, d_head 4096 / 32 = 128) over 8192
 #: tokens, and the same without the window (what the band skip saves);
-#: decode alignment (128 new queries against 4096 keys); Sq > Skv (no key
-#: for rows 0..127); float16, float64 and a head width that pads.
+#: decode alignment (128 new queries against 4096 keys, f32 and bf16: one
+#: query block per head, so the KV bands split); Sq > Skv (no key for rows
+#: 0..127, f32 and bf16); float16, float64 and a head width that pads.
 ATTN_CASES = (
     ("qwen3_1.7b_prefill", (16,), 4096, 4096, 128, torch.bfloat16, True,
      None, True),
@@ -597,7 +608,10 @@ ATTN_CASES = (
     ("mixtral_8x7b_causal", (8,), 8192, 8192, 128, torch.bfloat16, True,
      None, True),
     ("decode_f32", (16,), 128, 4096, 128, torch.float32, True, None, True),
+    ("decode_bf16", (16,), 128, 4096, 128, torch.bfloat16, True, None, True),
     ("sq_gt_skv", (1,), 256, 128, 64, torch.float32, True, None, False),
+    ("sq_gt_skv_bf16", (1,), 256, 128, 64, torch.bfloat16, True, None,
+     False),
     ("f16", (4,), 512, 512, 64, torch.float16, True, None, False),
     ("f64_window", (2,), 256, 256, 128, torch.float64, True, 100, False),
     ("d48_pads", (2, 3), 192, 192, 48, torch.float32, False, None, False),
@@ -641,9 +655,12 @@ def sdpa_call(q, k, v, causal, window):
 
 def phase_attention() -> tuple:
     """K5 through ``ops.attention`` (blocks from the tuning cache, empty
-    here, so the heuristic's), counted; then each output against the plain
-    version on the same inputs, and the timed shapes against their bound
-    and the library's call."""
+    here, so the heuristic's), counted by route: bf16 / f16 on the
+    tensor-core kernel, f32 / f64 on the FMA kernel, the combine once for
+    each call whose KV bands split. Then each output against the plain
+    version on the same inputs, the timed shapes against their bound and
+    the library's call, and the combine kernel against its plain version on
+    the partials of the bf16 decode call, recomputed in plain PyTorch."""
     cases = []
     for i, (name, lead, sq, skv, d, dtype, causal, window, timed) in \
             enumerate(ATTN_CASES):
@@ -654,34 +671,45 @@ def phase_attention() -> tuple:
         cases.append((name, q, k, v, causal, window, timed))
 
     A.reset_launches()
-    outs = [ops.attention(q, k, v, causal=causal, window=window)
-            for _, q, k, v, causal, window, _ in cases]
+    outs, launched = [], []
+    for _, q, k, v, causal, window, _ in cases:
+        outs.append(ops.attention(q, k, v, causal=causal, window=window))
+        launched.append(dict(A.last_launch))
     torch.cuda.synchronize()
     counts = A.launch_counts()
-    if counts != {"flash_attention": len(cases), "plain_flash_attention": 0}:
+    expected = {name: 0 for name in counts}
+    for (_, q, *_), launch in zip(cases, launched):
+        expected[A.kernel_name(q.dtype)] += 1
+        expected["attn_combine"] += launch["splits"] > 1
+    if counts != expected:
         raise AssertionError(f"ops.attention launches {counts}, expected "
-                             f"{len(cases)} kernel launches")
+                             f"{expected}")
 
     rows = []
-    for (name, q, k, v, causal, window, timed), got in zip(cases, outs):
+    for (name, q, k, v, causal, window, timed), got, launch in zip(
+            cases, outs, launched):
         kw = dict(causal=causal, window=window)
+        if launch["kernel"] != A.kernel_name(q.dtype):
+            raise AssertionError(f"{name}: {q.dtype} went to "
+                                 f"{launch['kernel']}")
         want = A.flash_attention_plain(q, k, v, **kw)
         abs_err, rel_peak, rel_row = check_kernel(
             got, want, q.dtype, what=f"flash_attention {name}",
             rtol=ATTN_RTOL, per_row=True)
         sq, skv, d = q.shape[-2], k.shape[-2], q.shape[-1]
-        blocks = ops.pick_attn_blocks(sq, skv, d, dtype=q.dtype)
-        row = {"name": name, "dtype": str(q.dtype).removeprefix("torch."),
+        row = {"name": name, "kernel": launch["kernel"],
+               "dtype": str(q.dtype).removeprefix("torch."),
                "shape": f"q{tuple(q.shape)} kv{tuple(k.shape)}",
-               "causal": causal, "window": window, "blocks": list(blocks),
-               "tile": list(A.kernel_tile(*blocks, d)),
+               "causal": causal, "window": window,
+               "blocks": [launch["block_q"], launch["block_k"]],
+               "tile": list(launch["tile"]), "splits": launch["splits"],
                "max_abs_err": abs_err, "rel_to_peak": rel_peak,
                "rel_to_row": rel_row, "rel_to_row_limit": ATTN_RTOL[q.dtype]}
-        if name == "sq_gt_skv":
+        if name.startswith("sq_gt_skv"):
             if not torch.equal(got[..., :sq - skv, :],
                                torch.zeros_like(got[..., :sq - skv, :])):
-                raise AssertionError("flash_attention: query rows before "
-                                     "every key must be exactly 0")
+                raise AssertionError(f"flash_attention {name}: query rows "
+                                     f"before every key must be exactly 0")
             row["rows_without_key_all_zero"] = True
         if timed:
             heads = q.numel() // (sq * d)
@@ -701,14 +729,57 @@ def phase_attention() -> tuple:
         rows.append(row)
         del want
     by_name = {r["name"]: r for r in rows}
+    for name in ("decode_f32", "decode_bf16"):
+        if by_name[name]["splits"] < 2:
+            raise AssertionError(f"{name} did not split: {by_name[name]}")
+    combine = combine_case(cases, by_name["decode_bf16"])
     ratio = (by_name["mixtral_8x7b_window"]["ms"]
              / by_name["mixtral_8x7b_causal"]["ms"])
     pair_ratio = (by_name["mixtral_8x7b_window"]["visible_pairs_per_slice"]
                   / by_name["mixtral_8x7b_causal"]["visible_pairs_per_slice"])
-    emit("attention", launches=counts, rows=rows,
+    emit("attention", launches=counts, rows=rows, combine=combine,
          window_to_causal_ms_ratio=ratio,
          window_to_causal_pair_ratio=pair_ratio)
-    return counts, by_name["qwen3_1.7b_prefill"]
+    timed = {("flash_attention_tc", "bfloat16"): by_name["qwen3_1.7b_prefill"],
+             ("flash_attention", "float32"): by_name["decode_f32"],
+             ("attn_combine", "bfloat16"): combine}
+    return counts, timed
+
+
+def combine_case(cases, decode) -> dict:
+    """The combine kernel on the partials of the bf16 decode call (its
+    blocks and splits), recomputed by ``split_partials_plain``, against its
+    plain version; timed, with the bytes it must move as its bound (each
+    partial read once, the output written once) and no library call that
+    computes the same function."""
+    _, q, k, v, causal, window, _ = next(c for c in cases
+                                         if c[0] == decode["name"])
+    part_o, part_ml = A.split_partials_plain(
+        q, k, v, causal=causal, window=window, block_q=decode["blocks"][0],
+        block_k=decode["blocks"][1], splits=decode["splits"])
+    rows, width = part_o.shape[1:]
+    out = torch.empty((rows, width), dtype=q.dtype, device=q.device)
+    before = A.launch_counts()["attn_combine"]
+    A.attn_combine(part_o, part_ml, out)
+    torch.cuda.synchronize()
+    if A.launch_counts()["attn_combine"] != before + 1:
+        raise AssertionError("attn_combine did not launch its kernel")
+    want = A.attn_combine_plain(part_o, part_ml, q.dtype)
+    abs_err, rel_peak, rel_row = check_kernel(
+        out, want, q.dtype, what="attn_combine decode_bf16", rtol=ATTN_RTOL,
+        per_row=True)
+    nbytes = (part_o.numel() + part_ml.numel()) * 4 \
+        + out.numel() * out.element_size()
+    b_ms, b_by = bound(0.0, nbytes, q.dtype)
+    return {"name": "attn_combine", "dtype": str(q.dtype).removeprefix(
+                "torch."),
+            "shape": f"splits {decode['splits']} x {tuple(out.shape)}",
+            "max_abs_err": abs_err, "rel_to_peak": rel_peak,
+            "rel_to_row": rel_row,
+            "ms": time_ms(lambda: A.attn_combine(part_o, part_ml, out)),
+            "plain_ms": time_ms(lambda: A.attn_combine_plain(part_o, part_ml,
+                                                             q.dtype)),
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
 
 
 def phase_tuning() -> None:
@@ -746,7 +817,7 @@ def phase_tuning() -> None:
     got = ops.attention(q, k, v, causal=True)
     torch.cuda.synchronize()
     used = (A.last_launch["block_q"], A.last_launch["block_k"])
-    if A.launch_counts()["flash_attention"] != 1 or used != expect:
+    if A.launch_counts()["flash_attention_tc"] != 1 or used != expect:
         raise AssertionError(f"ops.attention launched blocks {used} "
                              f"({A.launch_counts()}), the cache holds "
                              f"{expect}, the heuristic gives {default_attn}")
@@ -789,6 +860,8 @@ def phase_tuning() -> None:
         what=f"matpow_binary(n={n}, p={POWER}) on tuned tiles and tiers")
     emit("tuning", seconds=round(time.perf_counter() - t0, 2),
          attention={"shape": "16 x (4096, 4096, 128) bf16 causal",
+                    "candidates": [list(c) for c in
+                                   autotune.attn_candidates(torch.bfloat16)],
                     "default": list(default_attn), "winner": list(best_attn),
                     "scores_us": {str(r["blocks"]): r["score"]
                                   for r in attn_results},
@@ -836,14 +909,14 @@ def main() -> int:
         counts, _ = phase_matpow()
         phase_entry_points()
         phase_batched()
-        attn_counts, attn_row = phase_attention()
+        attn_counts, attn_timed = phase_attention()
         phase_tuning()
         torch.cuda.synchronize()
     finally:
         shutil.rmtree(cache_dir, ignore_errors=True)
 
     counts = {**counts, **attn_counts}
-    timed = {**timed, ("flash_attention", "bfloat16"): attn_row}
+    timed = {**timed, **attn_timed}
     kernels = []
     for name, dtype in KERNEL_ROWS:
         row = timed[(name, dtype)]

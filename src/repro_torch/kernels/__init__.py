@@ -1,17 +1,18 @@
 """repro_torch.kernels — hand-written Hopper kernels for the compute hot-spots.
 
 csrc/        : the CUDA C++ sources (gemm.cuh, the FMA kernels; gemm_tc.cuh,
-               the 16-bit tensor-core K1 / K3; attention.cuh; one
-               translation unit per element type), compiled for sm_90a at
-               first use.
+               the 16-bit tensor-core K1 / K3; attention_tc.cuh, the 16-bit
+               tensor-core K5; attention.cuh, the f32 / f64 K5 and the
+               split-KV combine; one translation unit per element type),
+               compiled for sm_90a at first use.
 _build.py    : build-at-first-use with nvcc, ctypes binding, launch-error
                check.
 matmul.py    : the tiled matmul kernel (K1) and the tiered squaring kernels
                (K2 whole-operand, K3 panel, K1 above them, chosen by the
                square_tier shared-memory / L2 policy), their plain PyTorch
                versions and the launch counters.
-attention.py : flash attention (K5), its plain version, its tile table and
-               launch counter.
+attention.py : flash attention (K5), its plain version, its tile tables,
+               the split-KV rule and combine, and the launch counters.
 autotune.py  : the persistent tuning cache (matmul, attention and
                square_panel namespaces) and the sweeps that fill it,
                measured on the card as device time of CUDA-graph replays.

@@ -38,15 +38,16 @@ DTYPE_SUFFIX = {"float32": "f32", "float64": "f64", "float16": "f16",
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 # Argument types of the C interface (csrc/gemm.cuh, REPRO_DEFINE_C_API;
-# csrc/attention.cuh, REPRO_DEFINE_ATTENTION_API). Every pointer and the
-# stream are c_void_p: without argtypes ctypes would pass them as 32-bit ints
-# and cut the address. Each base name exists in every DTYPE_SUFFIX.
+# csrc/attention.cuh, REPRO_DEFINE_ATTENTION_API and
+# REPRO_DEFINE_ATTN_COMBINE_API). Every pointer and the stream are c_void_p:
+# without argtypes ctypes would pass them as 32-bit ints and cut the
+# address. Each base name exists in every DTYPE_SUFFIX.
 _SIGNATURES = {
     "repro_matmul": [_P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _I, _I, _P],
     "repro_square_whole": [_P, _P, _I, _I, _L, _L, _I, _I, _I, _P],
     "repro_square_panel": [_P, _P, _I, _I, _I, _L, _L, _I, _I, _I, _P],
-    "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                              _I, _I, _I, _I, _F, _P],
+    "repro_flash_attention": [_P] * 6 + [_I] * 12 + [_F, _P],
+    "repro_attn_combine": [_P, _P, _P, _I, _L, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -57,8 +57,9 @@ from typing import Iterable, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.kernels.attention import (ATTN_TILES, attn_smem_footprint,
-                                           head_dim_for, kernel_tile)
+from repro_torch.kernels.attention import (ATTN_TILES, HEAD_DIMS,
+                                           attn_smem_footprint, head_dim_for,
+                                           kernel_tile)
 from repro_torch.kernels.matmul import (KERNEL_TILES, SM_COUNT,
                                         SMEM_PER_BLOCK, SQUARE_PANEL_LIMIT,
                                         SQUARE_SMEM_LIMIT, TC_BLOCKS,
@@ -70,7 +71,8 @@ __all__ = [
     "lookup", "record", "sweep", "DEFAULT_CANDIDATES", "TC_CANDIDATES",
     "valid_blocks",
     "smem_footprint",
-    "KERNELS", "DEFAULT_ATTN_CANDIDATES", "attn_smem_footprint",
+    "KERNELS", "DEFAULT_ATTN_CANDIDATES", "TC_ATTN_CANDIDATES",
+    "attn_candidates", "attn_smem_footprint",
     "attn_blocks_usable", "modeled_score", "modeled_attn_score",
     "measure_us", "measure_attn_us", "sweep_attention",
     "DEFAULT_SQUARE_TIERS", "square_tiers", "record_square_tiers",
@@ -96,10 +98,15 @@ DEFAULT_CANDIDATES: tuple = (
 #: (tile, K step) pair.
 TC_CANDIDATES: tuple = tuple((t, t, bk) for t, bk in TC_BLOCKS)
 
-#: (block_q, block_k) candidates: the instantiated attention tiles (the
-#: widest head dims take only some; the others score inf there).
+#: (block_q, block_k) candidates of the f32 / f64 FMA attention kernel: its
+#: instantiated tiles (the widest head dims take only some; the others
+#: score inf there).
 DEFAULT_ATTN_CANDIDATES: tuple = tuple(sorted(
-    {t for tiles in ATTN_TILES.values() for t in tiles}))
+    {t for tiles in ATTN_TILES["fma"].values() for t in tiles}))
+
+#: The same for the 16-bit tensor-core attention kernel.
+TC_ATTN_CANDIDATES: tuple = tuple(sorted(
+    {t for tiles in ATTN_TILES["tc"].values() for t in tiles}))
 
 #: Default squaring tier limits (operand bytes): K2 up to the first, K3 up
 #: to the second, K1 above. Overridable per dtype/backend through the
@@ -228,16 +235,25 @@ def valid_blocks(blocks, itemsize: int = 4) -> bool:
     return bm in KERNEL_TILES and bk >= 8 and bk % 8 == 0
 
 
-def attn_blocks_usable(sq: int, skv: int, d: int, blocks) -> bool:
-    """Whether ``(block_q, block_k)`` can run K5 on an (sq, skv, d) problem:
-    each block clamped to its length divides it, and an instantiated tile
-    that fits a block's shared memory holds the pair (``d`` at most the
-    widest instantiated head width)."""
+def attn_candidates(dtype=None) -> tuple:
+    """The attention sweep's default candidates for ``dtype``'s kernel."""
+    return TC_ATTN_CANDIDATES if _itemsize(dtype) == 2 \
+        else DEFAULT_ATTN_CANDIDATES
+
+
+def attn_blocks_usable(sq: int, skv: int, d: int, blocks,
+                       dtype=None) -> bool:
+    """Whether ``(block_q, block_k)`` can run K5 on an (sq, skv, d) problem
+    in ``dtype`` (float32 when None): each block clamped to its length
+    divides it, and an instantiated tile of that dtype's kernel that fits a
+    block's shared memory holds the pair (``d`` at most the widest
+    instantiated head width)."""
     bq, bk = (min(int(blocks[0]), sq), min(int(blocks[1]), skv))
-    if bq < 1 or bk < 1 or sq % bq or skv % bk or d > max(ATTN_TILES):
+    if bq < 1 or bk < 1 or sq % bq or skv % bk or d > max(HEAD_DIMS):
         return False
-    tile = kernel_tile(bq, bk, d)
-    return tile is not None and attn_smem_footprint(*tile, d) <= SMEM_PER_BLOCK
+    tile = kernel_tile(bq, bk, d, dtype)
+    return tile is not None and \
+        attn_smem_footprint(*tile, d, dtype) <= SMEM_PER_BLOCK
 
 
 # ---------------------------------------------------------------------------
@@ -418,10 +434,10 @@ def modeled_attn_score(sq: int, skv: int, d: int, blocks: Sequence[int],
     infinite when the pair cannot run (``attn_blocks_usable``), otherwise
     the idle share of the tile that runs it over the arithmetic intensity
     of one KV step."""
-    if not attn_blocks_usable(sq, skv, d, blocks):
+    if not attn_blocks_usable(sq, skv, d, blocks, dtype):
         return float("inf")
     bq, bk = min(blocks[0], sq), min(blocks[1], skv)
-    tq, tk = kernel_tile(bq, bk, d)
+    tq, tk = kernel_tile(bq, bk, d, dtype)
     width = head_dim_for(d)
     intensity = 4 * bq * bk * width / ((bq + 2 * bk) * width
                                        * _itemsize(dtype))
@@ -574,7 +590,7 @@ def sweep_attention(sq: int, skv: int, d: int, dtype=torch.float32,
     measured in the kernel's place."""
     backend = _backend(backend)
     candidates = [tuple(int(x) for x in c)
-                  for c in (candidates or DEFAULT_ATTN_CANDIDATES)]
+                  for c in (candidates or attn_candidates(dtype))]
     if measure is None:
         measure = backend == "cuda"
 

@@ -184,6 +184,18 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// The same from a 3-D map (encode_stack): c2 picks the matrix of the stack.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1,
+                                         int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -227,13 +239,21 @@ template <int BK> __device__ __forceinline__ uint64_t desc_b(uint32_t addr) {
   return make_desc(addr, BK * 128, 1024, 1);
 }
 
-// One m64nNk16 wgmma, fp32 accumulate, A K-major, B MN-major (trans-b = 1).
-template <typename T, int N> struct Wgmma;
+// One m64nNk16 wgmma, fp32 accumulate. Wgmma: A K-major from a descriptor;
+// B from a descriptor, MN-major (TRANS_B = 1, K1 / K3's row-major B) or
+// K-major (TRANS_B = 0: the keys of attention's Q.K^T, stored (key, d)).
+// scale_d = 0 overwrites d instead of accumulating. WgmmaRS: A from four
+// registers per thread in the m64k16 fragment layout (the layout an
+// m64nNk16 accumulator leaves behind, so attention's probabilities feed
+// P.V without a trip through shared memory), B MN-major.
+template <typename T, int N, int TRANS_B = 1> struct Wgmma;
+template <typename T, int N> struct WgmmaRS;
 
-#define REPRO_WGMMA_64(TYPE, PTX)                                             \
-  template <> struct Wgmma<TYPE, 64> {                                        \
-    static __device__ __forceinline__ void run(float (&d)[32], uint64_t da,  \
-                                               uint64_t db) {                 \
+#define REPRO_WGMMA_SS_64(TYPE, PTX, TB)                                      \
+  template <> struct Wgmma<TYPE, 64, TB> {                                    \
+    static __device__ __forceinline__ void run(float (&d)[32], uint64_t da,   \
+                                               uint64_t db,                   \
+                                               int scale_d = 1) {             \
       asm volatile(                                                           \
           "{\n"                                                               \
           ".reg .pred p;\n"                                                   \
@@ -243,7 +263,7 @@ template <typename T, int N> struct Wgmma;
           "%8, %9, %10, %11, %12, %13, %14, %15, "                            \
           "%16, %17, %18, %19, %20, %21, %22, %23, "                          \
           "%24, %25, %26, %27, %28, %29, %30, %31}, "                         \
-          "%32, %33, p, 1, 1, 0, 1;\n"                                        \
+          "%32, %33, p, 1, 1, 0, " #TB ";\n"                                  \
           "}\n"                                                               \
           : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),       \
             "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),       \
@@ -252,14 +272,15 @@ template <typename T, int N> struct Wgmma;
             "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),  \
             "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),  \
             "+f"(d[30]), "+f"(d[31])                                          \
-          : "l"(da), "l"(db), "r"(1));                                        \
+          : "l"(da), "l"(db), "r"(scale_d));                                  \
     }                                                                         \
   };
 
-#define REPRO_WGMMA_128(TYPE, PTX)                                            \
-  template <> struct Wgmma<TYPE, 128> {                                       \
-    static __device__ __forceinline__ void run(float (&d)[64], uint64_t da,  \
-                                               uint64_t db) {                 \
+#define REPRO_WGMMA_SS_128(TYPE, PTX, TB)                                     \
+  template <> struct Wgmma<TYPE, 128, TB> {                                   \
+    static __device__ __forceinline__ void run(float (&d)[64], uint64_t da,   \
+                                               uint64_t db,                   \
+                                               int scale_d = 1) {             \
       asm volatile(                                                           \
           "{\n"                                                               \
           ".reg .pred p;\n"                                                   \
@@ -273,7 +294,7 @@ template <typename T, int N> struct Wgmma;
           "%40, %41, %42, %43, %44, %45, %46, %47, "                          \
           "%48, %49, %50, %51, %52, %53, %54, %55, "                          \
           "%56, %57, %58, %59, %60, %61, %62, %63}, "                         \
-          "%64, %65, p, 1, 1, 0, 1;\n"                                        \
+          "%64, %65, p, 1, 1, 0, " #TB ";\n"                                  \
           "}\n"                                                               \
           : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),       \
             "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),       \
@@ -288,17 +309,155 @@ template <typename T, int N> struct Wgmma;
             "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),  \
             "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),  \
             "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])                \
-          : "l"(da), "l"(db), "r"(1));                                        \
+          : "l"(da), "l"(db), "r"(scale_d));                                  \
     }                                                                         \
   };
 
-REPRO_WGMMA_64(__nv_bfloat16, "bf16")
-REPRO_WGMMA_128(__nv_bfloat16, "bf16")
-REPRO_WGMMA_64(__half, "f16")
-REPRO_WGMMA_128(__half, "f16")
+#define REPRO_WGMMA_RS_64(TYPE, PTX)                                          \
+  template <> struct WgmmaRS<TYPE, 64> {                                      \
+    static __device__ __forceinline__ void run(float (&d)[32],                \
+                                               const uint32_t (&a)[4],        \
+                                               uint64_t db) {                 \
+      asm volatile(                                                           \
+          "{\n"                                                               \
+          ".reg .pred p;\n"                                                   \
+          "setp.ne.b32 p, %37, 0;\n"                                          \
+          "wgmma.mma_async.sync.aligned.m64n64k16.f32." PTX "." PTX " "       \
+          "{%0, %1, %2, %3, %4, %5, %6, %7, "                                 \
+          "%8, %9, %10, %11, %12, %13, %14, %15, "                            \
+          "%16, %17, %18, %19, %20, %21, %22, %23, "                          \
+          "%24, %25, %26, %27, %28, %29, %30, %31}, "                         \
+          "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"                          \
+          "}\n"                                                               \
+          : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),       \
+            "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),       \
+            "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),  \
+            "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),  \
+            "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),  \
+            "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),  \
+            "+f"(d[30]), "+f"(d[31])                                          \
+          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),              \
+            "r"(1));                                                          \
+    }                                                                         \
+  };
 
-#undef REPRO_WGMMA_64
-#undef REPRO_WGMMA_128
+#define REPRO_WGMMA_RS_128(TYPE, PTX)                                         \
+  template <> struct WgmmaRS<TYPE, 128> {                                     \
+    static __device__ __forceinline__ void run(float (&d)[64],                \
+                                               const uint32_t (&a)[4],        \
+                                               uint64_t db) {                 \
+      asm volatile(                                                           \
+          "{\n"                                                               \
+          ".reg .pred p;\n"                                                   \
+          "setp.ne.b32 p, %69, 0;\n"                                          \
+          "wgmma.mma_async.sync.aligned.m64n128k16.f32." PTX "." PTX " "      \
+          "{%0, %1, %2, %3, %4, %5, %6, %7, "                                 \
+          "%8, %9, %10, %11, %12, %13, %14, %15, "                            \
+          "%16, %17, %18, %19, %20, %21, %22, %23, "                          \
+          "%24, %25, %26, %27, %28, %29, %30, %31, "                          \
+          "%32, %33, %34, %35, %36, %37, %38, %39, "                          \
+          "%40, %41, %42, %43, %44, %45, %46, %47, "                          \
+          "%48, %49, %50, %51, %52, %53, %54, %55, "                          \
+          "%56, %57, %58, %59, %60, %61, %62, %63}, "                         \
+          "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"                          \
+          "}\n"                                                               \
+          : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),       \
+            "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),       \
+            "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),  \
+            "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),  \
+            "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),  \
+            "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),  \
+            "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),  \
+            "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),  \
+            "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),  \
+            "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),  \
+            "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),  \
+            "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),  \
+            "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])                \
+          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),              \
+            "r"(1));                                                          \
+    }                                                                         \
+  };
+
+#define REPRO_WGMMA_RS_256(TYPE, PTX)                                         \
+  template <> struct WgmmaRS<TYPE, 256> {                                     \
+    static __device__ __forceinline__ void run(float (&d)[128],               \
+                                               const uint32_t (&a)[4],        \
+                                               uint64_t db) {                 \
+      asm volatile(                                                           \
+          "{\n"                                                               \
+          ".reg .pred p;\n"                                                   \
+          "setp.ne.b32 p, %133, 0;\n"                                         \
+          "wgmma.mma_async.sync.aligned.m64n256k16.f32." PTX "." PTX " "      \
+          "{%0, %1, %2, %3, %4, %5, %6, %7, "                                 \
+          "%8, %9, %10, %11, %12, %13, %14, %15, "                            \
+          "%16, %17, %18, %19, %20, %21, %22, %23, "                          \
+          "%24, %25, %26, %27, %28, %29, %30, %31, "                          \
+          "%32, %33, %34, %35, %36, %37, %38, %39, "                          \
+          "%40, %41, %42, %43, %44, %45, %46, %47, "                          \
+          "%48, %49, %50, %51, %52, %53, %54, %55, "                          \
+          "%56, %57, %58, %59, %60, %61, %62, %63, "                          \
+          "%64, %65, %66, %67, %68, %69, %70, %71, "                          \
+          "%72, %73, %74, %75, %76, %77, %78, %79, "                          \
+          "%80, %81, %82, %83, %84, %85, %86, %87, "                          \
+          "%88, %89, %90, %91, %92, %93, %94, %95, "                          \
+          "%96, %97, %98, %99, %100, %101, %102, %103, "                      \
+          "%104, %105, %106, %107, %108, %109, %110, %111, "                  \
+          "%112, %113, %114, %115, %116, %117, %118, %119, "                  \
+          "%120, %121, %122, %123, %124, %125, %126, %127}, "                 \
+          "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n"                     \
+          "}\n"                                                               \
+          : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),       \
+            "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),       \
+            "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),  \
+            "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),  \
+            "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),  \
+            "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),  \
+            "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),  \
+            "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),  \
+            "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),  \
+            "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),  \
+            "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),  \
+            "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),  \
+            "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),  \
+            "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),  \
+            "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),  \
+            "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),  \
+            "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),  \
+            "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),  \
+            "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),  \
+            "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),  \
+            "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),\
+            "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),\
+            "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),\
+            "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),\
+            "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),\
+            "+f"(d[125]), "+f"(d[126]), "+f"(d[127])                          \
+          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),              \
+            "r"(1));                                                          \
+    }                                                                         \
+  };
+
+REPRO_WGMMA_SS_64(__nv_bfloat16, "bf16", 1)
+REPRO_WGMMA_SS_128(__nv_bfloat16, "bf16", 1)
+REPRO_WGMMA_SS_64(__half, "f16", 1)
+REPRO_WGMMA_SS_128(__half, "f16", 1)
+REPRO_WGMMA_SS_64(__nv_bfloat16, "bf16", 0)
+REPRO_WGMMA_SS_128(__nv_bfloat16, "bf16", 0)
+REPRO_WGMMA_SS_64(__half, "f16", 0)
+REPRO_WGMMA_SS_128(__half, "f16", 0)
+REPRO_WGMMA_RS_64(__nv_bfloat16, "bf16")
+REPRO_WGMMA_RS_128(__nv_bfloat16, "bf16")
+REPRO_WGMMA_RS_256(__nv_bfloat16, "bf16")
+REPRO_WGMMA_RS_64(__half, "f16")
+REPRO_WGMMA_RS_128(__half, "f16")
+REPRO_WGMMA_RS_256(__half, "f16")
+
+#undef REPRO_WGMMA_SS_64
+#undef REPRO_WGMMA_SS_128
+#undef REPRO_WGMMA_RS_64
+#undef REPRO_WGMMA_RS_128
+#undef REPRO_WGMMA_RS_256
 
 // m16n8k16 mma.sync, fp32 accumulate; a: 4 registers (ldmatrix.x4 of a
 // 16 x 16 A tile), b: 2 registers (16 k x 8 n).
@@ -371,14 +530,14 @@ __device__ __forceinline__ void store8(TOut* p, const float (&v)[8]) {
 }
 
 // Write one warpgroup's 64 x N accumulator tile (top-left element c, row
-// stride ldc). wgmma leaves lane l of warp w holding, for each 8-column
-// chunk j, columns 2(l%4) and 2(l%4)+1 of rows 16w + l/4 and 16w + l/4 + 8.
-// The four lanes of a quad trade those pairs so that lane q ends up with
-// all eight columns of chunk 4g + q.
+// stride ldc), or its first `rows` rows. wgmma leaves lane l of warp w
+// holding, for each 8-column chunk j, columns 2(l%4) and 2(l%4)+1 of rows
+// 16w + l/4 and 16w + l/4 + 8. The four lanes of a quad trade those pairs so
+// that lane q ends up with all eight columns of chunk 4g + q.
 template <typename TOut, int N>
 __device__ __forceinline__ void store_acc(TOut* c, long long ldc,
                                           const float (&d)[N / 2], int lane,
-                                          int warp_in_wg) {
+                                          int warp_in_wg, int rows = 64) {
   const int q = lane & 3;
   const long long r = warp_in_wg * 16 + (lane >> 2);
 #pragma unroll
@@ -407,7 +566,8 @@ __device__ __forceinline__ void store_acc(TOut* c, long long ldc,
             v[2 * k + 1] = r1;
           }
       }
-      store8<TOut>(c + (r + 8 * h) * ldc + g * 32 + q * 8, v);
+      if (r + 8 * h < rows)
+        store8<TOut>(c + (r + 8 * h) * ldc + g * 32 + q * 8, v);
     }
 }
 
@@ -773,20 +933,24 @@ template <> constexpr CUtensorMapDataType tma_type<__half>() {
   return CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
 }
 
-// A row-major (rows, cols) 16-bit matrix read in [box_rows x box_cols] boxes.
+// A row-major (rows, cols) 16-bit matrix read in [box_rows x box_cols]
+// boxes (rank 2); or, with depth > 0, a stack of `depth` of them read in
+// boxes of one matrix (rank 3, tma_load's c2 picks the matrix), so that a
+// box's rows past `rows` read as zeros, not as the next matrix's first rows.
 template <typename T>
 static int encode(CUtensorMap* map, const void* base, unsigned long long rows,
                   unsigned long long cols, unsigned box_rows,
-                  unsigned box_cols, CUtensorMapSwizzle swizzle) {
+                  unsigned box_cols, CUtensorMapSwizzle swizzle,
+                  unsigned long long depth = 0) {
   const PFN_cuTensorMapEncodeTiled_v12000 fn = encode_fn();
   if (fn == nullptr) return kEncodeFailed;
-  const cuuint64_t dims[2] = {cols, rows};
-  const cuuint64_t strides[1] = {cols * sizeof(T)};
-  const cuuint32_t box[2] = {box_cols, box_rows};
-  const cuuint32_t elem[2] = {1, 1};
+  const cuuint64_t dims[3] = {cols, rows, depth};
+  const cuuint64_t strides[2] = {cols * sizeof(T), rows * cols * sizeof(T)};
+  const cuuint32_t box[3] = {box_cols, box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
   const CUresult res =
-      fn(map, tma_type<T>(), 2, const_cast<void*>(base), dims, strides, box,
-         elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      fn(map, tma_type<T>(), depth ? 3 : 2, const_cast<void*>(base), dims,
+         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
          CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : kEncodeFailed;
 }

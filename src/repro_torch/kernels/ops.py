@@ -41,8 +41,8 @@ import torch.nn.functional as F
 
 from repro_torch import dtype_name
 from repro_torch.kernels import autotune
-from repro_torch.kernels.attention import (ATTN_TILES, flash_attention,
-                                           head_dim_for)
+from repro_torch.kernels.attention import (HEAD_DIMS, attn_tiles,
+                                           flash_attention, head_dim_for)
 from repro_torch.kernels.matmul import (DEFAULT_BLOCK, KERNEL_TILES, SM_COUNT,
                                         SMEM_PER_BLOCK, TC_BLOCKS,
                                         TC_DEFAULT_BK, matmul_cuda,
@@ -116,11 +116,12 @@ def pick_attn_blocks(sq: int, skv: int, d: int, dtype=None,
 
     The attention face of the tuning subsystem: the cache's ``attention``
     namespace first, under ``backend`` (the operands' device type,
-    ``"cuda"`` by default). An entry is used only if K5 can run it
-    (``autotune.attn_blocks_usable``: each block, clamped to its length,
-    divides it, and an instantiated tile within a block's shared memory
-    holds the pair); an invalid entry falls through to the heuristic, never
-    raises.
+    ``"cuda"`` by default). An entry is used only if ``dtype``'s K5 (the
+    tensor-core kernel for bf16 / f16, the FMA kernel else; float32 when
+    None) can run it (``autotune.attn_blocks_usable``: each block, clamped
+    to its length, divides it, and an instantiated tile within a block's
+    shared memory holds the pair); an invalid entry falls through to the
+    heuristic, never raises.
 
     The heuristic starts from the widest instantiated tile (128) clamped to
     the length; a ragged length takes its largest divisor up to 128 (333 ->
@@ -135,9 +136,10 @@ def pick_attn_blocks(sq: int, skv: int, d: int, dtype=None,
         tuned = autotune.lookup(sq, skv, d, dtype=dtype, backend=backend,
                                 kernel="attention")
         if tuned is not None and autotune.attn_blocks_usable(sq, skv, d,
-                                                             tuned):
+                                                             tuned, dtype):
             return tuned
-    widest = max(t for tiles in ATTN_TILES.values() for pair in tiles
+    table = attn_tiles(dtype)
+    widest = max(t for tiles in table.values() for pair in tiles
                  for t in pair)
 
     def seq_block(s):
@@ -151,10 +153,10 @@ def pick_attn_blocks(sq: int, skv: int, d: int, dtype=None,
         return next((x for x in range(b - 1, 15, -1) if s % x == 0), None)
 
     def usable(bq, bk):
-        return autotune.attn_blocks_usable(sq, skv, d, (bq, bk))
+        return autotune.attn_blocks_usable(sq, skv, d, (bq, bk), dtype)
 
     bq, bk = seq_block(sq), seq_block(skv)
-    tiles = ATTN_TILES[head_dim_for(d)] if d <= max(ATTN_TILES) else ()
+    tiles = table[head_dim_for(d)] if d <= max(HEAD_DIMS) else ()
     tallest = max((t[0] for t in tiles), default=0)
     while not usable(bq, bk):
         if (bq > tallest or smaller(skv, bk) is None) \
@@ -168,7 +170,7 @@ def pick_attn_blocks(sq: int, skv: int, d: int, dtype=None,
         raise ValueError(
             f"no usable attention tiling for seq lens ({sq},{skv}) at d={d}: "
             f"no block that divides them fits an instantiated tile "
-            f"(head dims {sorted(ATTN_TILES)}, tiles {ATTN_TILES}); pad the "
+            f"(head dims {list(HEAD_DIMS)}, tiles {table}); pad the "
             f"sequence to a multiple of 32")
     return bq, bk
 

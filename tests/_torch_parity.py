@@ -11,6 +11,7 @@ different orders and round bf16 at different places.
 """
 
 import os
+import re
 import tempfile
 
 import numpy as np
@@ -108,3 +109,43 @@ def matpow_mults(p: int) -> int:
     if p <= 1:
         return 1
     return (p.bit_length() - 1) + (bin(p).count("1") - 1)
+
+
+# -- reading the kernels' shared-memory formulas from their CUDA source -----
+
+def cuh_expr(expr: str, names: dict) -> int:
+    """Evaluate one integer expression of a ``.cuh`` as C++ would: casts
+    dropped, ``/`` on integers, ``c ? a : b``."""
+    expr = re.sub(r"\((?:size_t|long long)\)", "", expr).replace("/", "//")
+    ternary = re.fullmatch(r"(.*)\?(.*):(.*)", expr, flags=re.S)
+    if ternary:
+        cond, yes, no = ternary.groups()
+        expr = f"({yes}) if ({cond}) else ({no})"
+    return eval(f"({expr})", {"__builtins__": {}}, dict(names))
+
+
+def cuh_constants(src: str) -> dict:
+    """The namespace-level ``constexpr int k...`` constants of a source."""
+    consts = {}
+    for name, expr in re.findall(r"^constexpr int (k\w+) = ([^;]+);", src,
+                                 flags=re.M):
+        consts[name] = cuh_expr(expr, consts)
+    return consts
+
+
+def cuh_struct(src: str, name: str, **params) -> dict:
+    """The members of ``struct name`` in ``src`` at the given template
+    parameters (and ``P``), evaluated in order over the source's constants:
+    each ``static constexpr int`` member, and ``bytes`` for the value its
+    ``bytes(P)`` returns."""
+    body = re.search(rf"^template <[^>]*> struct {name} \{{\n(.*?)^\}};",
+                     src, flags=re.M | re.S).group(1)
+    names = {**cuh_constants(src), **params}
+    for member, expr in re.findall(r"static constexpr int (\w+) =\s*(.*?);",
+                                   body, flags=re.S):
+        names[member] = cuh_expr(expr, names)
+    returned = re.search(r"bytes\(int P\) \{\s*return (.*?);", body,
+                         flags=re.S)
+    if returned and "P" in params:
+        names["bytes"] = cuh_expr(returned.group(1), names)
+    return names

@@ -4,7 +4,11 @@ The same numpy q, k, v (rounded once to the working dtype, by JAX) go
 through the reference's ``ops.attention(..., interpret=True)`` — its Pallas
 kernel body on the CPU — and the port's ``ops.attention`` on CPU tensors,
 where the wrapper runs the same shape and block checks as on the card and
-then the plain version.
+then the plain version. The split-KV arithmetic of the kernels
+(``flash_attention_split_plain``: partial max, denominator and accumulator
+per chunk of the KV band, then the combine) is held against both too, and
+what the Python side knows of the CUDA sources (tile tables, shared-memory
+formulas, the split rule) against those sources.
 
 Tolerance, on the largest error over the largest entry of the reference's
 output: 1e-5 in float32 (both compute the scores and the softmax in fp32 and
@@ -13,6 +17,7 @@ in the last place of the output type: the two round their fp32 results
 once, at nearby values).
 """
 
+import math
 import re
 from pathlib import Path
 
@@ -27,15 +32,21 @@ from repro.kernels import ref as jref
 from repro_torch.kernels import attention_kernels as A
 from repro_torch.kernels import autotune, ops, ref
 
-from _torch_parity import as_f64, pair
+from _torch_parity import as_f64, cuh_struct, pair
 
 RTOL = {"float32": 1e-5, "bfloat16": 2.0 ** -8, "float16": 2.0 ** -10}
+CSRC = Path(A.__file__).parent / "csrc"
 
 
 @pytest.fixture(autouse=True)
 def _fresh_counters():
     A.reset_launches()
     yield
+
+
+def _only(**counts) -> dict:
+    """Every launch counter 0 but the ones given."""
+    return {**{name: 0 for name in A.LAUNCHES}, **counts}
 
 
 def _qkv(lead, sq, skv, d, dtype, seed):
@@ -77,8 +88,7 @@ class TestReferenceCases:
         got = ops.attention(tq, tk, tv, **kw)
         assert got.dtype == tq.dtype
         _assert_close(got, want, dtype)
-        assert A.launch_counts() == {"flash_attention": 0,
-                                     "plain_flash_attention": 1}
+        assert A.launch_counts() == _only(plain_flash_attention=1)
 
     def test_online_softmax_stability(self):
         """Large score magnitudes must not overflow the running max."""
@@ -200,25 +210,96 @@ class TestBlocks:
                                                               tile):
         assert A.kernel_tile(*block, d) == tile
 
-    def test_tile_table_is_the_kernels(self):
-        """``ATTN_TILES`` and the REPRO_ATTN_TILE lines of attention.cuh
-        name the same (head width, tile_q, tile_k) instantiations: a tile the
-        picker could choose but the library lacks would only show as a -1
-        from the launcher on the card."""
-        src = (Path(A.__file__).parent / "csrc" / "attention.cuh").read_text()
-        lines = re.findall(r"^\s*REPRO_ATTN_TILE\((\d+), (\d+), (\d+)\)\s*$",
+    @pytest.mark.parametrize("family,source,macro,count", [
+        ("fma", "attention.cuh", "REPRO_ATTN_TILE", 13),
+        ("tc", "attention_tc.cuh", "REPRO_ATTN_TC_TILE", 9)])
+    def test_tile_table_is_the_kernels(self, family, source, macro, count):
+        """Each dtype family's ``ATTN_TILES`` table and its kernel's tile
+        lines name the same (head width, tile_q, tile_k) instantiations: a
+        tile the picker could choose but the library lacks would only show
+        as a -1 from the launcher on the card. The 16-bit tiles are 64 or
+        128 queries (one or two consumer warpgroups) and a multiple of 16
+        keys, and every head width has one in both families."""
+        src = (CSRC / source).read_text()
+        lines = re.findall(rf"^\s*{macro}\((\d+), (\d+), (\d+)\)\s*$",
                            src, flags=re.M)
         in_cuda = sorted(tuple(int(x) for x in line) for line in lines)
-        in_python = sorted((d, tq, tk) for d, tiles in A.ATTN_TILES.items()
+        in_python = sorted((d, tq, tk)
+                           for d, tiles in A.ATTN_TILES[family].items()
                            for tq, tk in tiles)
-        assert in_cuda == in_python and len(in_cuda) == 13
+        assert in_cuda == in_python and len(in_cuda) == count
+        assert sorted(A.ATTN_TILES[family]) == list(A.HEAD_DIMS) \
+            == [64, 128, 256]
+        if family == "tc":
+            assert all(tq in (64, 128) and tk % 16 == 0
+                       for _, tq, tk in in_cuda)
+
+    @pytest.mark.parametrize("sfx,header,api", [
+        ("f32", "attention.cuh", "REPRO_DEFINE_ATTENTION_API(f32, float)"),
+        ("f64", "attention.cuh", "REPRO_DEFINE_ATTENTION_API(f64, double)"),
+        ("bf16", "attention_tc.cuh",
+         "REPRO_DEFINE_ATTENTION_TC_API(bf16, __nv_bfloat16)"),
+        ("f16", "attention_tc.cuh", "REPRO_DEFINE_ATTENTION_TC_API(f16, __half)")])
+    def test_each_dtype_routes_to_its_kernel(self, sfx, header, api):
+        """bf16 / f16 K5 is the tensor-core kernel only: the 16-bit units
+        expand the tensor-core API and no FMA instantiation, and the FMA
+        dispatch refuses 16-bit types at compile time."""
+        unit = (CSRC / f"attention_{sfx}.cu").read_text()
+        assert f'#include "{header}"' in unit and api in unit
+        assert unit.count("REPRO_DEFINE_") == 1
+        assert "static_assert(std::is_same<T, float>::value || " \
+            "std::is_same<T, double>::value" in (CSRC / "attention.cuh") \
+            .read_text()
 
     def test_every_tile_fits_shared_memory(self):
-        for d, tiles in A.ATTN_TILES.items():
-            for tile in tiles:
-                assert A.attn_smem_footprint(*tile, d) <= 232_448
+        for dtype in (torch.float32, torch.bfloat16):
+            for d, tiles in A.attn_tiles(dtype).items():
+                for tile in tiles:
+                    assert A.attn_smem_footprint(*tile, d, dtype) <= 232_448
         # the issue's figure: q, k, v and score tiles at 64 x 64, d 128
         assert 110_000 < A.attn_smem_footprint(64, 64, 128) < 125_000
+        # the tensor-core ring: Q 32 KB + 2 x (K 32 KB + V 32 KB) at
+        # (128, 128, 128), one block per SM; Q 32 KB + 2 x (16 + 16) KB at
+        # (128, 64, 128)
+        assert A.attn_smem_footprint(128, 128, 128, torch.bfloat16) \
+            == 1024 + 32768 + 2 * 65536 + 5 * 8
+        assert A.attn_smem_footprint(128, 64, 128, torch.float16) \
+            == 1024 + 32768 + 2 * 32768 + 5 * 8
+
+    @pytest.mark.parametrize("d,tile", [
+        (d, t) for d, ts in A.ATTN_TILES["tc"].items() for t in ts])
+    def test_tc_footprint_is_the_cuh_formula(self, d, tile):
+        """What ``attn_smem_footprint`` says a 16-bit block asks for is what
+        attention_tc.cuh's ``Smem`` formula, evaluated as written over
+        gemm_tc.cuh's constants, gives."""
+        src = (CSRC / "gemm_tc.cuh").read_text() \
+            + (CSRC / "attention_tc.cuh").read_text()
+        smem = cuh_struct(src, "Smem", TQ=tile[0], TK=tile[1], D=d)
+        assert A.attn_smem_footprint(*tile, d, torch.bfloat16) \
+            == smem["BYTES"] <= 232_448
+        assert cuh_struct(src.replace("kStages * STAGE +", "STAGE +", 1),
+                          "Smem", TQ=tile[0], TK=tile[1], D=d)["BYTES"] \
+            != smem["BYTES"]
+
+    @pytest.mark.parametrize("block,d,tile", [
+        ((64, 64), 128, (64, 64)), ((111, 37), 64, (128, 64)),
+        ((32, 16), 128, (64, 64)), ((128, 128), 128, (128, 128)),
+        ((96, 100), 64, (128, 128)), ((64, 100), 128, (64, 128)),
+        ((64, 64), 256, (64, 64)), ((65, 64), 256, None),
+        ((128, 128), 256, None),
+        ((64, 65), 256, None), ((129, 64), 64, None)])
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+    def test_tc_kernel_tile_is_the_smallest_that_holds_the_block(
+            self, block, d, tile, dtype):
+        assert A.kernel_tile(*block, d, dtype) == tile
+        assert A.kernel_name(dtype) == "flash_attention_tc"
+
+    def test_a_16_bit_block_no_tc_tile_holds_raises_naming_the_tiles(self):
+        (_, tq), (_, tk), (_, tv) = _qkv((), 256, 256, 256, "bfloat16", 34)
+        with pytest.raises(ValueError, match=r"bfloat16.*\(64, 64\)"):
+            ops.attention(tq, tk, tv, block_q=128, block_k=64)
+        ops.attention(tq, tk, tv, block_q=64, block_k=64)
+        assert A.launch_counts() == _only(plain_flash_attention=1)
 
 
 class TestContracts:
@@ -240,8 +321,8 @@ class TestContracts:
         q = torch.zeros(64, 32)
         ops.attention(q, q, q)
         A.flash_attention(q, q, q)
-        assert A.launch_counts() == {"flash_attention": 0,
-                                     "plain_flash_attention": 2}
+        A.flash_attention(q.bfloat16(), q.bfloat16(), q.bfloat16())
+        assert A.launch_counts() == _only(plain_flash_attention=3)
         A.reset_launches()
         assert not any(A.launch_counts().values())
 
@@ -319,3 +400,152 @@ class TestRowRelativeError:
         got = want.clone()
         got[1, 3, 0] = 1.01
         assert ref.row_relative_error(got, want) == pytest.approx(0.01)
+
+
+class TestSplitKvArithmetic:
+    """The kernels' split-KV path in plain PyTorch: each block's band of KV
+    tiles cut into chunks, each chunk's (max, denominator, unnormalised
+    accumulator), then the combine. Held against the oracle and against the
+    reference's kernel in interpret mode, at the fp32 limit: it is the same
+    function in another order of summation."""
+
+    @pytest.mark.parametrize("cfg", [
+        dict(sq=256, skv=256, causal=True, window=None, bq=64, bk=32, z=3),
+        dict(sq=256, skv=256, causal=True, window=48, bq=64, bk=16, z=4),
+        dict(sq=64, skv=512, causal=True, window=None, bq=64, bk=64, z=5),
+        dict(sq=128, skv=512, causal=True, window=200, bq=32, bk=64, z=2),
+        dict(sq=128, skv=256, causal=False, window=None, bq=128, bk=32,
+             z=8),
+        dict(sq=192, skv=192, causal=False, window=40, bq=64, bk=16, z=3),
+    ], ids=["causal", "window", "decode", "aligned_window", "full",
+            "window_only"])
+    def test_split_and_combine_is_attention(self, cfg):
+        (jq, tq), (jk, tk), (jv, tv) = _qkv((2,), cfg["sq"], cfg["skv"], 64,
+                                            "float32", 70)
+        kw = dict(causal=cfg["causal"], window=cfg["window"])
+        got = A.flash_attention_split_plain(
+            tq, tk, tv, block_q=cfg["bq"], block_k=cfg["bk"],
+            splits=cfg["z"], **kw)
+        assert A.launch_counts() == _only(plain_attn_combine=1)
+        oracle = lambda q, k, v: jref.flash_attention_ref(q, k, v, **kw)
+        _assert_close(got, jax.vmap(oracle)(jq, jk, jv), "float32")
+        one = lambda q, k, v: _reference(q, k, v, block_q=cfg["bq"],
+                                         block_k=cfg["bk"], **kw)
+        _assert_close(got, jax.vmap(one)(jq, jk, jv), "float32")
+        torch.testing.assert_close(
+            got, ref.flash_attention_ref(tq, tk, tv, **kw), rtol=0,
+            atol=2e-6)
+
+    def test_splits_that_see_no_key_weigh_nothing(self):
+        """Causal, one 128-query block, 8 splits of one 16-key tile: for
+        query row r the splits past its key r see no key at all (max -inf,
+        denominator 0) and must drop out of the combine; a split whose max
+        is -inf carries weight 0 even when another split's is -inf too."""
+        (jq, tq), (jk, tk), (jv, tv) = _qkv((), 128, 128, 64, "float32", 71)
+        assert [A.kv_range(0, 128, 128, 128, 16, True, None, z, 8)
+                for z in range(8)] == [(16 * z, 1) for z in range(8)]
+        got = A.flash_attention_split_plain(tq, tk, tv, block_q=128,
+                                            block_k=16, splits=8)
+        _assert_close(got, jref.flash_attention_ref(jq, jk, jv), "float32")
+        part_o = torch.zeros(3, 2, 4)
+        part_ml = torch.tensor([[[-math.inf, 0.0], [1.0, 2.0]],
+                                [[-math.inf, 0.0], [3.0, 1.0]],
+                                [[-math.inf, 0.0], [-math.inf, 0.0]]])
+        part_o[0, 1], part_o[1, 1] = 1.0, 2.0
+        out = A.attn_combine_plain(part_o, part_ml, torch.float32)
+        assert torch.equal(out[0], torch.zeros(4))
+        w0, w1 = 2.0 ** (1 - 3), 1.0
+        torch.testing.assert_close(
+            out[1], torch.full((4,), (w0 * 1 + w1 * 2) / (w0 * 2 + w1 * 1)))
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_a_row_that_sees_no_key_is_exactly_zero(self, dtype):
+        """Sq > Skv, causal: rows 0..127 sit before every key, so every split
+        of their blocks is empty (no tile at all) and the combine's
+        denominator is 0."""
+        (jq, tq), (jk, tk), (jv, tv) = _qkv((2,), 256, 128, 64, dtype, 72)
+        got = A.flash_attention_split_plain(tq, tk, tv, block_q=64,
+                                            block_k=32, splits=3)
+        assert got.dtype == tq.dtype
+        assert torch.equal(got[:, :128], torch.zeros_like(got[:, :128]))
+        _assert_close(got, jax.vmap(jref.flash_attention_ref)(jq, jk, jv),
+                      dtype)
+
+    def test_combine_kernel_wrapper_on_cpu_is_the_plain_version(self):
+        rng = np.random.default_rng(73)
+        part_o = torch.from_numpy(rng.standard_normal((4, 6, 64))
+                                  .astype(np.float32))
+        part_ml = torch.from_numpy(rng.standard_normal((4, 6, 2))
+                                   .astype(np.float32)).abs()
+        part_ml[1, 2, 0] = -math.inf
+        out = torch.empty(6, 64, dtype=torch.bfloat16)
+        assert A.attn_combine(part_o, part_ml, out) is out
+        assert torch.equal(out, A.attn_combine_plain(part_o, part_ml,
+                                                     torch.bfloat16))
+        assert A.launch_counts() == _only(plain_attn_combine=2)
+        with pytest.raises(ValueError, match="attn_combine"):
+            A.attn_combine(part_o, part_ml[:, :, :1], out)
+        with pytest.raises(ValueError, match="attn_combine"):
+            A.attn_combine(part_o.double(), part_ml, out)
+
+
+class TestSplitRule:
+    SMS = 132
+
+    @pytest.mark.parametrize("q_tiles,batch", [(1, 132), (2, 66), (32, 16),
+                                               (64, 8), (200, 1)])
+    def test_one_split_when_the_grid_fills_the_card(self, q_tiles, batch):
+        assert A.kv_splits(q_tiles, batch, 64, self.SMS) == 1
+
+    @pytest.mark.parametrize("q_tiles,batch,band,want", [
+        (1, 16, 64, 16),     # decode f32: 17 wanted, 4-tile chunks -> 16
+        (1, 16, 32, 16),     # decode bf16 at 128-key tiles
+        (1, 1, 8, 8),        # never more than the band's tiles
+        (1, 1, 1, 1),
+        (2, 8, 100, 17),
+        (1, 131, 64, 3),
+    ])
+    def test_splits(self, q_tiles, batch, band, want):
+        got = A.kv_splits(q_tiles, batch, band, self.SMS)
+        assert got == want
+        assert 1 <= got <= band
+        chunk = -(-band // got)
+        assert (got - 1) * chunk < band        # no split of the band is empty
+
+    @pytest.mark.parametrize("sq,skv,bq,bk,causal,window", [
+        (128, 4096, 128, 64, True, None),
+        (1, 4096, 1, 128, True, None),
+        (128, 4096, 128, 128, True, 1000),
+        (256, 256, 64, 32, True, 48),
+        (96, 960, 32, 48, False, None),
+        (256, 128, 64, 32, True, None),
+    ])
+    @pytest.mark.parametrize("splits", [1, 2, 3, 7, 16])
+    def test_chunks_tile_the_band_on_block_k_borders(self, sq, skv, bq, bk,
+                                                     causal, window, splits):
+        """Every split's chunk starts on a multiple of ``block_k``; the
+        chunks of a block are disjoint, in order, and together are exactly
+        its band: the tiles holding some key a query of the block can see,
+        and no other."""
+        for q0 in range(0, sq, bq):
+            first, band = A.kv_range(q0, bq, sq, skv, bk, causal, window)
+            pos = torch.arange(q0, q0 + bq)[:, None] + (skv - sq)
+            keys = torch.arange(skv)[None, :]
+            seen = torch.ones(bq, skv, dtype=torch.bool)
+            if causal:
+                seen &= keys <= pos
+            if window is not None:
+                seen &= keys > pos - window
+            tiles = {int(k) // bk for k in seen.any(0).nonzero()}
+            assert set(range(first // bk, first // bk + band)) == tiles
+            at = first
+            for z in range(splits):
+                begin, count = A.kv_range(q0, bq, sq, skv, bk, causal,
+                                          window, z, splits)
+                if count:
+                    assert begin % bk == 0 and begin == at
+                    at += count * bk
+            assert at == first + band * bk
+        assert A.band_tiles(sq, skv, bq, bk, causal, window) == max(
+            A.kv_range(q0, bq, sq, skv, bk, causal, window)[1]
+            for q0 in range(0, sq, bq))

@@ -376,14 +376,41 @@ class TestAttentionSweep:
                                dtype=F32, backend="cpu") == best
 
     def test_model_rejects_what_no_tile_holds(self):
+        """Per dtype family: the FMA kernel has no (128, 128) tile at d 128,
+        the tensor-core kernel has one there but none at d 256."""
         assert autotune.modeled_attn_score(4096, 4096, 128, (128, 128),
+                                           F32) == float("inf")
+        assert autotune.modeled_attn_score(4096, 4096, 128, (128, 128),
+                                           BF16) < float("inf")
+        assert autotune.modeled_attn_score(4096, 4096, 256, (128, 128),
                                            BF16) == float("inf")
         assert autotune.modeled_attn_score(4096, 4096, 64, (128, 128),
                                            BF16) < float("inf")
 
     def test_default_candidates_are_the_instantiated_tiles(self):
-        tiles = {t for ts in A.ATTN_TILES.values() for t in ts}
-        assert set(autotune.DEFAULT_ATTN_CANDIDATES) == tiles
+        for family, candidates, dtype in (
+                ("fma", autotune.DEFAULT_ATTN_CANDIDATES, F32),
+                ("tc", autotune.TC_ATTN_CANDIDATES, BF16)):
+            tiles = {t for ts in A.ATTN_TILES[family].values() for t in ts}
+            assert set(candidates) == tiles
+            assert autotune.attn_candidates(dtype) == candidates
+
+    def test_16_bit_sweep_scores_the_tensor_core_tiles(self, tmp_cache,
+                                                       monkeypatch):
+        seen = []
+
+        def fake_measure(sq, skv, d, blocks, dtype, reps=3):
+            seen.append((blocks, dtype))
+            return float(blocks[0] * blocks[1])
+
+        monkeypatch.setattr(autotune, "measure_attn_us", fake_measure)
+        best, results = autotune.sweep_attention(4096, 4096, 128, dtype=BF16,
+                                                 measure=True)
+        assert [b for b, _ in seen] == list(autotune.TC_ATTN_CANDIDATES)
+        assert {dt for _, dt in seen} == {BF16}
+        assert best == (64, 64) and len(results) == 4   # 4 distinct tiles
+        assert autotune.lookup(4096, 4096, 128, kernel="attention",
+                               dtype=BF16) == (64, 64)
 
 
 class TestPickAttnBlocks:
@@ -407,6 +434,21 @@ class TestPickAttnBlocks:
         got = ops.pick_attn_blocks(sq, skv, d)
         assert got == want
         assert autotune.attn_blocks_usable(sq, skv, d, got)
+
+    @pytest.mark.parametrize("sq,skv,d,want", [
+        (4096, 4096, 128, (128, 128)),  # the tensor-core kernel has it
+        (128, 4096, 128, (128, 128)),
+        (2048, 2048, 256, (64, 64)),    # d 256: (64, 64) is the only tile
+        (333, 333, 128, (111, 111)),
+        (96, 96, 256, (48, 48)),
+    ])
+    @pytest.mark.parametrize("dtype", [BF16, torch.float16])
+    def test_heuristic_on_the_16_bit_tiles(self, tmp_cache, sq, skv, d, want,
+                                           dtype):
+        got = ops.pick_attn_blocks(sq, skv, d, dtype=dtype)
+        assert got == want
+        assert autotune.attn_blocks_usable(sq, skv, d, got, dtype)
+        assert A.kernel_tile(*got, d, dtype) is not None
 
     def test_heuristic_divides_ragged_lengths(self, tmp_cache):
         bq, bk = ops.pick_attn_blocks(384, 768, 64)

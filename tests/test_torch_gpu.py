@@ -283,6 +283,13 @@ def _qkv(lead, sq, skv, d, dtype, device, seed=0):
                  .to(device=device, dtype=dtype) for s in (sq, skv, skv))
 
 
+def _attn_launched(dtype) -> dict:
+    """The launches one K5 call on ``dtype`` makes: its kernel once, and the
+    combine once when it split the KV bands (``last_launch["splits"]``)."""
+    return {**{name: 0 for name in A.LAUNCHES}, A.kernel_name(dtype): 1,
+            "attn_combine": int(A.last_launch["splits"] > 1)}
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16, torch.float64])
 @pytest.mark.parametrize("cfg", [
@@ -297,7 +304,7 @@ def test_flash_attention_kernel_vs_plain(cuda, cfg, dtype):
     q, k, v = _qkv(cfg["lead"], cfg["sq"], cfg["skv"], cfg["d"], dtype, cuda)
     kw = dict(causal=cfg["causal"], window=cfg["window"])
     got = A.flash_attention(q, k, v, **kw)
-    assert A.launch_counts()["flash_attention"] == 1      # one launch
+    assert A.launch_counts() == _attn_launched(dtype)     # one K5 launch
     want = A.flash_attention_plain(q, k, v, **kw)
     assert got.dtype == dtype
     _attn_close(got, want, dtype)
@@ -313,6 +320,7 @@ def test_flash_attention_every_tile_and_ragged_blocks(cuda, blocks):
     _attn_close(got, A.flash_attention_plain(q, k, v), torch.float32)
     assert A.last_launch["block_q"] == blocks[0]
     assert A.last_launch["tile"] == A.kernel_tile(*blocks, 64)
+    assert A.last_launch["kernel"] == "flash_attention"
 
 
 def test_flash_attention_row_with_no_key_is_zero(cuda):
@@ -342,3 +350,139 @@ def test_flash_attention_refuses_what_it_does_not_take(cuda):
     with pytest.raises(TypeError, match="dtype"):
         A.flash_attention(q.int(), k.int(), v.int(), block_q=64, block_k=64)
     assert A.launch_counts()["flash_attention"] == 0
+
+
+# -- K5 on the tensor cores (csrc/attention_tc.cuh) and split-KV -------------
+
+TC_ATTN_TILES = [pytest.param(d, t, id=f"d{d}-{t[0]}x{t[1]}")
+                 for d, ts in A.ATTN_TILES["tc"].items() for t in ts]
+
+
+@pytest.mark.parametrize("grid", ["split", "whole"])
+@pytest.mark.parametrize("dtype", SIXTEEN_BIT)
+@pytest.mark.parametrize("d,tile", TC_ATTN_TILES)
+def test_tc_attention_every_tile(cuda, d, tile, dtype, grid):
+    """Every 16-bit tile, causal, several KV steps (two trips round the
+    ring at least): with 2 leading slices the grid splits the bands and
+    the combine merges them; with 140 it fills the card and does not."""
+    lead = (2,) if grid == "split" else (140,)
+    q, k, v = _qkv(lead, 4 * tile[0], 4 * tile[1], d, dtype, cuda, 20)
+    got = A.flash_attention(q, k, v, block_q=tile[0], block_k=tile[1])
+    assert A.launch_counts() == _attn_launched(dtype)
+    assert A.last_launch["tile"] == tile
+    assert (A.last_launch["splits"] > 1) == (grid == "split")
+    _attn_close(got, A.flash_attention_plain(q, k, v), dtype)
+
+
+@pytest.mark.parametrize("dtype", SIXTEEN_BIT)
+@pytest.mark.parametrize("sq,skv,d,blocks,window", [
+    (333, 333, 64, (111, 37), None),     # ragged: keys past bk are masked
+    (333, 333, 128, (111, 37), 50),
+    (256, 256, 128, (32, 16), None),     # a block far below its tile
+    (192, 192, 48, (64, 64), None),      # head width padded to 64
+    (96, 96, 256, (48, 48), 20),
+    (256, 256, 64, (64, 64), 0),         # an empty window: every row 0
+])
+def test_tc_attention_ragged_blocks_and_windows(cuda, sq, skv, d, blocks,
+                                                window, dtype):
+    for lead in ((3,), (3, 50)):
+        q, k, v = _qkv(lead, sq, skv, d, dtype, cuda, 21)
+        kw = dict(causal=True, window=window)
+        got = A.flash_attention(q, k, v, block_q=blocks[0],
+                                block_k=blocks[1], **kw)
+        assert A.last_launch["tile"] == A.kernel_tile(*blocks, d, dtype)
+        _attn_close(got, A.flash_attention_plain(q, k, v, **kw), dtype)
+        if window == 0:
+            assert torch.equal(got, torch.zeros_like(got))
+
+
+@pytest.mark.parametrize("lead", [(1,), (140,)])
+def test_tc_attention_row_with_no_key_is_zero(cuda, lead):
+    """bf16, Sq > Skv, causal: query rows 0..127 sit before every key."""
+    q, k, v = _qkv(lead, 256, 128, 64, torch.bfloat16, cuda, 22)
+    got = ops.attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got[:, :128], torch.zeros_like(got[:, :128]))
+    _attn_close(got, A.flash_attention_plain(q, k, v, causal=True),
+                torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32, torch.float64])
+@pytest.mark.parametrize("sq,window", [(1, None), (128, None), (128, 1000),
+                                       (1, 300)])
+def test_split_kv_decode(cuda, sq, window, dtype):
+    """Decode shapes, 16 heads: 1 or 128 queries against 4096 keys, one
+    query block per head, so the bands split. With window 1000 the window's
+    edge moves across a split border from row to row, and the first split
+    of the band sees no key for the last rows."""
+    q, k, v = _qkv((16,), sq, 4096, 128, dtype, cuda, 23)
+    kw = dict(causal=True, window=window)
+    got = A.flash_attention(q, k, v, **kw)
+    splits = A.last_launch["splits"]
+    assert splits > 1
+    assert A.launch_counts() == _attn_launched(dtype)
+    if window == 1000:
+        bk = A.last_launch["block_k"]
+        first, band = A.kv_range(0, sq, sq, 4096, bk, True, window)
+        chunk = -(-band // splits)
+        borders = {first + z * chunk * bk for z in range(1, splits)}
+        edges = {4096 - sq + r - window + 1 for r in range(sq)}
+        assert borders & edges                      # an edge on a border
+        # split 0 ends before the first key the last row sees
+        assert first + chunk * bk <= 4096 - window
+    _attn_close(got, A.flash_attention_plain(q, k, v, **kw), dtype)
+    whole = A.flash_attention_split_plain(
+        q, k, v, block_q=A.last_launch["block_q"],
+        block_k=A.last_launch["block_k"], splits=splits, **kw)
+    _attn_close(got, whole, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16, torch.float64])
+def test_combine_kernel_vs_plain(cuda, dtype):
+    rng = np.random.default_rng(24)
+    part_o = torch.from_numpy(rng.standard_normal((5, 300, 128))
+                              .astype(np.float32)).to(cuda)
+    part_ml = torch.from_numpy(rng.standard_normal((5, 300, 2))
+                               .astype(np.float32)).abs().to(cuda)
+    part_ml[1:, :7, 0] = -float("inf")   # rows only split 0 saw
+    part_ml[:, 7:9, 0] = -float("inf")   # rows no split saw
+    part_ml[:, 7:9, 1] = 0.0
+    part_o[:, 7:9] = 0.0
+    out = torch.empty(300, 128, dtype=dtype, device=cuda)
+    A.attn_combine(part_o, part_ml, out)
+    assert A.launch_counts()["attn_combine"] == 1
+    want = A.attn_combine_plain(part_o, part_ml, dtype)
+    # the combine computes in fp32 for every output type, as all of K5 does
+    _attn_close(out, want, dtype)
+    assert torch.equal(out[7:9], torch.zeros_like(out[7:9]))
+
+
+def test_routes_by_dtype(cuda):
+    """bf16 reaches the tensor-core kernel and f32 the FMA kernel; the
+    combine launches exactly when the bands split."""
+    for dtype, lead in ((torch.bfloat16, (2,)), (torch.bfloat16, (200,)),
+                        (torch.float32, (2,)), (torch.float32, (200,))):
+        A.reset_launches()
+        q, k, v = _qkv(lead, 512, 512, 128, dtype, cuda, 25)
+        ops.attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        assert A.last_launch["kernel"] == A.kernel_name(dtype) == (
+            "flash_attention_tc" if dtype == torch.bfloat16
+            else "flash_attention")
+        assert (A.last_launch["splits"] > 1) == (lead == (2,))
+        assert A.launch_counts() == _attn_launched(dtype)
+
+
+def test_tc_attention_refuses_what_it_does_not_take(cuda):
+    q, k, v = _qkv((1,), 256, 256, 256, torch.bfloat16, cuda, 26)
+    with pytest.raises(ValueError, match="instantiated"):
+        A.flash_attention(q, k, v, block_q=128, block_k=128)
+    with pytest.raises(ValueError, match="not divisible"):
+        A.flash_attention(q, k, v, block_q=96, block_k=64)
+    part_o = torch.zeros(2, 8, 512, device=cuda)
+    with pytest.raises(ValueError, match="width 512"):
+        A.attn_combine(part_o, torch.zeros(2, 8, 2, device=cuda),
+                       torch.empty(8, 512, device=cuda))
+    assert not any(A.launch_counts().values())

@@ -18,7 +18,8 @@ import torch
 from repro.kernels.matmul import matmul_pallas, square_pallas
 from repro_torch.kernels import matmul_kernels as K
 
-from _torch_parity import TORCH, as_f64, assert_close, pair, randn
+from _torch_parity import (TORCH, as_f64, assert_close, cuh_constants,
+                           cuh_struct, pair, randn)
 
 B128 = dict(block_m=128, block_n=128, block_k=128)
 
@@ -206,42 +207,14 @@ GEMM_TC = Path(K.__file__).parent / "csrc" / "gemm_tc.cuh"
 TC_PAIRS = [pytest.param(t, bk, id=f"{t}x{bk}") for t, bk in K.TC_BLOCKS]
 
 
-def _cuh_expr(expr: str, names: dict) -> int:
-    """Evaluate one integer expression of the ``.cuh`` as C++ would: casts
-    dropped, ``/`` on integers, ``c ? a : b``."""
-    expr = re.sub(r"\((?:size_t|long long)\)", "", expr).replace("/", "//")
-    ternary = re.fullmatch(r"(.*)\?(.*):(.*)", expr, flags=re.S)
-    if ternary:
-        cond, yes, no = ternary.groups()
-        expr = f"({yes}) if ({cond}) else ({no})"
-    return eval(f"({expr})", {"__builtins__": {}}, dict(names))
-
-
 def _cuh_constants(src=None) -> dict:
     """The namespace-level ``constexpr int k...`` constants of gemm_tc.cuh."""
-    consts = {}
-    for name, expr in re.findall(r"^constexpr int (k\w+) = ([^;]+);",
-                                 src or GEMM_TC.read_text(), flags=re.M):
-        consts[name] = _cuh_expr(expr, consts)
-    return consts
+    return cuh_constants(src or GEMM_TC.read_text())
 
 
 def _cuh_struct(name, src=None, **params) -> dict:
-    """The members of gemm_tc.cuh's ``struct name`` at the given template
-    parameters (and ``P``), evaluated in order: each ``static constexpr
-    int`` member, and ``bytes`` for the value its ``bytes(P)`` returns."""
-    src = src or GEMM_TC.read_text()
-    body = re.search(rf"^template <[^>]*> struct {name} \{{\n(.*?)^\}};",
-                     src, flags=re.M | re.S).group(1)
-    names = {**_cuh_constants(src), **params}
-    for member, expr in re.findall(r"static constexpr int (\w+) =\s*(.*?);",
-                                   body, flags=re.S):
-        names[member] = _cuh_expr(expr, names)
-    returned = re.search(r"bytes\(int P\) \{\s*return (.*?);", body,
-                         flags=re.S)
-    if returned and "P" in params:
-        names["bytes"] = _cuh_expr(returned.group(1), names)
-    return names
+    """The members of gemm_tc.cuh's ``struct name`` (``cuh_struct``)."""
+    return cuh_struct(src or GEMM_TC.read_text(), name, **params)
 
 
 class TestTensorCoreContract:

@@ -192,11 +192,19 @@ class TestBuildLayout:
             assert f"__global__ void __launch_bounds__(kThreads)\n{kernel}(" \
                 in src
         assert "torch/" not in src and "ATen" not in src   # plain C interface
-        assert {"attention.cuh", "attention_f32.cu", "attention_f64.cu",
-                "attention_f16.cu", "attention_bf16.cu"} <= names
+        assert {"attention.cuh", "attention_tc.cuh", "attention_f32.cu",
+                "attention_f64.cu", "attention_f16.cu",
+                "attention_bf16.cu"} <= names
         src = (PKG / "kernels" / "csrc" / "attention.cuh").read_text()
         assert "__global__ void __launch_bounds__(kThreads)\n" \
             "flash_attention_kernel(" in src
+        assert "__global__ void __launch_bounds__(kCombineThreads)\n" \
+            "attn_combine_kernel(" in src
+        assert "torch/" not in src and "ATen" not in src
+        src = (PKG / "kernels" / "csrc" / "attention_tc.cuh").read_text()
+        assert "__global__ void __launch_bounds__(TQ / 64 * 128 + 32)\n" \
+            "flash_attention_tc_kernel(" in src
+        assert '#include "gemm_tc.cuh"' in src     # shared, not copied
         assert "torch/" not in src and "ATen" not in src
 
     def test_build_flags_target_hopper(self):
@@ -207,7 +215,11 @@ class TestBuildLayout:
         assert set(_build._SIGNATURES) == {"repro_matmul",
                                            "repro_square_whole",
                                            "repro_square_panel",
-                                           "repro_flash_attention"}
+                                           "repro_flash_attention",
+                                           "repro_attn_combine"}
+        # q, k, v, o, the two split workspaces; 12 ints; scale; stream
+        assert len(_build._SIGNATURES["repro_flash_attention"]) == 20
+        assert len(_build._SIGNATURES["repro_attn_combine"]) == 7
         assert set(_build.DTYPE_SUFFIX) == set(repro_torch.DTYPES)
 
     def test_build_directory_is_git_ignored(self):
