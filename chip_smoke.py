@@ -5,11 +5,12 @@
 
 builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (first use),
 holds every kernel against its plain PyTorch version on the card — the FMA
-kernels of ``gemm.cuh`` in f32 / f64 (and K2 in every dtype), the
-tensor-core K1 / K3 of ``gemm_tc.cuh`` at every instantiated (tile, K step,
-output type) in bf16 / f16 — then runs the slices end to end —
-``matpow_binary(a, 96, backend="cuda_chain")`` at n = 4096 (f32, bf16, f16)
-and in every squaring tier, the other matpow entry points, the
+kernels of ``gemm.cuh`` (K1 in f32, K2 / K3 in f32 / f64), the tensor-core
+K1–K3 of ``gemm_tc.cuh`` in bf16 / f16 at every instantiated tile and
+output type, the fp64 tensor-core K1 of ``gemm_dmma.cuh`` at every
+instantiated (tile, K step) — then runs the slices end to end —
+``matpow_binary(a, 96, backend="cuda_chain")`` at n = 4096 (f32, bf16, f16,
+f64) and in every squaring tier, the other matpow entry points, the
 stacked chain and ``expm`` against float64 references; ``ops.attention``
 (flash attention, K5: the tensor-core kernel of ``attention_tc.cuh`` in
 bf16 / f16, the FMA kernel of ``attention.cuh`` in f32 / f64, split-KV and
@@ -57,15 +58,20 @@ from repro_torch.kernels import (_build, autotune, error_budget, ops,  # noqa: E
 from repro_torch.kernels import attention_kernels as A  # noqa: E402
 from repro_torch.kernels import matmul_kernels as K  # noqa: E402
 
-# NVIDIA H100 SXM data sheet, dense rates: tensor-core bf16/fp16; fp32 and
-# fp64 outside the tensor cores (the kernels' exact-IEEE FMA pipeline).
+# NVIDIA H100 SXM data sheet, dense rates, the fastest pipeline the card has
+# for each type, so that the bound is the least time the card could take
+# whatever pipeline a kernel uses: the tensor cores for bf16 / fp16 and for
+# fp64 (67 TFLOP/s, twice its FMA pipeline's 34); fp32 outside them (the
+# tensor cores take fp32 only as TF32, which is not fp32).
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
-              torch.float32: 67e12, torch.float64: 34e12}
+              torch.float32: 67e12, torch.float64: 67e12}
 PEAK_BYTES = 3.35e12
 
 SOURCES = {"matmul": "src/repro_torch/kernels/csrc/gemm.cuh",
            "matmul_tc": "src/repro_torch/kernels/csrc/gemm_tc.cuh",
+           "matmul_dmma": "src/repro_torch/kernels/csrc/gemm_dmma.cuh",
            "square_whole": "src/repro_torch/kernels/csrc/gemm.cuh",
+           "square_whole_tc": "src/repro_torch/kernels/csrc/gemm_tc.cuh",
            "square_panel": "src/repro_torch/kernels/csrc/gemm.cuh",
            "square_panel_tc": "src/repro_torch/kernels/csrc/gemm_tc.cuh",
            "flash_attention": "src/repro_torch/kernels/csrc/attention.cuh",
@@ -74,7 +80,9 @@ SOURCES = {"matmul": "src/repro_torch/kernels/csrc/gemm.cuh",
            "attn_combine": "src/repro_torch/kernels/csrc/attention.cuh"}
 REPLACES = {"matmul": "src/repro/kernels/matmul.py:111",
             "matmul_tc": "src/repro/kernels/matmul.py:111",
+            "matmul_dmma": "src/repro/kernels/matmul.py:111",
             "square_whole": "src/repro/kernels/matmul.py:275",
+            "square_whole_tc": "src/repro/kernels/matmul.py:275",
             "square_panel": "src/repro/kernels/matmul.py:287",
             "square_panel_tc": "src/repro/kernels/matmul.py:287",
             "flash_attention": "src/repro/kernels/attention.py:155",
@@ -84,7 +92,9 @@ REPLACES = {"matmul": "src/repro/kernels/matmul.py:111",
 #: main-path shape). K5 on the tensor cores at Qwen3-1.7B prefill, K5 on the
 #: FMA pipeline at f32 decode, the combine at bf16 decode.
 KERNEL_ROWS = (("matmul", "float32"), ("matmul_tc", "bfloat16"),
-               ("matmul_tc", "float16"), ("square_whole", "float32"),
+               ("matmul_tc", "float16"), ("matmul_dmma", "float64"),
+               ("square_whole", "float32"), ("square_whole_tc", "bfloat16"),
+               ("square_whole_tc", "float16"),
                ("square_panel", "float32"), ("square_panel_tc", "bfloat16"),
                ("square_panel_tc", "float16"),
                ("flash_attention_tc", "bfloat16"),
@@ -306,6 +316,7 @@ def kernel_case(name, dtype, operands, blocks, *, timed, rows,
     before = K.launch_counts()
     got = run()
     torch.cuda.synchronize()
+    launch = dict(K.last_launch)
     after = K.launch_counts()
     if after[kernel] != before[kernel] + 1 or sum(after.values()) \
             != sum(before.values()) + 1:
@@ -318,7 +329,8 @@ def kernel_case(name, dtype, operands, blocks, *, timed, rows,
                                    f"{out_dtype}")
     row = {"name": kernel, "dtype": str(dtype).removeprefix("torch."),
            "out_dtype": str(out_dtype).removeprefix("torch."),
-           "shape": shape, "blocks": list(blocks), "max_abs_err": abs_err,
+           "shape": shape, "blocks": list(blocks), "tile": launch["tile"],
+           "grid_blocks": launch["blocks"], "max_abs_err": abs_err,
            "rel_to_peak": rel_peak, "rel_to_peak_limit": KERNEL_RTOL[out_dtype]}
     if timed:
         b_ms, b_by = bound(2.0 * batch * m * n * k, nbytes, dtype)
@@ -336,15 +348,20 @@ def kernel_case(name, dtype, operands, blocks, *, timed, rows,
 
 def phase_kernels() -> dict:
     """K1, K2, K3 — 2-D and stacked — against their plain versions on the
-    card, for f32, bf16, f16 and f64 (the 16-bit K1 and K3 at every
-    instantiated (tile, K step) and both output types); timed at the main
-    path's shapes."""
+    card, for f32, bf16, f16 and f64 (the 16-bit K1 and K3 and the f64 K1
+    at every instantiated (tile, K step) and both output types; the 16-bit
+    K2 at both output types; K2 f32 / f64 at the tiles 32
+    and 64 its grid rule picks); timed at the main path's shapes."""
     rows = []
     for dtype in DTYPES:
         if dtype in SIXTEEN_BIT:
             tilings = [((t, t, bk), out) for t, bk in K.TC_BLOCKS
                        for out in (None, torch.float32)]
             stacked = (64, 64, 32)
+        elif dtype == torch.float64:
+            tilings = [((t, t, bk), out) for t, bk in K.DMMA_BLOCKS
+                       for out in (None, torch.float32)]
+            stacked = (64, 64, 16)
         else:
             tilings = [((t, t, bk), None)
                        for t, bk in ((32, 8), (64, 16), (128, 16))]
@@ -363,15 +380,19 @@ def phase_kernels() -> dict:
                     rows=rows)
         kernel_case("matmul", dtype, (a, b3), stacked, timed=False,
                     rows=rows)
-        # whole-operand tier: the operand must fit a block's shared memory
+        # whole-operand tier: the operand must fit a block's shared memory;
+        # K2 picks its tile (32 for one matrix, 64 for the two stacks)
         p_whole = 128 if dtype == torch.float64 else 192
-        for tile in (32, 64):
-            kernel_case("square_whole", dtype,
-                        (randn((p_whole, p_whole), dtype, 5),),
-                        (tile, tile, 16), timed=False, rows=rows)
-        kernel_case("square_whole", dtype,
-                    (randn((32, 128, 128), dtype, 6),),
-                    (64, 64, 16), timed=False, rows=rows)
+        shapes = [(p_whole, p_whole), (32, 128, 128), (33, 128, 128)]
+        if dtype in SIXTEEN_BIT:
+            shapes.append((256, 256))
+        for i, shape in enumerate(shapes):
+            a = randn(shape, dtype, 5 + i)
+            for out in (None, torch.float32) if dtype in SIXTEEN_BIT \
+                    else (None,):
+                kernel_case("square_whole", dtype, (a,),
+                            ops._square_blocks(shape[-1], dtype)[0],
+                            timed=False, rows=rows, out_dtype=out)
         # panel tier
         p_panel = 256 if dtype == torch.float64 else 512
         if dtype not in SIXTEEN_BIT:
@@ -385,12 +406,14 @@ def phase_kernels() -> dict:
                     stacked, timed=False, rows=rows, smem_limit=0)
 
     # The main path's own shapes, timed: the n = 4096 chain runs K1 for its
-    # squarings and its combine; n = 192 (f32, bf16) squares in K2, n = 512
-    # f32 and n = 1024 bf16 in K3 (phase matpow). K3 is also timed at 512²
-    # in bf16 and f16, PR 12's point of comparison; the kernels line takes
-    # a kernel's last row here, the main path's. The operands are zero-mean
-    # here too, so a dropped K step, a transposed product or a misplaced
-    # tile moves entries by their own size.
+    # squarings and its combine (f64 on DMMA); n = 192 f32, n = 256 bf16
+    # and n = 128 f64 square in K2, n = 512 f32 and n = 1024 bf16 in K3
+    # (phase matpow). K2 in bf16 / f16 is also timed at 192², where the FMA
+    # K2 was compared with the library, and K3 at 512² in bf16 and f16, an
+    # earlier point of comparison; the kernels line takes a kernel's last
+    # row here, the main path's. The operands are zero-mean here too, so a
+    # dropped K step, a transposed product or a misplaced tile moves entries
+    # by their own size.
     timed = {}
     for dtype in (torch.float32, torch.bfloat16, torch.float16,
                   torch.float64):
@@ -400,6 +423,11 @@ def phase_kernels() -> dict:
         row = kernel_case("matmul", dtype, (a, b), blocks, timed=True,
                           rows=rows)
         timed.setdefault((row["name"], row["dtype"]), row)
+        if dtype == torch.float64:
+            emit("k1_f64_grid", kernel=row["name"], shape=row["shape"],
+                 tile=row["tile"], grid_blocks=row["grid_blocks"],
+                 ms=row["ms"], bound_ms=row["bound_ms"],
+                 library_ms=row["library_ms"])
         if dtype in (torch.float32, torch.bfloat16):
             # the same product at half the K step: what the default buys
             kernel_case("matmul", dtype, (a, b),
@@ -407,7 +435,9 @@ def phase_kernels() -> dict:
                         rows=rows)
         del a, b
     for name, n, dtypes in (
-            ("square_whole", 192, (torch.float32, torch.bfloat16)),
+            ("square_whole", 192, (torch.float32, torch.bfloat16,
+                                   torch.float16)),
+            ("square_whole", 256, (torch.bfloat16, torch.float16)),
             ("square_panel", 512, (torch.float32, torch.bfloat16,
                                    torch.float16)),
             ("square_panel", 1024, (torch.bfloat16,))):
@@ -417,6 +447,10 @@ def phase_kernels() -> dict:
             assert padded == n
             row = kernel_case(name, dtype, (a,), blocks, timed=True, rows=rows)
             timed[(row["name"], row["dtype"])] = row
+            if name == "square_whole":
+                emit("k2_grid", kernel=row["name"], dtype=row["dtype"],
+                     shape=row["shape"], tile=row["tile"],
+                     grid_blocks=row["grid_blocks"], ms=row["ms"])
     # One more timed point each for the stacked shapes of phase 6.
     kernel_case("square_panel", torch.float32,
                 (randn((64, 256, 256), torch.float32, 13),),
@@ -487,6 +521,8 @@ def phase_matpow() -> tuple:
         matpow_case(512, torch.float32, "panel", 24),
         matpow_case(1024, torch.bfloat16, "panel", 25),
         matpow_case(256, torch.bfloat16, "whole", 26),
+        matpow_case(4096, torch.float64, "two_operand", 28),
+        matpow_case(128, torch.float64, "whole", 29),
     ]
     counts = K.launch_counts()
     for name in K.KERNELS:

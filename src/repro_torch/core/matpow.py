@@ -50,7 +50,7 @@ __all__ = [
 _CHAIN_BACKENDS = frozenset({"cuda_chain"})
 
 
-def matmul_backend(backend: str = "torch") -> Callable:
+def matmul_backend(backend: str = "torch", precision=None) -> Callable:
     """Return a (a, b) -> a @ b callable for the requested backend.
 
     backend:
@@ -67,14 +67,30 @@ def matmul_backend(backend: str = "torch") -> Callable:
 
     Any other name — the Strassen (``fastmm``) routes included, until they
     are ported — raises ``ValueError``.
+
+    precision: the reference's ``precision`` argument. Every route computes
+    exact products with fp32 (f64) accumulation and no TF32, which is the
+    reference's ``None`` / ``"highest"`` (``"float32"`` is JAX's synonym
+    for it); those are accepted on every route, in any case, and any other
+    value raises ``ValueError`` naming the route rather than computing
+    something other than what was asked.
     """
     if backend == "torch":
-        exact_matmul_settings()
-        return torch.matmul
-    if backend == "cuda" or backend in _CHAIN_BACKENDS:
+        route = torch.matmul
+    elif backend == "cuda" or backend in _CHAIN_BACKENDS:
         from repro_torch.kernels import ops as kops
-        return kops.matmul
-    raise ValueError(f"unknown matmul backend: {backend!r}")
+        route = kops.matmul
+    else:
+        raise ValueError(f"unknown matmul backend: {backend!r}")
+    if precision is not None \
+            and str(precision).lower() not in ("highest", "float32"):
+        raise ValueError(
+            f"matmul backend {backend!r} computes at precision 'highest' "
+            f"(exact fp32 / f64 accumulation, no TF32) only, got precision="
+            f"{precision!r}")
+    if backend == "torch":
+        exact_matmul_settings()
+    return route
 
 
 def chain_for(a: torch.Tensor, backend: str, donate: bool = True):

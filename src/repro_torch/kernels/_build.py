@@ -38,7 +38,8 @@ DTYPE_SUFFIX = {"float32": "f32", "float64": "f64", "float16": "f16",
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 # Argument types of the C interface (csrc/gemm.cuh, REPRO_DEFINE_C_API;
-# csrc/attention.cuh, REPRO_DEFINE_ATTENTION_API and
+# csrc/gemm_tc.cuh, REPRO_DEFINE_TC_API; csrc/gemm_dmma.cuh,
+# REPRO_DEFINE_DMMA_API; csrc/attention.cuh, REPRO_DEFINE_ATTENTION_API and
 # REPRO_DEFINE_ATTN_COMBINE_API). Every pointer and the stream are c_void_p:
 # without argtypes ctypes would pass them as 32-bit ints and cut the
 # address. Each base name exists in every DTYPE_SUFFIX.

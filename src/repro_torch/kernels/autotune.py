@@ -60,7 +60,7 @@ import torch
 from repro_torch.kernels.attention import (ATTN_TILES, HEAD_DIMS,
                                            attn_smem_footprint, head_dim_for,
                                            kernel_tile)
-from repro_torch.kernels.matmul import (KERNEL_TILES, SM_COUNT,
+from repro_torch.kernels.matmul import (DMMA_BLOCKS, KERNEL_TILES, SM_COUNT,
                                         SMEM_PER_BLOCK, SQUARE_PANEL_LIMIT,
                                         SQUARE_SMEM_LIMIT, TC_BLOCKS,
                                         panel_smem_footprint,
@@ -69,6 +69,7 @@ from repro_torch.kernels.matmul import (KERNEL_TILES, SM_COUNT,
 __all__ = [
     "cache_path", "load_cache", "save_cache", "clear_memory_cache",
     "lookup", "record", "sweep", "DEFAULT_CANDIDATES", "TC_CANDIDATES",
+    "DMMA_CANDIDATES",
     "valid_blocks",
     "smem_footprint",
     "KERNELS", "DEFAULT_ATTN_CANDIDATES", "TC_ATTN_CANDIDATES",
@@ -85,9 +86,9 @@ _ENV_VAR = "REPRO_TORCH_AUTOTUNE_CACHE"
 #: Kernel namespaces the cache knows about (the first segment of every key).
 KERNELS = ("matmul", "attention", "square_panel")
 
-#: Matmul candidates of the f32 / f64 FMA kernels: the instantiated square
-#: tiles, each with K steps that are multiples of 8; every one fits a
-#: block's shared memory at fp64.
+#: Matmul candidates of the f32 FMA kernel: the instantiated square tiles,
+#: each with K steps that are multiples of 8; every one fits a block's shared
+#: memory.
 DEFAULT_CANDIDATES: tuple = (
     (32, 32, 8), (32, 32, 16), (32, 32, 32),
     (64, 64, 16), (64, 64, 32), (64, 64, 64),
@@ -97,6 +98,9 @@ DEFAULT_CANDIDATES: tuple = (
 #: Matmul candidates of the 16-bit tensor-core kernels: every instantiated
 #: (tile, K step) pair.
 TC_CANDIDATES: tuple = tuple((t, t, bk) for t, bk in TC_BLOCKS)
+
+#: The same for the fp64 tensor-core K1.
+DMMA_CANDIDATES: tuple = tuple((t, t, bk) for t, bk in DMMA_BLOCKS)
 
 #: (block_q, block_k) candidates of the f32 / f64 FMA attention kernel: its
 #: instantiated tiles (the widest head dims take only some; the others
@@ -225,14 +229,18 @@ def valid_blocks(blocks, itemsize: int = 4) -> bool:
     with a footprint within a block's shared memory (227 KB, above which the
     launch is refused) and, for 16-bit operands (``itemsize`` 2), a
     (tile, K step) pair the tensor-core kernels are instantiated for
-    (``TC_BLOCKS``); else a tile of ``KERNEL_TILES`` and a K step that is a
-    multiple of 8."""
+    (``TC_BLOCKS``), for f64 one of the fp64 tensor-core K1
+    (``DMMA_BLOCKS``); else a tile of ``KERNEL_TILES`` and a K step that is
+    a multiple of 8."""
     bm, bn, bk = blocks
-    if bm != bn or smem_footprint(blocks, itemsize) > SMEM_PER_BLOCK:
-        return False
     if itemsize == 2:
-        return (bm, bk) in TC_BLOCKS
-    return bm in KERNEL_TILES and bk >= 8 and bk % 8 == 0
+        instantiated = (bm, bk) in TC_BLOCKS
+    elif itemsize == 8:
+        instantiated = (bm, bk) in DMMA_BLOCKS
+    else:
+        instantiated = bm in KERNEL_TILES and bk >= 8 and bk % 8 == 0
+    return instantiated and bm == bn \
+        and smem_footprint(blocks, itemsize) <= SMEM_PER_BLOCK
 
 
 def attn_candidates(dtype=None) -> tuple:
@@ -552,11 +560,13 @@ def sweep(m: int, n: int, k: int, dtype=torch.float32,
     """Score every candidate matmul tiling, record the winner under the
     ``matmul`` namespace, return ``(best, results)`` (results sorted
     best-first). The candidates default to the kernels' own:
-    ``TC_CANDIDATES`` for 16-bit operands, ``DEFAULT_CANDIDATES`` else.
-    ``measure=None`` measures on ``"cuda"`` and models otherwise."""
+    ``TC_CANDIDATES`` for 16-bit operands, ``DMMA_CANDIDATES`` for f64,
+    ``DEFAULT_CANDIDATES`` else. ``measure=None`` measures on ``"cuda"``
+    and models otherwise."""
     backend = _backend(backend)
     itemsize = _itemsize(dtype)
-    default = TC_CANDIDATES if itemsize == 2 else DEFAULT_CANDIDATES
+    default = {2: TC_CANDIDATES, 8: DMMA_CANDIDATES}.get(itemsize,
+                                                          DEFAULT_CANDIDATES)
     candidates = [tuple(int(x) for x in c) for c in (candidates or default)]
     if measure is None:
         measure = backend == "cuda"
@@ -569,8 +579,9 @@ def sweep(m: int, n: int, k: int, dtype=torch.float32,
     return _run_sweep(
         candidates,
         measured if measure else (lambda b: modeled_score(m, n, k, b, dtype)),
-        # No candidate can run: record the smallest-footprint one.
-        lambda: min(candidates, key=lambda c: smem_footprint(c, itemsize)),
+        # No candidate can run: record the one staging the fewest operand
+        # elements per K step (an uninstantiated pair has no footprint).
+        lambda: min(candidates, key=lambda c: (c[0] + c[1]) * c[2]),
         measure=measure,
         record_fn=lambda best: record(
             m, n, k, best["blocks"], dtype=dtype, backend=backend,

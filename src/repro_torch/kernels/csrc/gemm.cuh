@@ -33,8 +33,8 @@
 // size the chain uses (a 4096^3 product is 137 GFLOP over 201 MB). They run
 // on the CUDA cores with exact IEEE fp32 / fp64 FMAs -- no TF32 -- which is
 // what keeps a 7-multiply fp32 chain inside its error budget. For 16-bit
-// inputs K1 and K3 are the tensor-core kernels of gemm_tc.cuh; of this file
-// they use only K2, which widens them to fp32 as it reads them. The design
+// inputs all three are the tensor-core kernels of gemm_tc.cuh, and for fp64
+// K1 is the fp64 tensor-core kernel of gemm_dmma.cuh. The design
 // therefore spends its effort on the FMA : shared-load ratio: micro-tiles up
 // to 8 x 8 (64 FMAs for four 16-byte shared loads), A staged transposed so
 // both fragments are contiguous, fragments split in two 64-column halves so
@@ -512,8 +512,8 @@ static int square_panel_dispatch(const void* a, void* c, int P, int tile,
 // One translation unit per element type (they compile in parallel) expands
 // this once: REPRO_DEFINE_C_API(f32, float) defines repro_matmul_f32,
 // repro_square_whole_f32 and repro_square_panel_f32. The 16-bit units take
-// K1 and K3 from gemm_tc.cuh and only K2 from here
-// (REPRO_DEFINE_SQUARE_WHOLE_API).
+// all three from gemm_tc.cuh; the fp64 unit takes K1 from gemm_dmma.cuh and
+// K2 / K3 from here (REPRO_DEFINE_SQUARE_WHOLE_API).
 #define REPRO_DEFINE_SQUARE_WHOLE_API(SUFFIX, TYPE)                           \
   extern "C" int repro_square_whole_##SUFFIX(                                 \
       const void* a, void* c, int P, int tile, long long sA, long long sC,   \

@@ -8,11 +8,25 @@
 //   square_panel_tc_kernel  C = A @ A from a (TILE, P) row panel resident in
 //                           shared memory. Replaces `square_panel_kernel`
 //                           (tier "panel" of `square_pallas`) for bf16 / f16.
+//   square_whole_tc_kernel  C = A @ A from one staged copy of A (P^2 fits a
+//                           block's shared memory). Replaces `square_kernel`
+//                           (tier "whole" of `square_pallas`) for bf16 / f16,
+//                           where gemm.cuh's FMA `square_whole_kernel` keeps
+//                           f32 and f64.
 //
-// Both compute what the reference computes: products of the storage type
-// accumulated in fp32, one rounding to the output type at the store (fp32
-// out when `out_acc` is set). The stacked form is the same kernel with the
-// stack on gridDim.z: one launch per stacked multiply.
+// All three compute what the reference computes: products of the storage
+// type accumulated in fp32, one rounding to the output type at the store
+// (fp32 out when `out_acc` is set). The stacked form is the same kernel with
+// the stack on gridDim.z: one launch per stacked multiply.
+//
+// K2 is bound by neither rate at the sizes of its tier: a 192^2 squaring is
+// 14 MFLOP (0.014 us at 989 TFLOP/s) over 147 KB (0.044 us at 3.35 TB/s).
+// Latency and the grid bound it, so K2 picks its own output tile (32 or 64,
+// kernels/matmul.py:square_whole_grid) to put a block on as many SMs as the
+// output allows, whatever the chain's tile; runs `mma.sync.m16n8k16` (the
+// 64-row `wgmma` tiles would give the 9-block grid back at 192^2); and
+// stages A by TMA in 64 x 64 boxes with one barrier each, so the first
+// k-slices' products start while later boxes are in flight.
 //
 // What bounds them on this card: operations. A (4096^2) @ (4096^2) bf16
 // product is 137 GFLOP over 100 MB (each operand read once, the result
@@ -482,19 +496,21 @@ REPRO_MMA(__half, "f16")
 
 #undef REPRO_MMA
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+// ldmatrix of four 8x8 16-bit matrices from a shared address (each lane
+// gives one 16-byte row), plain or transposed.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
+      : "r"(addr));
 }
 
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
       "[%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
+      : "r"(addr));
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -791,8 +807,9 @@ __device__ __forceinline__ void mma_step(float (&acc)[2][4], const T* a,
 #pragma unroll
   for (int kk = 0; kk < BK; kk += 16) {
     uint32_t fa[4], fb[4];
-    ldsm_x4(fa, a + (lane & 15) * lda + kk + (lane >> 4) * 8);
-    ldsm_x4_t(fb, b + (kk + (lane & 15)) * kMmaLdb + (lane >> 4) * 8);
+    ldsm_x4(fa, smem_u32(a + (lane & 15) * lda + kk + (lane >> 4) * 8));
+    ldsm_x4_t(fb,
+              smem_u32(b + (kk + (lane & 15)) * kMmaLdb + (lane >> 4) * 8));
     Mma<T>::run(acc[0], fa, fb[0], fb[1]);
     Mma<T>::run(acc[1], fa, fb[2], fb[3]);
   }
@@ -900,6 +917,170 @@ square_panel_mma_kernel(const T* __restrict__ A, TOut* __restrict__ C, int P,
       __syncthreads();
     }
     mma_store<TOut>(C + jt * 32 + (long long)wm * P + wn, P, acc, lane);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K2 on tensor cores: C = A @ A from one staged copy of A
+// ---------------------------------------------------------------------------
+// A arrives by TMA as 64 x 64 boxes, 128-byte swizzled, box (i, j) holding
+// rows 64 i.. and columns 64 j.. (past P: zeros). Each box has its own
+// mbarrier, so a warp starts on k-slice kb as soon as the two boxes it needs
+// for that slice -- (its row box, kb) and (kb, its column box) -- have
+// landed. The row panel (the mma A operand, through ldmatrix) and the column
+// panel (B, through ldmatrix.trans) of every output tile come from the same
+// staged boxes. Each block stages only the boxes its own tiles read (a
+// 4-block cluster sharing one copy by TMA multicast ran slower; PERF.md).
+//
+// 128 threads, four warps, each accumulating a 32 x 32 square (2 m16 by 4
+// n8 tiles of m16n8k16 mma.sync, eight independent products per k16 step).
+// Tile 64: the four quarters of the output tile. Tile 32: the whole tile,
+// each warp over every fourth k16 step, the four partial sums added through
+// shared memory -- a quarter of the dependent steps of one warp per tile.
+
+constexpr int kWholeBox = 64;             // box side: one 128-byte swizzled row
+constexpr int kWholeThreads = 128;
+constexpr int kWholeRed = 4 * 32 * 32 * 4;  // tile 32's partial sums (bytes)
+
+// The dynamic shared memory of the K2 launcher: the (P / 64)^2 boxes, tile
+// 32's partial sums and one barrier per box, plus the alignment slack.
+template <int BOX> struct WholeBoxes {
+  static constexpr int BOX_BYTES = BOX * BOX * 2;
+  static size_t bytes(int P) {
+    return kAlign + kWholeRed +
+           (size_t)((P + BOX - 1) / BOX) * ((P + BOX - 1) / BOX) *
+               (BOX_BYTES + kBarrier);
+  }
+};
+
+// Shared address of the 16-byte chunk holding element (r, c) of A, c a
+// multiple of 8: 128-byte swizzle XORs the chunk index with the row mod 8.
+__device__ __forceinline__ uint32_t whole_addr(uint32_t boxes, int nb, int r,
+                                               int c) {
+  constexpr int BOX_BYTES = WholeBoxes<kWholeBox>::BOX_BYTES;
+  const int box = (r / kWholeBox) * nb + c / kWholeBox;
+  const int rr = r % kWholeBox, chunk = (c % kWholeBox) / 8;
+  return boxes + box * BOX_BYTES + rr * 128 + ((chunk ^ (rr & 7)) << 4);
+}
+
+template <typename T, typename TOut, int TILE>
+__global__ void __launch_bounds__(kWholeThreads)
+square_whole_tc_kernel(const __grid_constant__ CUtensorMap map,
+                       TOut* __restrict__ C, int P, long long sC) {
+  static_assert(TILE == 32 || TILE == 64, "K2 tiles are 32 and 64");
+  constexpr int BOX_BYTES = WholeBoxes<kWholeBox>::BOX_BYTES;
+  constexpr int KSPLIT = TILE == 32 ? 4 : 1;   // warps sharing one tile
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* boxes = align_smem(smem);
+  const int nb = (P + kWholeBox - 1) / kWholeBox;
+  float* red = reinterpret_cast<float*>(boxes + nb * nb * BOX_BYTES);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(
+      boxes + nb * nb * BOX_BYTES + kWholeRed);
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int z = blockIdx.z;
+  const int tiles_per_row = P / TILE, n_tiles = tiles_per_row * tiles_per_row;
+
+  // Box rows and box columns this block's tiles read (bit i: box row or
+  // column i). The blocks of one matrix (gridDim.x) share its tiles.
+  uint32_t rows = 0, cols = 0;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    rows |= 1u << (tile / tiles_per_row * TILE / kWholeBox);
+    cols |= 1u << (tile % tiles_per_row * TILE / kWholeBox);
+  }
+
+  // One lane of warp 0 per box (at most 25 of them): it initialises the
+  // box's barrier and, if a tile of this block reads the box as a row box or
+  // a column box, arms it and issues it at once, so no one thread walks the
+  // boxes in turn while K2 waits (issuing k-slice 0's boxes first ran slower
+  // on the card).
+  const int b = lane, bi = b / nb, bj = b - bi * nb;
+  if (warp == 0 && b < nb * nb) {
+    mbar_init(&bar[b], 1);
+    const bool lands = ((rows >> bi) & 1) || ((cols >> bj) & 1);
+    if (lands) mbar_expect_tx(&bar[b], BOX_BYTES);
+    mbar_init_fence();
+    if (lands)
+      tma_load(boxes + b * BOX_BYTES, &map, &bar[b], bj * kWholeBox,
+               bi * kWholeBox, z);
+  }
+  __syncthreads();                           // barriers initialised
+
+  const uint32_t base = smem_u32(boxes);
+  const int wm = KSPLIT > 1 ? 0 : (warp >> 1) * 32;
+  const int wn = KSPLIT > 1 ? 0 : (warp & 1) * 32;
+  const int first = KSPLIT > 1 ? warp : 0;   // this warp's first k16 step
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int row0 = tile / tiles_per_row * TILE + wm;
+    const int col0 = tile % tiles_per_row * TILE + wn;
+    const int rb = row0 / kWholeBox, cb = col0 / kWholeBox;
+    float acc[2][4][4] = {};
+    int ready = -1;                          // last k-slice waited for
+    for (int step = first; step < P / 16; step += KSPLIT) {
+      const int k0 = step * 16, kb = k0 / kWholeBox;
+      if (kb != ready) {
+        mbar_wait(&bar[rb * nb + kb], 0);
+        mbar_wait(&bar[kb * nb + cb], 0);
+        ready = kb;
+      }
+      uint32_t fa[2][4], fb[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        ldsm_x4(fa[i], whole_addr(base, nb, row0 + i * 16 + (lane & 15),
+                                  k0 + (lane >> 4) * 8));
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        ldsm_x4_t(fb[j], whole_addr(base, nb, k0 + (lane & 15),
+                                    col0 + j * 16 + (lane >> 4) * 8));
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          Mma<T>::run(acc[i][2 * j], fa[i], fb[j][0], fb[j][1]);
+          Mma<T>::run(acc[i][2 * j + 1], fa[i], fb[j][2], fb[j][3]);
+        }
+    }
+    // Lane l holds columns 2 (l % 4), +1 of rows l / 4 and l / 4 + 8 of each
+    // m16 x n8 accumulator.
+    TOut* out = C + z * sC + (long long)(row0 + (lane >> 2)) * P + col0 +
+                (lane & 3) * 2;
+    if constexpr (KSPLIT > 1) {
+      // Add the four warps' partial sums: warp w sums and stores n8 column
+      // block w of both m16 rows, reading red[(warp, element), lane].
+      if (tile != static_cast<int>(blockIdx.x))
+        __syncthreads();                     // red is free again
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            red[((warp * 32) + (i * 4 + j) * 4 + e) * 32 + lane] =
+                acc[i][j][e];
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float v[4] = {};
+#pragma unroll
+        for (int q = 0; q < KSPLIT; ++q)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            v[e] += red[((q * 32) + (i * 4 + warp) * 4 + e) * 32 + lane];
+        TOut* o = out + (long long)i * 16 * P + warp * 8;
+        store2<TOut>(o, v[0], v[1]);
+        store2<TOut>(o + 8 * (long long)P, v[2], v[3]);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          TOut* o = out + (long long)i * 16 * P + j * 8;
+          store2<TOut>(o, acc[i][j][0], acc[i][j][1]);
+          store2<TOut>(o + 8 * (long long)P, acc[i][j][2], acc[i][j][3]);
+        }
+    }
   }
 }
 
@@ -1017,6 +1198,24 @@ static int launch_square_panel(const void* a, void* c, int P, long long sA,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K2: a rank-3 map (columns, rows, matrix) so a box past P reads zeros, not
+// the next matrix; 64 x 64 boxes, 128-byte swizzle. `groups` blocks share
+// each matrix's output tiles.
+template <typename T, typename TOut, int TILE>
+static int launch_square_whole(const void* a, void* c, int P, long long sC,
+                               int batch, int groups, cudaStream_t stream) {
+  CUtensorMap map;
+  if (int err = encode<T>(&map, a, P, P, kWholeBox, kWholeBox,
+                          CU_TENSOR_MAP_SWIZZLE_128B, batch))
+    return err;
+  const size_t smem = WholeBoxes<kWholeBox>::bytes(P);
+  auto kernel = square_whole_tc_kernel<T, TOut, TILE>;
+  if (int err = allow_smem(kernel, smem)) return err;
+  kernel<<<dim3(groups, 1, batch), kWholeThreads, smem, stream>>>(
+      map, static_cast<TOut*>(c), P, sC);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename TOut, int TILE, int BK> struct Tiling {
   using Out = TOut;
   static constexpr int tile = TILE, bk = BK;
@@ -1064,13 +1263,32 @@ static int square_panel_dispatch(const void* a, void* c, int P, int tile,
   });
 }
 
+// K2's output tiles (kernels/matmul.py:WHOLE_TC_TILES).
+template <typename T>
+static int square_whole_dispatch(const void* a, void* c, int P, int tile,
+                                 long long sA, long long sC, int batch,
+                                 int groups, int out_acc, void* stream) {
+  (void)sA;                                 // the tensor map strides the stack
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define REPRO_WHOLE_TC(TILE_)                                                \
+  if (tile == TILE_)                                                         \
+    return out_acc ? launch_square_whole<T, float, TILE_>(a, c, P, sC, batch,\
+                                                          groups, st)        \
+                   : launch_square_whole<T, T, TILE_>(a, c, P, sC, batch,    \
+                                                      groups, st);
+  REPRO_WHOLE_TC(32)
+  REPRO_WHOLE_TC(64)
+#undef REPRO_WHOLE_TC
+  return -1;
+}
+
 }  // namespace tc
 }  // namespace repro
 
 // One translation unit per 16-bit type expands this once:
-// REPRO_DEFINE_TC_API(bf16, __nv_bfloat16) defines repro_matmul_bf16 and
-// repro_square_panel_bf16 on the tensor-core kernels, with the signatures of
-// gemm.cuh's REPRO_DEFINE_C_API, and repro_square_whole_bf16 on gemm.cuh.
+// REPRO_DEFINE_TC_API(bf16, __nv_bfloat16) defines repro_matmul_bf16,
+// repro_square_whole_bf16 and repro_square_panel_bf16 on the tensor-core
+// kernels, with the signatures of gemm.cuh's REPRO_DEFINE_C_API.
 #define REPRO_DEFINE_TC_API(SUFFIX, TYPE)                                     \
   extern "C" int repro_matmul_##SUFFIX(                                       \
       const void* a, const void* b, void* c, int M, int N, int K, int tile,  \
@@ -1079,10 +1297,15 @@ static int square_panel_dispatch(const void* a, void* c, int P, int tile,
     return repro::tc::matmul_dispatch<TYPE>(a, b, c, M, N, K, tile, bk, sA,  \
                                             sB, sC, batch, out_acc, stream);  \
   }                                                                           \
+  extern "C" int repro_square_whole_##SUFFIX(                                 \
+      const void* a, void* c, int P, int tile, long long sA, long long sC,   \
+      int batch, int groups, int out_acc, void* stream) {                     \
+    return repro::tc::square_whole_dispatch<TYPE>(                            \
+        a, c, P, tile, sA, sC, batch, groups, out_acc, stream);               \
+  }                                                                           \
   extern "C" int repro_square_panel_##SUFFIX(                                 \
       const void* a, void* c, int P, int tile, int bk, long long sA,         \
       long long sC, int batch, int groups, int out_acc, void* stream) {       \
     return repro::tc::square_panel_dispatch<TYPE>(                            \
         a, c, P, tile, bk, sA, sC, batch, groups, out_acc, stream);           \
-  }                                                                           \
-  REPRO_DEFINE_SQUARE_WHOLE_API(SUFFIX, TYPE)
+  }

@@ -1,7 +1,6 @@
 // K1-K3 (matmul, whole-operand squaring, panel squaring) for __nv_bfloat16 operands:
-// K1 and K3 are the tensor-core kernels of gemm_tc.cuh, K2 the kernel of
-// gemm.cuh. Each element type is its own translation unit so the four build
-// in parallel.
+// all three are the tensor-core kernels of gemm_tc.cuh. Each element type is
+// its own translation unit so the four build in parallel.
 
 #include "gemm_tc.cuh"
 

@@ -9,16 +9,20 @@ kernels stand where its three Pallas kernels stood:
   ``square_cuda`` "panel"    K3, replaces ``square_pallas`` /
                              ``square_panel_kernel``
 
-For f32 and f64 all three are the FMA kernels of ``csrc/gemm.cuh``. For bf16
-and f16, K1 and K3 are the tensor-core kernels of ``csrc/gemm_tc.cuh``
-(``wgmma`` fed by a TMA ring; ``mma.sync`` at tile 32), counted under
-``matmul_tc`` / ``square_panel_tc``, and K2 stays on ``gemm.cuh``. The
-stacked ``(B, ., .)`` form of each is the same kernel with the stack on a
-grid axis — one launch for the stack (the reference's ``jax.vmap``).
+For f32 all three are the FMA kernels of ``csrc/gemm.cuh``. For bf16 and
+f16 all three are the tensor-core kernels of ``csrc/gemm_tc.cuh`` (K1 and K3
+``wgmma`` fed by a TMA ring, ``mma.sync`` at tile 32; K2 ``mma.sync`` on A
+staged by TMA), counted under ``matmul_tc`` / ``square_whole_tc`` /
+``square_panel_tc``. For f64, K1 is the fp64 tensor-core kernel of
+``csrc/gemm_dmma.cuh`` (counted under ``matmul_dmma``) and K2 / K3 stay on
+``gemm.cuh``. The stacked ``(B, ., .)`` form of each is the same kernel with
+the stack on a grid axis — one launch for the stack (the reference's
+``jax.vmap``).
 
-All of them are bound by operations, not bytes, at the sizes the chain uses;
-the two ``.cuh`` files say what each design does about it. What each squaring
-tier keeps out of device memory: "whole" stages A once per block and takes
+K1 and K3 are bound by operations, not bytes, at the sizes the chain uses,
+and K2 by latency and the grid; the ``.cuh`` files say what each design does
+about it. What each squaring tier keeps out of device memory: "whole" stages
+A once per block (its tiles' boxes of it, on the tensor cores) and takes
 both panels of every output tile from that copy (no second read of A);
 "panel" stages a ``(block_m, P)`` row panel once per block and loops over
 the column tiles inside the block (no re-read of the row panel per output
@@ -29,7 +33,8 @@ to the kernel (or raises — nothing falls back when a build or a launch
 fails), a CPU tensor goes to the plain PyTorch version beside it
 (``matmul_plain`` / ``square_plain``), which runs the same checks and the
 same tier selection. ``LAUNCHES`` counts both routes so a run can show which
-way it went.
+way it went, and ``last_launch`` records the kernel, output tile and grid of
+the last call on either route.
 
 Shapes must be block-divisible here — ``ops.matmul`` / ``ops.square`` / the
 chain executors pad arbitrary shapes.
@@ -44,12 +49,15 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
 
 __all__ = ["matmul_cuda", "matmul_plain", "square_cuda", "square_plain",
-           "square_tier", "panel_smem_footprint", "smem_footprint",
-           "tc_smem_bytes", "kernel_name",
+           "square_tier", "square_whole_grid", "panel_smem_footprint",
+           "smem_footprint", "tc_smem_bytes", "dmma_smem_bytes",
+           "whole_tc_smem_bytes", "kernel_name",
            "DEFAULT_BLOCK", "KERNEL_TILES", "SMEM_PER_BLOCK", "L2_BYTES",
-           "SM_COUNT", "TC_BLOCKS", "TC_DEFAULT_BK", "KERNELS",
+           "SM_COUNT", "TC_BLOCKS", "TC_DEFAULT_BK", "DMMA_BLOCKS",
+           "DMMA_STAGES", "DMMA_TILES",
+           "WHOLE_TC_TILES", "KERNELS",
            "SQUARE_SMEM_LIMIT", "SQUARE_PANEL_LIMIT", "LAUNCHES",
-           "reset_launches", "launch_counts"]
+           "last_launch", "reset_launches", "launch_counts"]
 
 #: Dynamic shared memory one block may use on Hopper (227 KB, opt-in).
 SMEM_PER_BLOCK = 232_448
@@ -80,6 +88,20 @@ TC_RING_BUDGET = SMEM_PER_BLOCK // 2
 TC_PANEL_STAGES = 4
 TC_MMA_PAD = 8
 TC_BARRIER = 8
+#: Output tiles the 16-bit tensor-core K2 is instantiated for (the
+#: ``REPRO_WHOLE_TC`` lines of csrc/gemm_tc.cuh), and the side of the square
+#: TMA boxes it stages A in.
+WHOLE_TC_TILES = (32, 64)
+WHOLE_TC_BOX = 64
+WHOLE_TC_RED = 4 * 32 * 32 * 4
+#: (tile, K step) pairs the fp64 tensor-core K1 is instantiated for, and the
+#: ring stages of each (the ``REPRO_DMMA_TILE`` lines of csrc/gemm_dmma.cuh);
+#: the staged rows are padded by ``DMMA_PAD`` doubles (``dmma_smem_bytes``).
+DMMA_STAGES = {(32, 16): 4, (64, 16): 4, (64, 32): 2}
+DMMA_BLOCKS = tuple(DMMA_STAGES)
+#: The output tiles among them, smallest first.
+DMMA_TILES = tuple(sorted({t for t, _ in DMMA_BLOCKS}))
+DMMA_PAD = 4
 
 # Default tile: 128 x 128 output tile per 256-thread block (an 8 x 8
 # register micro-tile per thread, 64 FMAs for four 16-byte shared loads),
@@ -102,27 +124,40 @@ SQUARE_SMEM_LIMIT = SMEM_PER_BLOCK
 SQUARE_PANEL_LIMIT = L2_BYTES // 2
 
 #: The kernels, by the name their launches are counted under.
-KERNELS = ("matmul", "matmul_tc", "square_whole", "square_panel",
-           "square_panel_tc")
+KERNELS = ("matmul", "matmul_tc", "matmul_dmma", "square_whole",
+           "square_whole_tc", "square_panel", "square_panel_tc")
 
 #: Launches per kernel since the last ``reset_launches()``. The kernel
 #: wrappers add one where they launch (``KERNELS``: the ``_tc`` names are
-#: the 16-bit tensor-core K1 and K3); the plain versions add one under
-#: ``plain_<name>``.
+#: the 16-bit tensor-core K1–K3, ``matmul_dmma`` the fp64 tensor-core K1);
+#: the plain versions add one under ``plain_<name>``.
 LAUNCHES = {**{name: 0 for name in KERNELS},
             "plain_matmul": 0, "plain_square_whole": 0,
             "plain_square_panel": 0}
+
+#: The last call's kernel (its ``KERNELS`` name, or ``plain_<name>``),
+#: output ``tile``, ``blocks`` in its grid, and for the squaring kernels the
+#: ``groups`` of blocks that share each matrix.
+last_launch: dict = {}
 
 
 def kernel_name(op: str, dtype) -> str:
     """The counter of ``KERNELS`` that a launch of ``op`` — ``"matmul"``
     (K1), ``"square_whole"`` (K2) or ``"square_panel"`` (K3) — on ``dtype``
-    operands goes to: K1 and K3 of bf16 / f16 are the tensor-core kernels."""
+    operands goes to: bf16 / f16 run the tensor-core kernels (``_tc``), K1
+    of f64 the fp64 tensor-core kernel (``matmul_dmma``)."""
     if op not in ("matmul", "square_whole", "square_panel"):
         raise ValueError(f"no kernel for op {op!r}")
-    if dtype in (torch.float16, torch.bfloat16) and op != "square_whole":
+    if dtype in (torch.float16, torch.bfloat16):
         return op + "_tc"
+    if dtype == torch.float64 and op == "matmul":
+        return "matmul_dmma"
     return op
+
+
+def _record(kernel, tile, blocks, **extra) -> None:
+    last_launch.clear()
+    last_launch.update(kernel=kernel, tile=tile, blocks=blocks, **extra)
 
 
 def reset_launches() -> None:
@@ -171,13 +206,38 @@ def tc_smem_bytes(tile: int, block_k: int, p: int | None = None) -> int:
             + TC_PANEL_STAGES * (block_k * tile * 2 + barriers) + TC_BARRIER)
 
 
+def dmma_smem_bytes(tile: int, block_k: int) -> int:
+    """Dynamic shared-memory bytes the fp64 tensor-core K1 asks for at a
+    square ``tile`` and K step ``block_k``: the ``DmmaRing`` formula of
+    csrc/gemm_dmma.cuh (a test evaluates it against this one). Each of the
+    pair's ``DMMA_STAGES`` stages holds the [tile x K step] A tile and the
+    [K step x tile] B tile in doubles, rows padded by ``DMMA_PAD``. A pair
+    that is not instantiated raises ``KeyError``."""
+    stage = (tile * (block_k + DMMA_PAD) + block_k * (tile + DMMA_PAD)) * 8
+    return DMMA_STAGES[(tile, block_k)] * stage
+
+
+def whole_tc_smem_bytes(p: int) -> int:
+    """Dynamic shared-memory bytes the 16-bit tensor-core K2 asks for over a
+    ``(p, p)`` operand: the ``WholeBoxes`` formula of csrc/gemm_tc.cuh — A
+    in ``WHOLE_TC_BOX``-square boxes (zero past p), a barrier each, the
+    partial sums of tile 32's four warps (``WHOLE_TC_RED``) and the
+    alignment slack."""
+    boxes = (-(-p // WHOLE_TC_BOX)) ** 2
+    return TC_ALIGN + WHOLE_TC_RED + boxes * (
+        WHOLE_TC_BOX * WHOLE_TC_BOX * 2 + TC_BARRIER)
+
+
 def smem_footprint(blocks, itemsize: int = 4) -> int:
-    """Dynamic shared-memory bytes one K1 block asks for: for f32 / f64
-    (gemm.cuh) the transposed A tile and the B tile of one K step, held at
-    the accumulation width; for 16-bit ``tc_smem_bytes``."""
+    """Dynamic shared-memory bytes one K1 block asks for: for f32 (gemm.cuh)
+    the transposed A tile and the B tile of one K step, held at the
+    accumulation width; for 16-bit ``tc_smem_bytes``; for f64
+    ``dmma_smem_bytes``."""
     bm, bn, bk = blocks
     if itemsize == 2:
         return tc_smem_bytes(bm, bk)
+    if itemsize == 8:
+        return dmma_smem_bytes(bm, bk)
     return bk * (bm + SMEM_PAD + bn + SMEM_PAD) * _acc_itemsize(itemsize)
 
 
@@ -289,15 +349,44 @@ def _groups(shared_tiles: int, independent_blocks: int) -> int:
     return max(1, min(shared_tiles, want))
 
 
-def _kernel_tile(block_m, block_n, block_k, what, tc=False) -> int:
-    """The square output tile of a launch; ``tc`` for the 16-bit
-    tensor-core K1 / K3, which take only the ``TC_BLOCKS`` pairs."""
-    if tc:
-        if block_m != block_n or (block_m, block_k) not in TC_BLOCKS:
+def square_whole_grid(p: int, batch: int, dtype) -> tuple:
+    """(output tile, groups) of a whole-operand squaring (K2) of a ``(p, p)``
+    operand, or a stack of ``batch`` of them, chosen by K2 itself whatever
+    the chain's tile. For each of its tiles that divides ``p``
+    (``WHOLE_TC_TILES`` for bf16 / f16, ``KERNEL_TILES`` else), ``_groups``
+    blocks share each matrix's tiles; the tile taken is the one whose
+    busiest SM has the least output to compute — waves of ``SM_COUNT``
+    blocks times the tiles of a block times a tile's area — the larger on a
+    tie (fewer, larger tiles stage A fewer times and keep more of each
+    block's math in registers). So 192² takes 32-wide tiles (36 blocks
+    instead of 9), and a stack of 32 of 128² 64-wide ones (128 blocks of
+    one tile, not 160 of four). ``p`` is a multiple of the chain's tile, so
+    of 32."""
+    tiles = WHOLE_TC_TILES if dtype in (torch.float16, torch.bfloat16) \
+        else KERNEL_TILES
+    best = None
+    for tile in sorted((t for t in tiles if p % t == 0), reverse=True):
+        count = (p // tile) ** 2
+        groups = _groups(count, batch)
+        waves = -(-groups * batch // SM_COUNT)
+        load = waves * -(-count // groups) * tile * tile
+        if best is None or load < best[0]:
+            best = (load, tile, groups)
+    if best is None:
+        raise ValueError(f"no whole-operand tile of {tiles} divides {p}")
+    return best[1], best[2]
+
+
+def _kernel_tile(block_m, block_n, block_k, what, table=None) -> int:
+    """The square output tile of a launch; ``table`` the (tile, K step)
+    pairs of a tensor-core K1 / K3 (``TC_BLOCKS``, ``DMMA_BLOCKS``), which
+    take only those."""
+    if table is not None:
+        if block_m != block_n or (block_m, block_k) not in table:
             raise ValueError(
-                f"{what}: the 16-bit tensor-core kernels take square output "
-                f"tiles with the (tile, K step) pairs {TC_BLOCKS}, got blocks "
-                f"({block_m},{block_n},{block_k})")
+                f"{what}: the tensor-core kernels for this dtype take square "
+                f"output tiles with the (tile, K step) pairs {table}, got "
+                f"blocks ({block_m},{block_n},{block_k})")
         return block_m
     if block_m != block_n or block_m not in KERNEL_TILES or block_k < 8 \
             or block_k % 8:
@@ -393,8 +482,10 @@ def matmul_plain(a: torch.Tensor, b: torch.Tensor, *,
                  out_dtype=None, out=None) -> torch.Tensor:
     """Plain PyTorch version of :func:`matmul_cuda`: the same shape contract,
     then widen to the accumulation dtype, ``torch.matmul``, cast once."""
-    _check_matmul(a, b, block_m, block_n, block_k)
+    batch, m, _, n = _check_matmul(a, b, block_m, block_n, block_k)
     LAUNCHES["plain_matmul"] += 1
+    _record("plain_matmul", block_m,
+            (m // block_m) * (n // block_n) * (batch or 1))
     return _deliver(_ref.matmul_ref(a, b, out_dtype=out_dtype or a.dtype),
                     out)
 
@@ -411,8 +502,9 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor, *,
     fp32 accumulation for f32/bf16/f16 operands (exact IEEE fp32, no TF32),
     f64 for f64; one cast to ``out_dtype`` (default ``a.dtype``) at the
     store. bf16 / f16 run the tensor-core kernel (blocks from
-    ``TC_BLOCKS``), f32 / f64 the FMA kernel. ``out`` receives the result
-    when given and must not alias an operand. On a CPU tensor this is
+    ``TC_BLOCKS``), f64 the fp64 tensor-core kernel (blocks from
+    ``DMMA_BLOCKS``), f32 the FMA kernel. ``out`` receives the result when
+    given and must not alias an operand. On a CPU tensor this is
     :func:`matmul_plain`.
     """
     if a.device.type == "cpu":
@@ -424,7 +516,8 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor, *,
     batch, m, k, n = _check_matmul(a, b, block_m, block_n, block_k)
     name = kernel_name("matmul", a.dtype)
     tile = _kernel_tile(block_m, block_n, block_k, what,
-                        tc=name.endswith("_tc"))
+                        table={"matmul_tc": TC_BLOCKS,
+                               "matmul_dmma": DMMA_BLOCKS}.get(name))
     _kernel_operand(a, "a", what)
     _kernel_operand(b, "b", what)
     if batch is not None and batch > 65_535:
@@ -442,6 +535,7 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor, *,
              m * k if a.ndim == 3 else 0, k * n if b.ndim == 3 else 0,
              m * n if batch is not None else 0, batch or 1, out_acc))
     LAUNCHES[name] += 1
+    _record(name, tile, (m // tile) * (n // tile) * (batch or 1))
     return _finish(c, out, out_dtype)
 
 
@@ -457,9 +551,10 @@ def square_plain(a: torch.Tensor, *,
                  smem_limit: int = SQUARE_SMEM_LIMIT,
                  panel_limit: int = SQUARE_PANEL_LIMIT,
                  out=None) -> torch.Tensor:
-    """Plain PyTorch version of :func:`square_cuda`: the same tier selection
-    and divisibility checks, then A @ A with fp32 (f64) accumulation."""
-    _, p = _check_square(a)
+    """Plain PyTorch version of :func:`square_cuda`: the same tier selection,
+    divisibility checks and grid bookkeeping (``last_launch``), then A @ A
+    with fp32 (f64) accumulation."""
+    batch, p = _check_square(a)
     tier = _resolve_tier(p, a.element_size(), block_m, block_n, block_k,
                          smem_limit, panel_limit)
     if tier == "two_operand":
@@ -467,6 +562,8 @@ def square_plain(a: torch.Tensor, *,
                             block_k=block_k, out_dtype=out_dtype, out=out)
     _check_square_blocks(p, block_m, block_n)
     LAUNCHES["plain_square_" + tier] += 1
+    _record("plain_square_" + tier,
+            **_square_grid(tier, p, batch or 1, a.dtype, block_m))
     return _deliver(_ref.matmul_ref(a, a, out_dtype=out_dtype or a.dtype),
                     out)
 
@@ -488,8 +585,9 @@ def square_cuda(a: torch.Tensor, *,
     shared memory), the two-operand :func:`matmul_cuda` above that. Both
     limits are arguments so a caller (or a tuned entry, later) can move
     them. For bf16 / f16 the panel tier is the tensor-core K3, which takes
-    the ``TC_BLOCKS`` pairs only; K2 takes any square tile of
-    ``KERNEL_TILES``.
+    the ``TC_BLOCKS`` pairs only. K2 takes any square chain tile of
+    ``KERNEL_TILES`` that divides the operand and launches on its own output
+    tile and grid (``square_whole_grid``).
 
     The whole-operand and panel tiers need the shape divisible by
     ``block_m`` and ``block_n``; the two-operand tier needs ``block_k`` to
@@ -515,7 +613,8 @@ def square_cuda(a: torch.Tensor, *,
     _check_square_blocks(p, block_m, block_n)
     name = kernel_name("square_" + tier, a.dtype)
     tile = _kernel_tile(block_m, block_n, block_k, what,
-                        tc=name.endswith("_tc"))
+                        table=TC_BLOCKS if name == "square_panel_tc"
+                        else None)
     _kernel_operand(a, "a", what)
     if batch is not None and batch > 65_535:
         raise ValueError(f"{what}: a stack of {batch} exceeds the grid's "
@@ -525,7 +624,9 @@ def square_cuda(a: torch.Tensor, *,
             f"shape ({p},{p}) not divisible by the K step {block_k} the "
             f"panel kernel stages the column panel in; use ops.MatmulChain "
             f"/ ops.matmul for arbitrary shapes")
-    if tier == "whole" and p * p * a.element_size() > SMEM_PER_BLOCK:
+    whole_bytes = whole_tc_smem_bytes(p) if name == "square_whole_tc" \
+        else p * p * a.element_size()
+    if tier == "whole" and whole_bytes > SMEM_PER_BLOCK:
         raise ValueError(
             f"{what}: smem_limit={smem_limit} sends a ({p},{p}) "
             f"{a.dtype} operand to the whole-operand kernel, but it does "
@@ -533,16 +634,26 @@ def square_cuda(a: torch.Tensor, *,
     out_dtype, kernel_dtype, out_acc = _kernel_types(a, out_dtype)
     c = _kernel_output(out, a.shape, kernel_dtype, a, (a,), what)
     stride = p * p if batch is not None else 0
-    tiles = p // tile
+    launch = _square_grid(tier, p, batch or 1, a.dtype, tile)
     if tier == "whole":
-        groups = _groups(tiles * tiles, batch or 1)
         _launch("repro_square_whole", a,
-                (a.data_ptr(), c.data_ptr(), p, tile, stride, stride,
-                 batch or 1, groups, out_acc))
+                (a.data_ptr(), c.data_ptr(), p, launch["tile"], stride,
+                 stride, batch or 1, launch["groups"], out_acc))
     else:
-        groups = _groups(tiles, tiles * (batch or 1))
         _launch("repro_square_panel", a,
                 (a.data_ptr(), c.data_ptr(), p, tile, block_k, stride, stride,
-                 batch or 1, groups, out_acc))
+                 batch or 1, launch["groups"], out_acc))
     LAUNCHES[name] += 1
+    _record(name, **launch)
     return _finish(c, out, out_dtype)
+
+
+def _square_grid(tier, p, batch, dtype, block_m) -> dict:
+    """The grid of a squaring launch, the same on both routes: K2's from
+    ``square_whole_grid``, K3's from the chain's tile."""
+    if tier == "whole":
+        tile, groups = square_whole_grid(p, batch, dtype)
+        return dict(tile=tile, blocks=groups * batch, groups=groups)
+    tiles = p // block_m
+    groups = _groups(tiles, tiles * batch)
+    return dict(tile=block_m, blocks=groups * tiles * batch, groups=groups)

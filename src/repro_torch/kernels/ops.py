@@ -43,7 +43,8 @@ from repro_torch import dtype_name
 from repro_torch.kernels import autotune
 from repro_torch.kernels.attention import (HEAD_DIMS, attn_tiles,
                                            flash_attention, head_dim_for)
-from repro_torch.kernels.matmul import (DEFAULT_BLOCK, KERNEL_TILES, SM_COUNT,
+from repro_torch.kernels.matmul import (DEFAULT_BLOCK, DMMA_BLOCKS,
+                                        DMMA_TILES, KERNEL_TILES, SM_COUNT,
                                         SMEM_PER_BLOCK, TC_BLOCKS,
                                         TC_DEFAULT_BK, matmul_cuda,
                                         smem_footprint, square_cuda)
@@ -74,17 +75,19 @@ def pick_blocks(m: int, n: int, k: int, dtype=None, use_cache: bool = True,
 
     The heuristic is the paper's "an appropriate TILE size is used based on
     the problem and local memory available", for this card: the largest square output tile
-    of ``KERNEL_TILES`` that still cuts the output into at least one tile
-    per SM (a 128-wide tile has the best FMA-to-load ratio, but sixteen of
-    them leave most of the card idle), never below 64 unless the whole
-    output fits one 32-wide tile; then the default K step, halved while the
+    of ``KERNEL_TILES`` (``DMMA_TILES`` for f64, whose tensor-core K1 stops
+    at 64) that still cuts the output into at least one tile per SM (a
+    128-wide tile has the best FMA-to-load ratio, but sixteen of them leave
+    most of the card idle), never below 64 unless the whole output fits
+    one 32-wide tile; then the default K step, halved while the
     staged tiles exceed the shared-memory budget (``SMEM_BUDGET``). For
     bf16 / f16 the K step is the largest one of ``TC_BLOCKS`` for the tile
-    that is at most ``TC_DEFAULT_BK`` and whose ring fits the budget.
+    that is at most ``TC_DEFAULT_BK`` and whose ring fits the budget; for
+    f64 the same over ``DMMA_BLOCKS``.
 
     Invariants (tested): block_m == block_n is one of ``KERNEL_TILES``,
     block_k divides both, ``smem_footprint`` fits the budget, and a 16-bit
-    pair is an instantiated one.
+    or f64 pair is an instantiated one.
     """
     itemsize = torch.empty((), dtype=dtype).element_size() \
         if dtype is not None else 4
@@ -92,16 +95,16 @@ def pick_blocks(m: int, n: int, k: int, dtype=None, use_cache: bool = True,
         tuned = autotune.lookup(m, n, k, dtype=dtype, backend=backend)
         if tuned is not None and autotune.valid_blocks(tuned, itemsize):
             return tuned
-    small, mid, large = KERNEL_TILES
-    if max(m, n) <= small:
-        tile = small
-    elif -(-m // large) * -(-n // large) >= SM_COUNT:
-        tile = large
+    tiles = DMMA_TILES if itemsize == 8 else KERNEL_TILES
+    if max(m, n) <= tiles[0]:
+        tile = tiles[0]
     else:
-        tile = mid
-    if itemsize == 2:
+        tile = next((t for t in reversed(tiles[1:])
+                     if -(-m // t) * -(-n // t) >= SM_COUNT), tiles[1])
+    if itemsize in (2, 8):
+        table = TC_BLOCKS if itemsize == 2 else DMMA_BLOCKS
         return tile, tile, max(
-            bk for t, bk in TC_BLOCKS if t == tile and bk <= TC_DEFAULT_BK
+            bk for t, bk in table if t == tile and bk <= TC_DEFAULT_BK
             and smem_footprint((tile, tile, bk), itemsize) <= SMEM_BUDGET)
     bk = DEFAULT_BLOCK[2]
     while smem_footprint((tile, tile, bk), itemsize) > SMEM_BUDGET \

@@ -295,8 +295,15 @@ class TestSweep:
                                       F32) == float("inf")
 
     def test_every_default_candidate_can_run(self):
+        """Each dtype's default candidates run on its kernel: the FMA list
+        on f32 (f64's K1 is the fp64 tensor-core kernel, which takes only
+        its instantiated pairs), the tensor-core lists on theirs."""
         for blocks in autotune.DEFAULT_CANDIDATES:
+            assert autotune.valid_blocks(blocks, itemsize=4)
+        for blocks in autotune.DMMA_CANDIDATES:
             assert autotune.valid_blocks(blocks, itemsize=8)
+        for blocks in autotune.TC_CANDIDATES:
+            assert autotune.valid_blocks(blocks, itemsize=2)
 
     @pytest.mark.parametrize("tile,bk", K.TC_BLOCKS)
     def test_sixteen_bit_accepts_each_instantiated_pair(self, tile, bk):

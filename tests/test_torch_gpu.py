@@ -245,6 +245,117 @@ def test_tc_chain_at_1024_bf16(cuda):
     assert _rel_to_peak(got, via_torch) <= KERNEL_RTOL[torch.bfloat16]
 
 
+# -- K2 on the tensor cores (csrc/gemm_tc.cuh), K2's grid rule in f32 / f64 --
+
+@pytest.mark.parametrize("out_dtype", [None, torch.float32])
+@pytest.mark.parametrize("dtype", SIXTEEN_BIT)
+@pytest.mark.parametrize("shape", [(192, 192), (256, 256), (32, 128, 128),
+                                   (96, 96), (320, 320), (3, 32, 32)])
+def test_tc_square_whole_vs_plain(cuda, shape, dtype, out_dtype):
+    """The 16-bit K2 at the main path's 192^2 and 256^2, the stacked expm
+    shape, sizes that are not a multiple of its 64-wide boxes (zeros past P,
+    not the next matrix's rows) and the largest operand of the tier; both
+    output types."""
+    a = _randn(shape, dtype, cuda, 20)
+    kw = dict(block_m=32, block_n=32, block_k=32, out_dtype=out_dtype)
+    got = K.square_cuda(a, **kw)
+    launch = dict(K.last_launch)
+    assert got.dtype == (out_dtype or dtype)
+    _close(got, K.square_plain(a, **kw), out_dtype or dtype)
+    assert K.launch_counts()["square_whole_tc"] == 1
+    assert K.launch_counts()["square_whole"] == 0
+    p, batch = shape[-1], (shape[0] if len(shape) == 3 else 1)
+    assert (launch["tile"], launch["groups"]) == \
+        K.square_whole_grid(p, batch, dtype)
+    assert launch["blocks"] == launch["groups"] * batch
+
+
+def test_tc_square_whole_fills_the_card_at_192(cuda):
+    a = _randn((192, 192), torch.bfloat16, cuda, 21)
+    K.square_cuda(a, block_m=64, block_n=64, block_k=64)
+    assert K.last_launch["kernel"] == "square_whole_tc"
+    assert K.last_launch["tile"] == 32 and K.last_launch["blocks"] >= 36
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape,tile", [((128, 128), 32), ((3, 128, 128), 32),
+                                        ((33, 128, 128), 64),
+                                        ((132, 64, 64), 64)])
+def test_fma_square_whole_grid_rule(cuda, shape, tile, dtype):
+    """f32 / f64 K2 on the FMA pipeline at tiles 32 and 64, as its grid
+    rule picks them."""
+    a = _randn(shape, dtype, cuda, 22)
+    kw = dict(block_m=32, block_n=32, block_k=16)
+    got = K.square_cuda(a, **kw)
+    assert K.last_launch["kernel"] == "square_whole"
+    assert K.last_launch["tile"] == tile
+    _close(got, K.square_plain(a, **kw), dtype)
+
+
+# -- K1 in f64 on the fp64 tensor cores (csrc/gemm_dmma.cuh) ----------------
+
+DMMA_TILINGS = [pytest.param(t, bk, id=f"{t}x{bk}") for t, bk in
+                K.DMMA_BLOCKS]
+
+
+@pytest.mark.parametrize("out_dtype", [None, torch.float32])
+@pytest.mark.parametrize("tile,bk", DMMA_TILINGS)
+def test_dmma_matmul_every_tiling(cuda, tile, bk, out_dtype):
+    """Every instantiated (tile, K step), M != N != K, both output types
+    (an f32 output is the f64 result rounded once)."""
+    a = _randn((2 * tile, 5 * bk), torch.float64, cuda, 23)
+    b = _randn((5 * bk, 3 * tile), torch.float64, cuda, 24)
+    kw = dict(block_m=tile, block_n=tile, block_k=bk, out_dtype=out_dtype)
+    got = K.matmul_cuda(a, b, **kw)
+    assert got.dtype == (out_dtype or torch.float64)
+    _close(got, K.matmul_plain(a, b, **kw), out_dtype or torch.float64)
+    assert K.launch_counts()["matmul_dmma"] == 1
+    assert K.launch_counts()["matmul"] == 0
+
+
+@pytest.mark.parametrize("tile,bk", DMMA_TILINGS)
+@pytest.mark.parametrize("form", ["both", "left", "right", "deep"])
+def test_dmma_matmul_stacked_and_deep(cuda, tile, bk, form):
+    """A stack on both sides or one 2-D side shared by the stack; and
+    K = 4096, many trips round the ring."""
+    if form == "deep":
+        a = _randn((tile, 4096), torch.float64, cuda, 25)
+        b = _randn((4096, 2 * tile), torch.float64, cuda, 26)
+    else:
+        a = _randn((3, 2 * tile, 4 * bk), torch.float64, cuda, 27)
+        b = _randn((3, 4 * bk, tile), torch.float64, cuda, 28)
+        if form == "left":
+            b = b[1].contiguous()
+        if form == "right":
+            a = a[2].contiguous()
+    kw = dict(block_m=tile, block_n=tile, block_k=bk)
+    _close(K.matmul_cuda(a, b, **kw), K.matmul_plain(a, b, **kw),
+           torch.float64)
+    assert K.launch_counts()["matmul_dmma"] == 1
+
+
+def test_dmma_refuses_a_pair_it_does_not_instantiate(cuda):
+    a = _randn((128, 128), torch.float64, cuda)
+    with pytest.raises(ValueError, match="tensor-core"):
+        K.matmul_cuda(a, a, block_m=128, block_n=128, block_k=32)
+    assert not any(K.launch_counts().values())
+
+
+def test_dmma_chain_holds_the_f64_budget(cuda):
+    """A^96 at n = 512 f64 through the chain (K1 on DMMA for every multiply:
+    the panel tier's row panel does not fit at fp64) against the float64
+    power and the ``"torch"`` route, under DENSE_BUDGET["float64"]."""
+    a = _power_operand(512, cuda, 29).double()
+    got = matpow_binary(a, 96, backend="cuda_chain")
+    counts = {k: v for k, v in K.launch_counts().items() if v}
+    assert counts == {"matmul_dmma": 7}
+    rtol, atol = error_budget(torch.float64, n=512, mults=7)
+    want = torch.linalg.matrix_power(a, 96)
+    assert torch.allclose(got, want, rtol=rtol, atol=atol)
+    assert torch.allclose(got, matpow_binary(a, 96, backend="torch"),
+                          rtol=rtol, atol=atol)
+
+
 def test_chain_launches_and_leaves_operand_alone(cuda):
     a = _power_operand(200, cuda, 4)
     keep = a.clone()

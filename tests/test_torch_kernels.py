@@ -287,17 +287,21 @@ class TestTensorCoreContract:
                                         (128, 64, 64)])
     def test_the_tc_launch_refuses_pairs_it_lacks(self, blocks):
         with pytest.raises(ValueError, match="tensor-core"):
-            K._kernel_tile(*blocks, "matmul_cuda", tc=True)
-        assert K._kernel_tile(64, 64, 64, "matmul_cuda", tc=True) == 64
+            K._kernel_tile(*blocks, "matmul_cuda", table=K.TC_BLOCKS)
+        assert K._kernel_tile(64, 64, 64, "matmul_cuda",
+                              table=K.TC_BLOCKS) == 64
 
     @pytest.mark.parametrize("op,dtype,name", [
         ("matmul", torch.float32, "matmul"),
-        ("matmul", torch.float64, "matmul"),
+        ("matmul", torch.float64, "matmul_dmma"),
         ("matmul", torch.bfloat16, "matmul_tc"),
         ("matmul", torch.float16, "matmul_tc"),
-        ("square_whole", torch.bfloat16, "square_whole"),
+        ("square_whole", torch.bfloat16, "square_whole_tc"),
+        ("square_whole", torch.float16, "square_whole_tc"),
         ("square_whole", torch.float32, "square_whole"),
+        ("square_whole", torch.float64, "square_whole"),
         ("square_panel", torch.float32, "square_panel"),
+        ("square_panel", torch.float64, "square_panel"),
         ("square_panel", torch.bfloat16, "square_panel_tc"),
         ("square_panel", torch.float16, "square_panel_tc")])
     def test_kernel_name_is_the_counter_a_launch_goes_to(self, op, dtype,
@@ -314,6 +318,156 @@ class TestTensorCoreContract:
                                K.SQUARE_PANEL_LIMIT) == "panel"
         assert K._resolve_tier(1536, 2, 128, 128, 64, K.SQUARE_SMEM_LIMIT,
                                K.SQUARE_PANEL_LIMIT) == "two_operand"
+
+
+GEMM_DMMA = Path(K.__file__).parent / "csrc" / "gemm_dmma.cuh"
+WHOLE_TC_SIZES = [32, 64, 96, 128, 192, 256, 288, 320]
+
+
+class TestWholeOperandGrid:
+    """K2 picks its own output tile and grid (``square_whole_grid``), the
+    same function on the kernel route and in the plain version's
+    bookkeeping (``last_launch``): enough blocks to fill the card where the
+    output allows, whatever the chain's tile."""
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                       torch.float16])
+    def test_192_uses_at_least_36_blocks(self, dtype):
+        tile, groups = K.square_whole_grid(192, 1, dtype)
+        assert (tile, groups) == (32, 36)
+        a = torch.from_numpy(randn((192, 192), 40, 0.2)).to(dtype)
+        K.square_cuda(a, block_m=64, block_n=64, block_k=64)
+        assert K.last_launch["kernel"] == "plain_square_whole"
+        assert K.last_launch["tile"] == 32
+        assert K.last_launch["blocks"] >= 36
+
+    def test_the_tile_leaves_the_least_output_on_the_busiest_sm(self):
+        # one matrix: the smallest tile, a block per tile
+        assert K.square_whole_grid(256, 1, torch.bfloat16) == (32, 64)
+        assert K.square_whole_grid(128, 1, torch.float64) == (32, 16)
+        # a stack of 32: 128 blocks of one 64-wide tile, not 160 blocks of
+        # four 32-wide ones (two waves)
+        assert K.square_whole_grid(128, 32, torch.float32) == (64, 4)
+        assert K.square_whole_grid(128, 32, torch.bfloat16) == (64, 4)
+        # a tie goes to the larger tile
+        assert K.square_whole_grid(128, 33, torch.float32) == (64, 4)
+        assert K.square_whole_grid(128, 132, torch.float32) == (128, 1)
+        # the tensor-core K2 has no 128-wide tile
+        assert K.square_whole_grid(128, 132, torch.bfloat16) == (64, 1)
+
+    @pytest.mark.parametrize("p", [32, 96, 160, 224])
+    def test_sizes_that_only_32_divides(self, p):
+        tile, groups = K.square_whole_grid(p, 1, torch.float32)
+        assert tile == 32 and groups == min((p // 32) ** 2, K.SM_COUNT)
+
+    @pytest.mark.parametrize("batch", [1, 2, 7, 64, 500])
+    @pytest.mark.parametrize("p", WHOLE_TC_SIZES)
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_invariants(self, p, batch, dtype):
+        tile, groups = K.square_whole_grid(p, batch, dtype)
+        tiles = K.WHOLE_TC_TILES if dtype == torch.bfloat16 \
+            else K.KERNEL_TILES
+        assert tile in tiles and p % tile == 0
+        assert groups == K._groups((p // tile) ** 2, batch)
+        assert 1 <= groups <= (p // tile) ** 2
+        # while the 32-wide tiles fit one wave, a block per tile is the
+        # least any SM can compute, and the smallest tile gives it
+        if batch * (p // 32) ** 2 <= K.SM_COUNT:
+            assert tile == 32 and groups == (p // 32) ** 2
+
+    def test_no_tile_divides_raises(self):
+        with pytest.raises(ValueError, match="divides"):
+            K.square_whole_grid(48, 1, torch.float32)
+
+    def test_stacked_plain_route_records_the_grid(self):
+        a = torch.from_numpy(randn((32, 128, 128), 41, 0.2))
+        K.square_cuda(a, block_m=64, block_n=64, block_k=16)
+        assert K.last_launch == dict(kernel="plain_square_whole", tile=64,
+                                     blocks=4 * 32, groups=4)
+
+    def test_16_bit_plain_route_records_its_own_grid(self):
+        """The 16-bit K2's grid is ``groups`` blocks per matrix of the
+        stack, on its own tile whatever the chain's tile."""
+        a = torch.from_numpy(randn((3, 96, 96), 42, 0.2)).to(torch.bfloat16)
+        K.square_cuda(a, block_m=32, block_n=32, block_k=32)
+        assert K.last_launch == dict(kernel="plain_square_whole", tile=32,
+                                     blocks=9 * 3, groups=9)
+
+    def test_plain_k1_and_k3_record_their_grids(self):
+        a = torch.from_numpy(randn((256, 256), 43, 0.2))
+        K.matmul_cuda(a, a, block_m=64, block_n=64, block_k=32)
+        assert K.last_launch == dict(kernel="plain_matmul", tile=64,
+                                     blocks=16)
+        K.square_cuda(a, block_m=64, block_n=64, block_k=32, smem_limit=0)
+        assert K.last_launch["kernel"] == "plain_square_panel"
+        assert K.last_launch["tile"] == 64
+        assert K.last_launch["blocks"] == 4 * K.last_launch["groups"]
+
+
+class TestNewKernelTables:
+    """What the Python side knows of the 16-bit K2 (gemm_tc.cuh) and the
+    fp64 K1 (gemm_dmma.cuh): their instantiation tables and the shared
+    memory each launcher asks for, evaluated from the C++ as written."""
+
+    def test_whole_tc_table_is_the_kernels(self):
+        lines = re.findall(r"^\s*REPRO_WHOLE_TC\((\d+)\)\s*$",
+                           GEMM_TC.read_text(), flags=re.M)
+        assert tuple(int(t) for t in lines) == K.WHOLE_TC_TILES
+        consts = _cuh_constants()
+        assert consts["kWholeBox"] == K.WHOLE_TC_BOX == 64
+        assert consts["kWholeRed"] == K.WHOLE_TC_RED == 16384
+
+    @pytest.mark.parametrize("p", WHOLE_TC_SIZES)
+    def test_whole_tc_footprint_is_the_box_formula(self, p):
+        want = _cuh_struct("WholeBoxes", BOX=K.WHOLE_TC_BOX, P=p)["bytes"]
+        assert K.whole_tc_smem_bytes(p) == want
+        # every operand of the 16-bit whole tier fits: P <= 320
+        assert want <= K.SMEM_PER_BLOCK
+
+    def test_whole_tc_launch_refuses_an_operand_past_shared_memory(self):
+        assert K.whole_tc_smem_bytes(352) > K.SMEM_PER_BLOCK
+
+    def test_dmma_table_is_the_kernels(self):
+        lines = re.findall(
+            r"^\s*REPRO_DMMA_TILE\((\d+), (\d+), (\d+)\)\s*$",
+            GEMM_DMMA.read_text(), flags=re.M)
+        in_cuda = {(int(t), int(bk)): int(st) for t, bk, st in lines}
+        assert in_cuda == K.DMMA_STAGES and len(in_cuda) == 3
+        assert K.DMMA_BLOCKS == tuple(K.DMMA_STAGES)
+
+    def test_dmma_constants_are_the_kernels(self):
+        assert cuh_constants(GEMM_DMMA.read_text())["kPad"] == K.DMMA_PAD == 4
+
+    @pytest.mark.parametrize("tile,bk", K.DMMA_BLOCKS)
+    def test_dmma_footprint_is_the_ring_formula(self, tile, bk):
+        ring = cuh_struct(GEMM_DMMA.read_text(), "DmmaRing", TILE=tile, BK=bk,
+                          STAGES=K.DMMA_STAGES[(tile, bk)])
+        assert K.dmma_smem_bytes(tile, bk) == ring["BYTES"] == \
+            K.smem_footprint((tile, tile, bk), itemsize=8)
+        assert ring["BYTES"] <= K.SMEM_PER_BLOCK
+        # ops.pick_blocks takes only rings within its budget: at least the
+        # pair it picks for each tile fits it
+        assert min(K.dmma_smem_bytes(t, b) for t, b in K.DMMA_BLOCKS
+                   if t == tile) <= K.SMEM_PER_BLOCK // 2
+
+    def test_the_dmma_formula_reader_sees_a_changed_formula(self):
+        src = GEMM_DMMA.read_text().replace(
+            "LDA = BK + kPad;", "LDA = BK;", 1)
+        assert cuh_struct(src, "DmmaRing", TILE=64, BK=32, STAGES=2)[
+            "BYTES"] != K.dmma_smem_bytes(64, 32)
+
+    @pytest.mark.parametrize("tile,bk", K.DMMA_BLOCKS)
+    def test_dmma_pairs_are_fma_k2_k3_pairs_too(self, tile, bk):
+        """A chain's blocks serve the f64 K1 (DMMA) and the FMA K2 / K3
+        alike: every DMMA pair is one the FMA kernels take."""
+        assert tile in K.KERNEL_TILES and bk % 8 == 0 and tile % bk == 0
+        assert K._kernel_tile(tile, tile, bk, "square_cuda") == tile
+
+    @pytest.mark.parametrize("blocks", [(128, 128, 16), (32, 32, 8),
+                                        (64, 64, 64), (128, 64, 16)])
+    def test_the_dmma_launch_refuses_pairs_it_lacks(self, blocks):
+        with pytest.raises(ValueError, match="tensor-core"):
+            K._kernel_tile(*blocks, "matmul_cuda", table=K.DMMA_BLOCKS)
 
 
 class TestLaunchCounters:

@@ -9,6 +9,8 @@ and chain logic over the kernels' plain versions. Everything is also held to
 bit-identity across frameworks is not claimed.
 """
 
+import inspect
+
 import numpy as np
 import pytest
 import torch
@@ -273,6 +275,38 @@ class TestContracts:
         want = a.double().numpy() @ b.double().numpy()
         for backend in BACKENDS:
             assert_close(matmul_backend(backend)(a, b), want, "float32", n=30)
+
+    def test_precision_matches_the_reference_signature(self):
+        """``matmul_backend(backend, precision=None)`` as in the reference:
+        the same parameter names and defaults after the backend's own."""
+        ref = inspect.signature(jmatpow.matmul_backend).parameters
+        port = inspect.signature(matmul_backend).parameters
+        assert list(port) == list(ref) == ["backend", "precision"]
+        assert port["precision"].default is ref["precision"].default is None
+
+    @pytest.mark.parametrize("precision", [None, "highest", "HIGHEST",
+                                           "float32"])
+    @pytest.mark.parametrize("backend", BACKENDS)
+    def test_exact_precisions_return_the_route(self, backend, precision):
+        a = torch.from_numpy(randn((20, 30), 33, 0.3))
+        b = torch.from_numpy(randn((30, 10), 34, 0.3))
+        mm = matmul_backend(backend, precision=precision)
+        assert callable(mm)
+        assert_close(mm(a, b), a.double().numpy() @ b.double().numpy(),
+                     "float32", n=30)
+        assert matmul_backend(backend, precision) is mm
+
+    @pytest.mark.parametrize("precision", ["default", "high", "bfloat16",
+                                           "tf32", 0])
+    @pytest.mark.parametrize("backend", BACKENDS)
+    def test_other_precisions_raise_naming_the_route(self, backend,
+                                                     precision):
+        with pytest.raises(ValueError, match=repr(backend)):
+            matmul_backend(backend, precision=precision)
+
+    def test_unknown_backend_raises_before_precision(self):
+        with pytest.raises(ValueError, match="unknown matmul backend"):
+            matmul_backend("xla", precision="default")
 
     def test_torch_backend_sets_full_precision_accumulation(self):
         torch.backends.cuda.matmul.allow_tf32 = True

@@ -49,6 +49,22 @@ class TestPickBlocks:
         assert bm == bn and (bm, bk) in K.TC_BLOCKS and bm % bk == 0
         assert K.smem_footprint((bm, bn, bk), 2) <= ops.SMEM_BUDGET
 
+    @pytest.mark.parametrize("n", [1, 7, 32, 33, 96, 200, 1000, 1536, 3000,
+                                   4096])
+    def test_f64_picks_an_instantiated_dmma_pair(self, n):
+        bm, bn, bk = ops.pick_blocks(n, n, n, dtype=torch.float64)
+        assert bm == bn and (bm, bk) in K.DMMA_BLOCKS and bm % bk == 0
+        assert K.smem_footprint((bm, bn, bk), 8) <= ops.SMEM_BUDGET
+
+    def test_f64_main_path_blocks(self):
+        """The fp64 tensor-core K1 stops at tile 64: n = 4096 takes it too."""
+        assert ops.pick_blocks(4096, 4096, 4096, dtype=torch.float64) == \
+            (64, 64, 32)
+        assert ops.pick_blocks(128, 128, 128, dtype=torch.float64) == \
+            (64, 64, 32)
+        assert ops.pick_blocks(20, 20, 20, dtype=torch.float64) == \
+            (32, 32, 16)
+
     def test_sixteen_bit_k_step_is_the_default_where_it_fits(self):
         assert ops.pick_blocks(4096, 4096, 4096, dtype=torch.bfloat16) == \
             (128, 128, K.TC_DEFAULT_BK)
