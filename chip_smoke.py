@@ -5,7 +5,8 @@
 
 builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (first use),
 holds every kernel against its plain PyTorch version on the card — the FMA
-kernels of ``gemm.cuh`` (K1 in f32, K2 / K3 in f32 / f64), the tensor-core
+kernels of ``gemm.cuh`` (K1 in f32 at every instantiated (tile, K step,
+stages), K2 / K3 in f32 / f64, K3 on the grid of its own rule), the tensor-core
 K1–K3 of ``gemm_tc.cuh`` in bf16 / f16 at every instantiated tile and
 output type, the fp64 tensor-core K1 of ``gemm_dmma.cuh`` at every
 instantiated (tile, K step) — then runs the slices end to end —
@@ -97,6 +98,7 @@ KERNEL_ROWS = (("matmul", "float32"), ("matmul_tc", "bfloat16"),
                ("square_whole_tc", "float16"),
                ("square_panel", "float32"), ("square_panel_tc", "bfloat16"),
                ("square_panel_tc", "float16"),
+               ("square_whole", "float64"), ("square_panel", "float64"),
                ("flash_attention_tc", "bfloat16"),
                ("flash_attention", "float32"), ("attn_combine", "bfloat16"))
 DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.float64)
@@ -330,7 +332,8 @@ def kernel_case(name, dtype, operands, blocks, *, timed, rows,
     row = {"name": kernel, "dtype": str(dtype).removeprefix("torch."),
            "out_dtype": str(out_dtype).removeprefix("torch."),
            "shape": shape, "blocks": list(blocks), "tile": launch["tile"],
-           "grid_blocks": launch["blocks"], "max_abs_err": abs_err,
+           "grid_blocks": launch["blocks"], "width": launch.get("width"),
+           "groups": launch.get("groups"), "max_abs_err": abs_err,
            "rel_to_peak": rel_peak, "rel_to_peak_limit": KERNEL_RTOL[out_dtype]}
     if timed:
         b_ms, b_by = bound(2.0 * batch * m * n * k, nbytes, dtype)
@@ -348,10 +351,11 @@ def kernel_case(name, dtype, operands, blocks, *, timed, rows,
 
 def phase_kernels() -> dict:
     """K1, K2, K3 — 2-D and stacked — against their plain versions on the
-    card, for f32, bf16, f16 and f64 (the 16-bit K1 and K3 and the f64 K1
-    at every instantiated (tile, K step) and both output types; the 16-bit
-    K2 at both output types; K2 f32 / f64 at the tiles 32
-    and 64 its grid rule picks); timed at the main path's shapes."""
+    card, for f32, bf16, f16 and f64 (the 16-bit K1 and K3, the f64 K1 and
+    the f32 K1 at every instantiated (tile, K step) and both output types;
+    the 16-bit K2 at both output types; K2 f32 / f64 at the tiles 32 and 64
+    its grid rule picks; K3 f32 / f64 on the panel heights and grids its
+    rule picks); timed at the main path's shapes."""
     rows = []
     for dtype in DTYPES:
         if dtype in SIXTEEN_BIT:
@@ -363,8 +367,7 @@ def phase_kernels() -> dict:
                        for out in (None, torch.float32)]
             stacked = (64, 64, 16)
         else:
-            tilings = [((t, t, bk), None)
-                       for t, bk in ((32, 8), (64, 16), (128, 16))]
+            tilings = [((t, t, bk), None) for t, bk in K.F32_BLOCKS]
             stacked = (64, 64, 16)
         # M != N != K, K a multiple of every K step and several ring stages
         a = randn((256, 384), dtype, 1)
@@ -404,6 +407,14 @@ def phase_kernels() -> dict:
         kernel_case("square_panel", dtype,
                     (randn((64, 256, 256), dtype, 8),),
                     stacked, timed=False, rows=rows, smem_limit=0)
+        if dtype not in SIXTEEN_BIT:
+            # an odd stack, and a size only 32 divides (32-wide columns)
+            kernel_case("square_panel", dtype,
+                        (randn((33, 128, 128), dtype, 9),),
+                        stacked, timed=False, rows=rows, smem_limit=0)
+            kernel_case("square_panel", dtype,
+                        (randn((3, 288, 288), dtype, 9),),
+                        (32, 32, 16), timed=False, rows=rows, smem_limit=0)
 
     # The main path's own shapes, timed: the n = 4096 chain runs K1 for its
     # squarings and its combine (f64 on DMMA); n = 192 f32, n = 256 bf16
@@ -447,19 +458,38 @@ def phase_kernels() -> dict:
             assert padded == n
             row = kernel_case(name, dtype, (a,), blocks, timed=True, rows=rows)
             timed[(row["name"], row["dtype"])] = row
+            if name == "square_panel" and dtype == torch.float32:
+                k3_f32 = row
             if name == "square_whole":
                 emit("k2_grid", kernel=row["name"], dtype=row["dtype"],
                      shape=row["shape"], tile=row["tile"],
                      grid_blocks=row["grid_blocks"], ms=row["ms"])
     # One more timed point each for the stacked shapes of phase 6.
-    kernel_case("square_panel", torch.float32,
-                (randn((64, 256, 256), torch.float32, 13),),
-                ops._square_blocks(256, torch.float32)[0], timed=True,
-                rows=rows)
+    stack = kernel_case("square_panel", torch.float32,
+                        (randn((64, 256, 256), torch.float32, 13),),
+                        ops._square_blocks(256, torch.float32)[0], timed=True,
+                        rows=rows)
     kernel_case("square_whole", torch.float32,
                 (randn((32, 128, 128), torch.float32, 14),),
                 ops._square_blocks(128, torch.float32)[0], timed=True,
                 rows=rows)
+    # K3 f32's grid, beside K1 on the same operands (``two_operand_ms``: the
+    # squaring with panel_limit=0), the K1-vs-K3 reading for the f32 panel
+    # tier.
+    for row in (k3_f32, stack):
+        emit("k3_grid", kernel=row["name"], dtype=row["dtype"],
+             shape=row["shape"], blocks=row["blocks"], tile=row["tile"],
+             width=row["width"], grid_blocks=row["grid_blocks"],
+             groups=row["groups"], ms=row["ms"], k1_ms=row["two_operand_ms"],
+             library_ms=row["library_ms"], bound_ms=row["bound_ms"])
+    # K2 and K3 in f64, on the FMA pipeline, at their tiers' main-path sizes
+    # (the n = 128 f64 request squares in K2; K3 takes n = 192 .. 320).
+    for name, n in (("square_whole", 128), ("square_panel", 256)):
+        a = randn((n, n), torch.float64, 15)
+        row = kernel_case(name, torch.float64, (a,),
+                          ops._square_blocks(n, torch.float64)[0],
+                          timed=True, rows=rows)
+        timed[(row["name"], row["dtype"])] = row
     emit("kernels", kernels=sorted(f"{k} {d}" for k, d in timed),
          cases=len(rows), rows=rows)
     return timed

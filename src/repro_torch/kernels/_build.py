@@ -46,7 +46,7 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
 _SIGNATURES = {
     "repro_matmul": [_P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _I, _I, _P],
     "repro_square_whole": [_P, _P, _I, _I, _L, _L, _I, _I, _I, _P],
-    "repro_square_panel": [_P, _P, _I, _I, _I, _L, _L, _I, _I, _I, _P],
+    "repro_square_panel": [_P, _P, _I, _I, _I, _I, _L, _L, _I, _I, _I, _P],
     "repro_flash_attention": [_P] * 6 + [_I] * 12 + [_F, _P],
     "repro_attn_combine": [_P, _P, _P, _I, _L, _I, _P],
 }

@@ -60,7 +60,7 @@ import torch
 from repro_torch.kernels.attention import (ATTN_TILES, HEAD_DIMS,
                                            attn_smem_footprint, head_dim_for,
                                            kernel_tile)
-from repro_torch.kernels.matmul import (DMMA_BLOCKS, KERNEL_TILES, SM_COUNT,
+from repro_torch.kernels.matmul import (DMMA_BLOCKS, F32_BLOCKS, SM_COUNT,
                                         SMEM_PER_BLOCK, SQUARE_PANEL_LIMIT,
                                         SQUARE_SMEM_LIMIT, TC_BLOCKS,
                                         panel_smem_footprint,
@@ -86,14 +86,9 @@ _ENV_VAR = "REPRO_TORCH_AUTOTUNE_CACHE"
 #: Kernel namespaces the cache knows about (the first segment of every key).
 KERNELS = ("matmul", "attention", "square_panel")
 
-#: Matmul candidates of the f32 FMA kernel: the instantiated square tiles,
-#: each with K steps that are multiples of 8; every one fits a block's shared
-#: memory.
-DEFAULT_CANDIDATES: tuple = (
-    (32, 32, 8), (32, 32, 16), (32, 32, 32),
-    (64, 64, 16), (64, 64, 32), (64, 64, 64),
-    (128, 128, 16), (128, 128, 32), (128, 128, 64),
-)
+#: Matmul candidates of the f32 FMA kernel: every instantiated (tile,
+#: K step) pair.
+DEFAULT_CANDIDATES: tuple = tuple((t, t, bk) for t, bk in F32_BLOCKS)
 
 #: Matmul candidates of the 16-bit tensor-core kernels: every instantiated
 #: (tile, K step) pair.
@@ -227,19 +222,12 @@ def _valid_entry(entry) -> bool:
 def valid_blocks(blocks, itemsize: int = 4) -> bool:
     """Whether a matmul tiling can run on the kernels: a square output tile
     with a footprint within a block's shared memory (227 KB, above which the
-    launch is refused) and, for 16-bit operands (``itemsize`` 2), a
-    (tile, K step) pair the tensor-core kernels are instantiated for
-    (``TC_BLOCKS``), for f64 one of the fp64 tensor-core K1
-    (``DMMA_BLOCKS``); else a tile of ``KERNEL_TILES`` and a K step that is
-    a multiple of 8."""
+    launch is refused) and a (tile, K step) pair the dtype's K1 is
+    instantiated for: ``TC_BLOCKS`` for 16-bit operands (``itemsize`` 2),
+    ``DMMA_BLOCKS`` for f64, ``F32_BLOCKS`` else."""
     bm, bn, bk = blocks
-    if itemsize == 2:
-        instantiated = (bm, bk) in TC_BLOCKS
-    elif itemsize == 8:
-        instantiated = (bm, bk) in DMMA_BLOCKS
-    else:
-        instantiated = bm in KERNEL_TILES and bk >= 8 and bk % 8 == 0
-    return instantiated and bm == bn \
+    table = {2: TC_BLOCKS, 8: DMMA_BLOCKS}.get(itemsize, F32_BLOCKS)
+    return (bm, bk) in table and bm == bn \
         and smem_footprint(blocks, itemsize) <= SMEM_PER_BLOCK
 
 

@@ -116,11 +116,11 @@ matmul_dmma_kernel(const double* __restrict__ A, const double* __restrict__ B,
     double* Bs = As + TILE * R::LDA;
     for (int v = tid; v < TILE * BK / 2; v += W::THREADS) {
       const int r = v / (BK / 2), c = (v % (BK / 2)) * 2;
-      tc::cp_async16(As + r * R::LDA + c, A + r * (long long)K + k0 + c);
+      cp_async16(As + r * R::LDA + c, A + r * (long long)K + k0 + c);
     }
     for (int v = tid; v < BK * TILE / 2; v += W::THREADS) {
       const int r = v / (TILE / 2), c = (v % (TILE / 2)) * 2;
-      tc::cp_async16(Bs + r * R::LDB + c, B + (long long)(k0 + r) * N + c);
+      cp_async16(Bs + r * R::LDB + c, B + (long long)(k0 + r) * N + c);
     }
   };
 
@@ -128,7 +128,7 @@ matmul_dmma_kernel(const double* __restrict__ A, const double* __restrict__ B,
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
     if (s < k_tiles) stage(s, s * BK);
-    tc::cp_async_commit();
+    cp_async_commit();
   }
 
   double acc[W::MI][W::NJ][4];
@@ -142,11 +142,11 @@ matmul_dmma_kernel(const double* __restrict__ A, const double* __restrict__ B,
   for (int kt = 0; kt < k_tiles; ++kt) {
     // Stage kt has landed for this thread; the barrier makes it everyone's
     // and tells every thread that the stage read at kt - 1 is free again.
-    tc::cp_async_wait<STAGES - 2>();
+    cp_async_wait<STAGES - 2>();
     __syncthreads();
     const int next = kt + STAGES - 1;
     if (next < k_tiles) stage(next % STAGES, next * BK);
-    tc::cp_async_commit();
+    cp_async_commit();
 
     const double* As = ring + (kt % STAGES) * STAGE_D + wm * R::LDA;
     const double* Bs = ring + (kt % STAGES) * STAGE_D + TILE * R::LDA + wn;
@@ -170,7 +170,7 @@ matmul_dmma_kernel(const double* __restrict__ A, const double* __restrict__ B,
         for (int j = 0; j < W::NJ; ++j) dmma(acc[i][j], a[i], b[j]);
     }
   }
-  tc::cp_async_wait<0>();
+  cp_async_wait<0>();
 
 #pragma unroll
   for (int i = 0; i < W::MI; ++i)
@@ -222,7 +222,7 @@ static int matmul_dispatch(const void* a, const void* b, void* c, int M,
 // The fp64 translation unit expands this once: repro_matmul_f64 on the
 // tensor-core kernel above, with the signature of gemm.cuh's
 // REPRO_DEFINE_C_API, and repro_square_panel_f64 / repro_square_whole_f64 on
-// gemm.cuh's FMA kernels.
+// gemm.cuh's FMA kernels (REPRO_DEFINE_SQUARE_API).
 #define REPRO_DEFINE_DMMA_API(SUFFIX)                                         \
   extern "C" int repro_matmul_##SUFFIX(                                       \
       const void* a, const void* b, void* c, int M, int N, int K, int tile,  \
@@ -232,11 +232,4 @@ static int matmul_dispatch(const void* a, const void* b, void* c, int M,
     return repro::dmma::matmul_dispatch(a, b, c, M, N, K, tile, bk, sA, sB,  \
                                         sC, batch, stream);                   \
   }                                                                           \
-  extern "C" int repro_square_panel_##SUFFIX(                                 \
-      const void* a, void* c, int P, int tile, int bk, long long sA,         \
-      long long sC, int batch, int groups, int out_acc, void* stream) {       \
-    return repro::square_panel_dispatch<double>(a, c, P, tile, bk, sA, sC,   \
-                                                batch, groups, out_acc,       \
-                                                stream);                      \
-  }                                                                           \
-  REPRO_DEFINE_SQUARE_WHOLE_API(SUFFIX, double)
+  REPRO_DEFINE_SQUARE_API(SUFFIX, double)

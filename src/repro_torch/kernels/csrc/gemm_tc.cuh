@@ -133,7 +133,8 @@ template <int BK> struct MmaTiles {
 };
 
 // ---------------------------------------------------------------------------
-// PTX helpers: shared addresses, mbarriers, TMA, wgmma, mma.sync, cp.async
+// PTX helpers: shared addresses, mbarriers, TMA, wgmma, mma.sync (cp.async:
+// gemm.cuh)
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -511,21 +512,6 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
       "[%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(addr));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -1304,8 +1290,10 @@ static int square_whole_dispatch(const void* a, void* c, int P, int tile,
         a, c, P, tile, sA, sC, batch, groups, out_acc, stream);               \
   }                                                                           \
   extern "C" int repro_square_panel_##SUFFIX(                                 \
-      const void* a, void* c, int P, int tile, int bk, long long sA,         \
-      long long sC, int batch, int groups, int out_acc, void* stream) {       \
+      const void* a, void* c, int P, int tile, int width, int bk,            \
+      long long sA, long long sC, int batch, int groups, int out_acc,        \
+      void* stream) {                                                         \
+    (void)width;                  /* K3's output tiles are tile x tile */    \
     return repro::tc::square_panel_dispatch<TYPE>(                            \
         a, c, P, tile, bk, sA, sC, batch, groups, out_acc, stream);           \
   }

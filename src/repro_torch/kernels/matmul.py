@@ -9,24 +9,26 @@ kernels stand where its three Pallas kernels stood:
   ``square_cuda`` "panel"    K3, replaces ``square_pallas`` /
                              ``square_panel_kernel``
 
-For f32 all three are the FMA kernels of ``csrc/gemm.cuh``. For bf16 and
+For f32 all three are the FMA kernels of ``csrc/gemm.cuh`` (K1 and K3 fed by
+a ``cp.async`` ring whose K step and stages are compile-time: K1 takes only
+the ``F32_BLOCKS`` pairs, K3 picks its own panel height and grid,
+``square_panel_grid``). For bf16 and
 f16 all three are the tensor-core kernels of ``csrc/gemm_tc.cuh`` (K1 and K3
 ``wgmma`` fed by a TMA ring, ``mma.sync`` at tile 32; K2 ``mma.sync`` on A
 staged by TMA), counted under ``matmul_tc`` / ``square_whole_tc`` /
 ``square_panel_tc``. For f64, K1 is the fp64 tensor-core kernel of
 ``csrc/gemm_dmma.cuh`` (counted under ``matmul_dmma``) and K2 / K3 stay on
-``gemm.cuh``. The stacked ``(B, ., .)`` form of each is the same kernel with
-the stack on a grid axis — one launch for the stack (the reference's
-``jax.vmap``).
+``gemm.cuh`` (K3 on the same templates and grid rule as f32). The stacked
+``(B, ., .)`` form of each is the same kernel with the stack on a grid axis
+— one launch for the stack (the reference's ``jax.vmap``).
 
 K1 and K3 are bound by operations, not bytes, at the sizes the chain uses,
 and K2 by latency and the grid; the ``.cuh`` files say what each design does
 about it. What each squaring tier keeps out of device memory: "whole" stages
 A once per block (its tiles' boxes of it, on the tensor cores) and takes
 both panels of every output tile from that copy (no second read of A);
-"panel" stages a ``(block_m, P)`` row panel once per block and loops over
-the column tiles inside the block (no re-read of the row panel per output
-tile).
+"panel" stages a row panel once per block and loops over the column tiles
+inside the block (no re-read of the row panel per output tile).
 
 Each wrapper computes on the device its operand lies on: a CUDA tensor goes
 to the kernel (or raises — nothing falls back when a build or a launch
@@ -49,27 +51,50 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
 
 __all__ = ["matmul_cuda", "matmul_plain", "square_cuda", "square_plain",
-           "square_tier", "square_whole_grid", "panel_smem_footprint",
-           "smem_footprint", "tc_smem_bytes", "dmma_smem_bytes",
-           "whole_tc_smem_bytes", "kernel_name",
-           "DEFAULT_BLOCK", "KERNEL_TILES", "SMEM_PER_BLOCK", "L2_BYTES",
-           "SM_COUNT", "TC_BLOCKS", "TC_DEFAULT_BK", "DMMA_BLOCKS",
-           "DMMA_STAGES", "DMMA_TILES",
+           "square_tier", "square_whole_grid", "square_panel_grid",
+           "panel_width", "panel_smem_footprint", "smem_footprint",
+           "fma_smem_bytes", "fma_panel_smem_bytes", "tc_smem_bytes",
+           "dmma_smem_bytes", "whole_tc_smem_bytes", "kernel_name",
+           "DEFAULT_BLOCK", "KERNEL_TILES", "SMEM_PER_BLOCK", "SMEM_PER_SM",
+           "L2_BYTES", "SM_COUNT", "F32_BLOCKS", "F32_STAGES", "FMA_PANELS",
+           "FMA_PANEL_BK", "FMA_PANEL_STAGES", "TC_BLOCKS", "TC_DEFAULT_BK",
+           "DMMA_BLOCKS", "DMMA_STAGES", "DMMA_TILES",
            "WHOLE_TC_TILES", "KERNELS",
            "SQUARE_SMEM_LIMIT", "SQUARE_PANEL_LIMIT", "LAUNCHES",
            "last_launch", "reset_launches", "launch_counts"]
 
 #: Dynamic shared memory one block may use on Hopper (227 KB, opt-in).
 SMEM_PER_BLOCK = 232_448
+#: Shared memory of one SM (228 KB), and what the card keeps of it for each
+#: resident block: how many blocks of a footprint an SM holds at once.
+SMEM_PER_SM = 233_472
+SMEM_PER_RESIDENT_BLOCK = 1024
+#: Threads one SM holds at once, and the threads of a block of the FMA K3.
+THREADS_PER_SM = 2048
+FMA_THREADS = 256
 #: L2 cache of the H100.
 L2_BYTES = 50_000_000
 #: Streaming multiprocessors of the H100 (and H200): how many blocks it
 #: takes to give every SM one.
 SM_COUNT = 132
-#: Shared-memory row padding of the staged tiles, in elements (gemm.cuh).
+#: Shared-memory row padding of K1's A tiles and K3's row panel, in
+#: elements (``kPad`` of gemm.cuh).
 SMEM_PAD = 4
 #: Square output tiles the kernels are instantiated for.
 KERNEL_TILES = (32, 64, 128)
+#: (tile, K step) pairs the f32 FMA K1 is instantiated for, and the ring
+#: stages of each (the ``REPRO_F32_TILE`` lines of csrc/gemm.cuh;
+#: ``fma_smem_bytes``).
+F32_STAGES = {(32, 16): 4, (32, 32): 3, (64, 16): 4, (64, 32): 2,
+              (128, 16): 4, (128, 32): 3}
+F32_BLOCKS = tuple(F32_STAGES)
+#: (panel height, column width) pairs the FMA K3 (f32, f64) is instantiated
+#: for (the ``REPRO_FMA_PANEL`` lines of csrc/gemm.cuh), and the K step and
+#: stages of the ring its column tiles stream through (``kPanelBK``,
+#: ``kPanelStages``; ``fma_panel_smem_bytes``).
+FMA_PANELS = ((32, 32), (32, 64), (64, 64))
+FMA_PANEL_BK = 32
+FMA_PANEL_STAGES = 3
 #: (tile, K step) pairs the 16-bit tensor-core K1 / K3 are instantiated for
 #: (the ``REPRO_TC_TILE`` lines of csrc/gemm_tc.cuh): tile 32 on
 #: ``mma.sync``, 64 and 128 on ``wgmma``, whose K step is 32 or 64.
@@ -104,10 +129,11 @@ DMMA_TILES = tuple(sorted({t for t, _ in DMMA_BLOCKS}))
 DMMA_PAD = 4
 
 # Default tile: 128 x 128 output tile per 256-thread block (an 8 x 8
-# register micro-tile per thread, 64 FMAs for four 16-byte shared loads),
-# K step 32. Staged operand tiles at fp32: 2 * 32 * 132 * 4 = 33 KB, so
-# several blocks share an SM. ``ops.pick_blocks`` drops to 64 / 32 tiles for
-# problems too small to fill the SMs with 128s.
+# register micro-tile per thread, 256 FMAs for sixteen 16-byte shared
+# loads), K step 32: at f32 a ring of 3 stages of 34 KB, so two blocks share
+# an SM.
+# ``ops.pick_blocks`` drops to 64 / 32 tiles for problems too small to fill
+# the SMs with 128s.
 DEFAULT_BLOCK = (128, 128, 32)
 
 # "whole" tier: the operand itself (in its storage dtype) is the block's
@@ -175,10 +201,6 @@ def launch_counts() -> dict:
 # Footprints and the tier policy
 # ---------------------------------------------------------------------------
 
-def _acc_itemsize(itemsize: int) -> int:
-    return 8 if itemsize == 8 else 4
-
-
 def tc_smem_bytes(tile: int, block_k: int, p: int | None = None) -> int:
     """Dynamic shared-memory bytes a 16-bit launcher of gemm_tc.cuh asks
     for at a square ``tile`` and K step ``block_k``: K1's, or K3's over a
@@ -228,32 +250,64 @@ def whole_tc_smem_bytes(p: int) -> int:
         WHOLE_TC_BOX * WHOLE_TC_BOX * 2 + TC_BARRIER)
 
 
+def fma_smem_bytes(tile: int, block_k: int) -> int:
+    """Dynamic shared-memory bytes the f32 FMA K1 asks for at a square
+    ``tile`` and K step ``block_k``: the ``FmaRing`` formula of
+    csrc/gemm.cuh (a test evaluates it against this one). Each of the
+    pair's ``F32_STAGES`` stages holds the [tile x K step] A tile, rows
+    padded by ``SMEM_PAD``, and the [K step x tile] B tile. A pair that is
+    not instantiated raises ``KeyError``."""
+    stage = (tile * (block_k + SMEM_PAD) + block_k * tile) * 4
+    return F32_STAGES[(tile, block_k)] * stage
+
+
+def panel_width(p: int) -> int:
+    """Column width of the FMA K3's output tiles over a ``(p, p)`` operand:
+    64 where it divides ``p``, else 32."""
+    return 64 if p % 64 == 0 else 32
+
+
+def fma_panel_smem_bytes(p: int, height: int, itemsize: int = 4) -> int:
+    """Dynamic shared-memory bytes the FMA K3 (f32, f64) asks for over a
+    ``(p, p)`` operand with a panel of ``height`` rows: the ``FmaPanel``
+    formula of csrc/gemm.cuh — the row panel, rows padded by ``SMEM_PAD``;
+    ``FMA_PANEL_STAGES`` stages of [``FMA_PANEL_BK`` x ``panel_width(p)``]
+    column tiles; and, in f32, the partial sums of the block's K slices
+    past the first (its ``FMA_THREADS`` are slices of ``2 * height``
+    threads, each over the whole output tile; f64 sums over k in one
+    slice)."""
+    width = panel_width(p)
+    slices = 1 if itemsize == 8 else FMA_THREADS // (2 * height)
+    return (height * (p + SMEM_PAD) * itemsize
+            + FMA_PANEL_STAGES * FMA_PANEL_BK * width * itemsize
+            + (slices - 1) * height * width * itemsize)
+
+
 def smem_footprint(blocks, itemsize: int = 4) -> int:
-    """Dynamic shared-memory bytes one K1 block asks for: for f32 (gemm.cuh)
-    the transposed A tile and the B tile of one K step, held at the
-    accumulation width; for 16-bit ``tc_smem_bytes``; for f64
-    ``dmma_smem_bytes``."""
+    """Dynamic shared-memory bytes one K1 block asks for: for f32
+    ``fma_smem_bytes``, for 16-bit ``tc_smem_bytes``, for f64
+    ``dmma_smem_bytes``. An f32 or f64 pair its kernel does not instantiate
+    raises ``KeyError``."""
     bm, bn, bk = blocks
     if itemsize == 2:
         return tc_smem_bytes(bm, bk)
     if itemsize == 8:
         return dmma_smem_bytes(bm, bk)
-    return bk * (bm + SMEM_PAD + bn + SMEM_PAD) * _acc_itemsize(itemsize)
+    return fma_smem_bytes(bm, bk)
 
 
 def panel_smem_footprint(p: int, block_m: int, block_n: int,
                          itemsize: int = 4,
                          block_k: int = DEFAULT_BLOCK[2]) -> int:
-    """Dynamic shared-memory bytes one panel-tier block asks for: the
-    ``(block_m, P)`` row panel in the storage dtype plus the buffers the
-    column panel streams through — for f32 / f64 one staging tile at the
-    accumulation width; for 16-bit ``tc_smem_bytes``. The panel tier is
-    usable only when this fits ``SMEM_PER_BLOCK`` — ``square_cuda`` demotes
-    to the two-operand kernel otherwise."""
+    """Dynamic shared-memory bytes of a panel-tier block whose row panel is
+    ``block_m`` rows: for 16-bit ``tc_smem_bytes`` (the chain's tile and K
+    step), for f32 / f64 ``fma_panel_smem_bytes`` (its own ring; ``block_n``
+    and ``block_k`` do not enter). The panel tier is usable only when this
+    fits ``SMEM_PER_BLOCK`` at the chain's tile — ``square_cuda`` demotes to
+    the two-operand kernel otherwise."""
     if itemsize == 2:
         return tc_smem_bytes(block_m, block_k, p)
-    return (block_m * p * itemsize
-            + block_k * (block_n + SMEM_PAD) * _acc_itemsize(itemsize))
+    return fma_panel_smem_bytes(p, block_m, itemsize)
 
 
 def square_tier(operand_bytes: int, smem_limit: int = SQUARE_SMEM_LIMIT,
@@ -377,14 +431,58 @@ def square_whole_grid(p: int, batch: int, dtype) -> tuple:
     return best[1], best[2]
 
 
+def square_panel_grid(p: int, batch: int, dtype, chain_tile: int) -> tuple:
+    """(panel height, column width, groups) of a panel-tier squaring (K3)
+    of a ``(p, p)`` operand, or a stack of ``batch`` of them: ``groups``
+    blocks share each row panel's column tiles.
+
+    bf16 / f16 (the tensor-core K3): the chain's square tile, and as few
+    groups as fill the SMs (``_groups``). f32 / f64 (the FMA K3): K3's own
+    grid. Over the ``FMA_PANELS`` heights no taller than ``chain_tile``
+    that divide ``p`` (the width is ``panel_width(p)``) and every group
+    count, the one whose busiest SM has the least output to compute —
+    blocks per SM times the column tiles of a block times a tile's area;
+    on a tie the fewest waves (blocks an SM runs at once counted from
+    ``fma_panel_smem_bytes``), then the fewest blocks (each stages its own
+    panel), then the taller panel (more FMAs per shared load). So 512² f32
+    takes 32-row panels in 128 blocks, where the chain's 64-wide tile gave
+    64, and a stack of 64 of 256² 64-row panels in 256 blocks that all fit
+    the card at once."""
+    if dtype in (torch.float16, torch.bfloat16):
+        tiles = p // chain_tile
+        return chain_tile, chain_tile, _groups(tiles, tiles * batch)
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    width = panel_width(p)
+    col_tiles = p // width
+    best = None
+    for height in sorted(h for h, w in FMA_PANELS
+                         if w == width and h <= chain_tile and p % h == 0):
+        footprint = fma_panel_smem_bytes(p, height, itemsize)
+        resident = max(1, min(
+            SMEM_PER_SM // (footprint + SMEM_PER_RESIDENT_BLOCK),
+            THREADS_PER_SM // FMA_THREADS))
+        for groups in range(1, col_tiles + 1):
+            blocks = groups * (p // height) * batch
+            per_sm = -(-blocks // SM_COUNT)
+            load = per_sm * -(-col_tiles // groups) * height * width
+            key = (load, -(-per_sm // resident), blocks, -height)
+            if best is None or key < best[0]:
+                best = (key, height, groups)
+    if best is None:
+        raise ValueError(f"no panel height of {FMA_PANELS} no taller than "
+                         f"{chain_tile} divides {p}")
+    return best[1], width, best[2]
+
+
 def _kernel_tile(block_m, block_n, block_k, what, table=None) -> int:
     """The square output tile of a launch; ``table`` the (tile, K step)
-    pairs of a tensor-core K1 / K3 (``TC_BLOCKS``, ``DMMA_BLOCKS``), which
-    take only those."""
+    pairs of a K1 / K3 with a compile-time K step (``TC_BLOCKS``,
+    ``DMMA_BLOCKS``, ``F32_BLOCKS``), which takes only those."""
     if table is not None:
         if block_m != block_n or (block_m, block_k) not in table:
+            kind = "FMA" if table is F32_BLOCKS else "tensor-core"
             raise ValueError(
-                f"{what}: the tensor-core kernels for this dtype take square "
+                f"{what}: the {kind} kernels for this dtype take square "
                 f"output tiles with the (tile, K step) pairs {table}, got "
                 f"blocks ({block_m},{block_n},{block_k})")
         return block_m
@@ -503,7 +601,8 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor, *,
     f64 for f64; one cast to ``out_dtype`` (default ``a.dtype``) at the
     store. bf16 / f16 run the tensor-core kernel (blocks from
     ``TC_BLOCKS``), f64 the fp64 tensor-core kernel (blocks from
-    ``DMMA_BLOCKS``), f32 the FMA kernel. ``out`` receives the result when
+    ``DMMA_BLOCKS``), f32 the FMA kernel (blocks from ``F32_BLOCKS``).
+    ``out`` receives the result when
     given and must not alias an operand. On a CPU tensor this is
     :func:`matmul_plain`.
     """
@@ -517,7 +616,8 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor, *,
     name = kernel_name("matmul", a.dtype)
     tile = _kernel_tile(block_m, block_n, block_k, what,
                         table={"matmul_tc": TC_BLOCKS,
-                               "matmul_dmma": DMMA_BLOCKS}.get(name))
+                               "matmul_dmma": DMMA_BLOCKS,
+                               "matmul": F32_BLOCKS}[name])
     _kernel_operand(a, "a", what)
     _kernel_operand(b, "b", what)
     if batch is not None and batch > 65_535:
@@ -585,7 +685,9 @@ def square_cuda(a: torch.Tensor, *,
     shared memory), the two-operand :func:`matmul_cuda` above that. Both
     limits are arguments so a caller (or a tuned entry, later) can move
     them. For bf16 / f16 the panel tier is the tensor-core K3, which takes
-    the ``TC_BLOCKS`` pairs only. K2 takes any square chain tile of
+    the ``TC_BLOCKS`` pairs only; for f32 / f64 the FMA K3 launches on a
+    panel height no taller than the chain's tile and a grid of its own
+    (``square_panel_grid``). K2 takes any square chain tile of
     ``KERNEL_TILES`` that divides the operand and launches on its own output
     tile and grid (``square_whole_grid``).
 
@@ -619,7 +721,7 @@ def square_cuda(a: torch.Tensor, *,
     if batch is not None and batch > 65_535:
         raise ValueError(f"{what}: a stack of {batch} exceeds the grid's "
                          f"65535 limit on its stack axis")
-    if tier == "panel" and p % block_k:
+    if name == "square_panel_tc" and p % block_k:
         raise ValueError(
             f"shape ({p},{p}) not divisible by the K step {block_k} the "
             f"panel kernel stages the column panel in; use ops.MatmulChain "
@@ -641,8 +743,9 @@ def square_cuda(a: torch.Tensor, *,
                  stride, batch or 1, launch["groups"], out_acc))
     else:
         _launch("repro_square_panel", a,
-                (a.data_ptr(), c.data_ptr(), p, tile, block_k, stride, stride,
-                 batch or 1, launch["groups"], out_acc))
+                (a.data_ptr(), c.data_ptr(), p, launch["tile"],
+                 launch["width"], block_k, stride, stride, batch or 1,
+                 launch["groups"], out_acc))
     LAUNCHES[name] += 1
     _record(name, **launch)
     return _finish(c, out, out_dtype)
@@ -650,10 +753,11 @@ def square_cuda(a: torch.Tensor, *,
 
 def _square_grid(tier, p, batch, dtype, block_m) -> dict:
     """The grid of a squaring launch, the same on both routes: K2's from
-    ``square_whole_grid``, K3's from the chain's tile."""
+    ``square_whole_grid``, K3's from ``square_panel_grid`` (its ``tile`` is
+    the panel height, ``width`` the column width of its output tiles)."""
     if tier == "whole":
         tile, groups = square_whole_grid(p, batch, dtype)
         return dict(tile=tile, blocks=groups * batch, groups=groups)
-    tiles = p // block_m
-    groups = _groups(tiles, tiles * batch)
-    return dict(tile=block_m, blocks=groups * tiles * batch, groups=groups)
+    tile, width, groups = square_panel_grid(p, batch, dtype, block_m)
+    return dict(tile=tile, width=width,
+                blocks=groups * (p // tile) * batch, groups=groups)

@@ -43,8 +43,8 @@ from repro_torch import dtype_name
 from repro_torch.kernels import autotune
 from repro_torch.kernels.attention import (HEAD_DIMS, attn_tiles,
                                            flash_attention, head_dim_for)
-from repro_torch.kernels.matmul import (DEFAULT_BLOCK, DMMA_BLOCKS,
-                                        DMMA_TILES, KERNEL_TILES, SM_COUNT,
+from repro_torch.kernels.matmul import (DMMA_BLOCKS, DMMA_TILES,
+                                        F32_BLOCKS, KERNEL_TILES, SM_COUNT,
                                         SMEM_PER_BLOCK, TC_BLOCKS,
                                         TC_DEFAULT_BK, matmul_cuda,
                                         smem_footprint, square_cuda)
@@ -79,15 +79,15 @@ def pick_blocks(m: int, n: int, k: int, dtype=None, use_cache: bool = True,
     at 64) that still cuts the output into at least one tile per SM (a
     128-wide tile has the best FMA-to-load ratio, but sixteen of them leave
     most of the card idle), never below 64 unless the whole output fits
-    one 32-wide tile; then the default K step, halved while the
-    staged tiles exceed the shared-memory budget (``SMEM_BUDGET``). For
-    bf16 / f16 the K step is the largest one of ``TC_BLOCKS`` for the tile
-    that is at most ``TC_DEFAULT_BK`` and whose ring fits the budget; for
-    f64 the same over ``DMMA_BLOCKS``.
+    one 32-wide tile; then the K step: the largest one the dtype's K1
+    instantiates for the tile (``F32_BLOCKS`` for f32, ``TC_BLOCKS`` for
+    bf16 / f16, ``DMMA_BLOCKS`` for f64) that is at most ``TC_DEFAULT_BK``
+    and whose ring fits the shared-memory budget (``SMEM_BUDGET``); the
+    smallest ring of the tile where none fits.
 
     Invariants (tested): block_m == block_n is one of ``KERNEL_TILES``,
-    block_k divides both, ``smem_footprint`` fits the budget, and a 16-bit
-    or f64 pair is an instantiated one.
+    block_k divides both, ``smem_footprint`` fits the budget, and the pair
+    is an instantiated one.
     """
     itemsize = torch.empty((), dtype=dtype).element_size() \
         if dtype is not None else 4
@@ -101,16 +101,14 @@ def pick_blocks(m: int, n: int, k: int, dtype=None, use_cache: bool = True,
     else:
         tile = next((t for t in reversed(tiles[1:])
                      if -(-m // t) * -(-n // t) >= SM_COUNT), tiles[1])
-    if itemsize in (2, 8):
-        table = TC_BLOCKS if itemsize == 2 else DMMA_BLOCKS
-        return tile, tile, max(
-            bk for t, bk in table if t == tile and bk <= TC_DEFAULT_BK
-            and smem_footprint((tile, tile, bk), itemsize) <= SMEM_BUDGET)
-    bk = DEFAULT_BLOCK[2]
-    while smem_footprint((tile, tile, bk), itemsize) > SMEM_BUDGET \
-            and bk > 8:
-        bk //= 2
-    return tile, tile, bk
+    table = {2: TC_BLOCKS, 8: DMMA_BLOCKS}.get(itemsize, F32_BLOCKS)
+    steps = [bk for t, bk in table if t == tile and bk <= TC_DEFAULT_BK]
+    fits = [bk for bk in steps
+            if smem_footprint((tile, tile, bk), itemsize) <= SMEM_BUDGET]
+    if fits:
+        return tile, tile, max(fits)
+    return tile, tile, min(
+        steps, key=lambda bk: smem_footprint((tile, tile, bk), itemsize))
 
 
 def pick_attn_blocks(sq: int, skv: int, d: int, dtype=None,

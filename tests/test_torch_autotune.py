@@ -243,16 +243,16 @@ class TestPickBlocks:
             ops.pick_blocks(1024, 1024, 1024, dtype=F32, use_cache=False)
 
     def test_square_blocks_fall_back_when_the_lcm_blows_up(self, tmp_cache):
-        autotune.record(20, 20, 20, (32, 32, 24), dtype=F32)
+        autotune.record(20, 20, 20, (128, 128, 32), dtype=F32)
         blocks, padded = ops._square_blocks(20, F32)
         assert blocks == ops.pick_blocks(20, 20, 20, dtype=F32,
                                          use_cache=False)
-        assert padded == 32                # not lcm(32, 24) = 96
-        autotune.record(200, 200, 200, (128, 128, 64), dtype=F32)
-        assert ops._square_blocks(200, F32) == ((128, 128, 64), 256)
+        assert padded == 32                # not the 128 of the cached tile
+        autotune.record(200, 200, 200, (128, 128, 16), dtype=F32)
+        assert ops._square_blocks(200, F32) == ((128, 128, 16), 256)
 
     def test_matmul_keys_on_the_operands_device(self, tmp_cache, monkeypatch):
-        autotune.record(96, 80, 64, (32, 32, 8), dtype=F32, backend="cpu")
+        autotune.record(96, 80, 64, (32, 32, 16), dtype=F32, backend="cpu")
         seen = []
         real = K.matmul_plain
         monkeypatch.setattr(K, "matmul_plain",
@@ -260,7 +260,7 @@ class TestPickBlocks:
                                                                         **kw))
         a, b = torch.ones(96, 64), torch.ones(64, 80)
         torch.testing.assert_close(ops.matmul(a, b), a @ b)
-        assert seen[0]["block_m"] == 32 and seen[0]["block_k"] == 8
+        assert seen[0]["block_m"] == 32 and seen[0]["block_k"] == 16
 
 
 class TestSweep:
@@ -312,7 +312,22 @@ class TestSweep:
     @pytest.mark.parametrize("tile", K.KERNEL_TILES)
     def test_sixteen_bit_refuses_k_step_8(self, tile):
         assert not autotune.valid_blocks((tile, tile, 8), itemsize=2)
-        assert autotune.valid_blocks((tile, tile, 8), itemsize=4)
+        # the f32 K1's K step is compile-time too: 16 and 32, not 8
+        assert not autotune.valid_blocks((tile, tile, 8), itemsize=4)
+        assert autotune.valid_blocks((tile, tile, 16), itemsize=4)
+        assert not autotune.valid_blocks((tile, tile, 16), itemsize=2)
+
+    @pytest.mark.parametrize("tile,bk", K.F32_BLOCKS)
+    def test_f32_accepts_each_instantiated_pair(self, tile, bk):
+        assert autotune.valid_blocks((tile, tile, bk), itemsize=4)
+        assert (tile, tile, bk) in autotune.DEFAULT_CANDIDATES
+
+    @pytest.mark.parametrize("blocks", [(64, 64, 64), (128, 128, 64),
+                                        (32, 32, 8), (64, 64, 24)])
+    def test_f32_refuses_pairs_it_does_not_instantiate(self, blocks):
+        assert not autotune.valid_blocks(blocks, itemsize=4)
+        assert autotune.modeled_score(1024, 1024, 1024, blocks,
+                                      F32) == float("inf")
 
     def test_sixteen_bit_refuses_a_ring_over_shared_memory(self):
         assert not autotune.valid_blocks((128, 128, 128), itemsize=2)

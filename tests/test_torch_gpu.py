@@ -292,6 +292,128 @@ def test_fma_square_whole_grid_rule(cuda, shape, tile, dtype):
     _close(got, K.square_plain(a, **kw), dtype)
 
 
+# -- K1 f32 and K3 f32 / f64 on the cp.async rings of csrc/gemm.cuh ----------
+
+F32_TILINGS = [pytest.param(t, bk, id=f"{t}x{bk}") for t, bk in
+               K.F32_BLOCKS]
+
+
+@pytest.mark.parametrize("tile,bk", F32_TILINGS)
+def test_f32_matmul_every_tiling(cuda, tile, bk):
+    """Every instantiated (tile, K step, stages), M != N != K."""
+    a = _randn((2 * tile, 5 * bk), torch.float32, cuda, 30)
+    b = _randn((5 * bk, 3 * tile), torch.float32, cuda, 31)
+    kw = dict(block_m=tile, block_n=tile, block_k=bk)
+    _close(K.matmul_cuda(a, b, **kw), K.matmul_plain(a, b, **kw),
+           torch.float32)
+    assert K.launch_counts()["matmul"] == 1
+
+
+@pytest.mark.parametrize("tile,bk", F32_TILINGS)
+@pytest.mark.parametrize("form", ["both", "left", "right", "deep",
+                                  "one_step"])
+def test_f32_matmul_stacked_and_deep(cuda, tile, bk, form):
+    """A stack on both sides or one 2-D side shared by the stack (stride
+    0); K = 4096, many trips round the ring; K of one step, fewer than the
+    ring's stages."""
+    if form in ("deep", "one_step"):
+        k = 4096 if form == "deep" else bk
+        a = _randn((tile, k), torch.float32, cuda, 32)
+        b = _randn((k, 2 * tile), torch.float32, cuda, 33)
+    else:
+        a = _randn((3, 2 * tile, 4 * bk), torch.float32, cuda, 34)
+        b = _randn((3, 4 * bk, tile), torch.float32, cuda, 35)
+        if form == "left":
+            b = b[1].contiguous()
+        if form == "right":
+            a = a[2].contiguous()
+    kw = dict(block_m=tile, block_n=tile, block_k=bk)
+    _close(K.matmul_cuda(a, b, **kw), K.matmul_plain(a, b, **kw),
+           torch.float32)
+    assert K.launch_counts()["matmul"] == 1
+
+
+def test_f32_refuses_a_k_step_it_does_not_instantiate(cuda):
+    a = _randn((128, 128), torch.float32, cuda)
+    with pytest.raises(ValueError, match="FMA"):
+        K.matmul_cuda(a, a, block_m=64, block_n=64, block_k=64)
+    assert not any(K.launch_counts().values())
+
+
+def _panel_case(a, kw, dtype):
+    got = K.square_cuda(a, **kw)
+    launch = dict(K.last_launch)
+    _close(got, K.square_plain(a, **kw), dtype)
+    p, batch = a.shape[-1], (a.shape[0] if a.ndim == 3 else 1)
+    assert launch["kernel"] == "square_panel"
+    assert (launch["tile"], launch["width"], launch["groups"]) == \
+        K.square_panel_grid(p, batch, dtype, kw["block_m"])
+    assert launch["blocks"] == launch["groups"] * p // launch["tile"] * batch
+    return launch
+
+
+def test_f32_square_panel_fills_the_card_at_512(cuda):
+    """K3 at the main path's 512^2 on the grid ``square_panel_grid`` picks:
+    32-row panels, 128 blocks."""
+    a = _randn((512, 512), torch.float32, cuda, 36)
+    launch = _panel_case(a, B64, torch.float32)
+    assert launch["blocks"] >= 128 and launch["tile"] == 32
+
+
+@pytest.mark.parametrize("shape,tile", [((64, 256, 256), 64),
+                                        ((33, 128, 128), 64),
+                                        ((3, 288, 288), 32),
+                                        ((2, 704, 704), 64)])
+def test_f32_square_panel_stacks(cuda, shape, tile):
+    """The stacked chain's shape, an odd stack, a size only 32 divides
+    (32-wide column tiles) and the largest one of the tier, forced into the
+    panel tier."""
+    a = _randn(shape, torch.float32, cuda, 37)
+    _panel_case(a, dict(block_m=tile, block_n=tile, block_k=16,
+                        smem_limit=0), torch.float32)
+
+
+def test_f32_square_panel_uneven_groups(cuda, monkeypatch):
+    """Groups that do not divide the column tiles: the first blocks of a
+    panel take one column tile more than the last."""
+    monkeypatch.setattr(K, "square_panel_grid",
+                        lambda p, batch, dtype, tile: (32, 64, 3))
+    a = _randn((2, 512, 512), torch.float32, cuda, 38)
+    got = K.square_cuda(a, **B64)
+    assert K.last_launch["groups"] == 3
+    _close(got, K.square_plain(a, **B64), torch.float32)
+
+
+@pytest.mark.parametrize("blocks", [(64, 64, 32), (32, 32, 16)])
+@pytest.mark.parametrize("shape", [(256, 256), (3, 256, 256)])
+def test_f64_square_panel(cuda, shape, blocks):
+    """K3 in f64 shares the f32 templates: held to 1e-12 of the peak."""
+    a = _randn(shape, torch.float64, cuda, 39)
+    t, _, bk = blocks
+    _panel_case(a, dict(block_m=t, block_n=t, block_k=bk, smem_limit=0),
+                torch.float64)
+
+
+@pytest.mark.parametrize("n,tier", [(1024, "matmul"), (512, "square_panel")])
+def test_f32_chain_holds_the_budget(cuda, n, tier):
+    """A^96 in f32 through the chain: at n = 1024 every multiply on K1
+    (tier limits (1, 1) in the tuning cache: no squaring tier), at n = 512
+    six squarings on K3 and the combine on K1; within
+    ``error_budget(float32, n, mults=7)`` of the float64 power."""
+    if tier == "matmul":
+        autotune.record_square_tiers(1, 1, dtype=torch.float32,
+                                     backend="cuda")
+    a = _power_operand(n, cuda, 40)
+    got = matpow_binary(a, 96, backend="cuda_chain")
+    counts = {k: v for k, v in K.launch_counts().items() if v}
+    assert counts == ({"matmul": 7} if tier == "matmul"
+                      else {"square_panel": 6, "matmul": 1})
+    rtol, atol = error_budget(torch.float32, n=n, mults=7)
+    want = torch.linalg.matrix_power(a.double(), 96)
+    assert torch.allclose(got.double(), want, rtol=rtol, atol=atol)
+    assert _rel_to_peak(got, want) <= error_budget(torch.float32)[0]
+
+
 # -- K1 in f64 on the fp64 tensor cores (csrc/gemm_dmma.cuh) ----------------
 
 DMMA_TILINGS = [pytest.param(t, bk, id=f"{t}x{bk}") for t, bk in

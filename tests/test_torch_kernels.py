@@ -277,11 +277,6 @@ class TestTensorCoreContract:
         assert _cuh_struct("Ring", src, TILE=128, BK=64)["BYTES"] \
             != K.tc_smem_bytes(128, 64)
 
-    def test_f32_footprints_are_unchanged(self):
-        assert K.smem_footprint((128, 128, 32)) == 32 * 264 * 4
-        assert K.panel_smem_footprint(512, 64, 64, 4, 16) == \
-            64 * 512 * 4 + 16 * 68 * 4
-
     @pytest.mark.parametrize("blocks", [(64, 64, 16), (128, 128, 16),
                                         (32, 32, 8), (64, 64, 128),
                                         (128, 64, 64)])
@@ -399,9 +394,9 @@ class TestWholeOperandGrid:
         assert K.last_launch == dict(kernel="plain_matmul", tile=64,
                                      blocks=16)
         K.square_cuda(a, block_m=64, block_n=64, block_k=32, smem_limit=0)
-        assert K.last_launch["kernel"] == "plain_square_panel"
-        assert K.last_launch["tile"] == 64
-        assert K.last_launch["blocks"] == 4 * K.last_launch["groups"]
+        # K3 takes 32-row panels of 32 x 64 output tiles, 4 blocks a panel
+        assert K.last_launch == dict(kernel="plain_square_panel", tile=32,
+                                     width=64, blocks=8 * 4, groups=4)
 
 
 class TestNewKernelTables:
@@ -468,6 +463,167 @@ class TestNewKernelTables:
     def test_the_dmma_launch_refuses_pairs_it_lacks(self, blocks):
         with pytest.raises(ValueError, match="tensor-core"):
             K._kernel_tile(*blocks, "matmul_cuda", table=K.DMMA_BLOCKS)
+
+
+GEMM = Path(K.__file__).parent / "csrc" / "gemm.cuh"
+F32_PAIRS = [pytest.param(t, bk, id=f"{t}x{bk}") for t, bk in K.F32_BLOCKS]
+PANEL_SIZES = [256, 288, 320, 384, 512, 640, 768, 832]
+
+
+class TestFmaContract:
+    """What the Python side knows of csrc/gemm.cuh's f32 K1 and f32 / f64
+    K3: their instantiation tables and the shared memory each launcher asks
+    for, evaluated from the C++ as written (a footprint that disagreed with
+    the launcher's request would pass a tiling the card refuses)."""
+
+    def test_f32_table_is_the_kernels(self):
+        lines = re.findall(
+            r"^\s*REPRO_F32_TILE\((\d+), (\d+), (\d+)\)\s*$",
+            GEMM.read_text(), flags=re.M)
+        in_cuda = {(int(t), int(bk)): int(st) for t, bk, st in lines}
+        assert in_cuda == K.F32_STAGES
+        assert K.F32_BLOCKS == tuple(K.F32_STAGES)
+        assert {t for t, _ in in_cuda} == set(K.KERNEL_TILES)
+
+    def test_panel_table_and_constants_are_the_kernels(self):
+        lines = re.findall(r"^\s*REPRO_FMA_PANEL\((\d+), (\d+)\)\s*$",
+                           GEMM.read_text(), flags=re.M)
+        assert tuple((int(h), int(w)) for h, w in lines) == K.FMA_PANELS
+        consts = cuh_constants(GEMM.read_text())
+        assert consts["kPad"] == K.SMEM_PAD == 4
+        assert consts["kPanelBK"] == K.FMA_PANEL_BK
+        assert consts["kPanelStages"] == K.FMA_PANEL_STAGES
+        assert consts["kThreads"] == K.FMA_THREADS == 256
+
+    @pytest.mark.parametrize("tile,bk", F32_PAIRS)
+    def test_k1_footprint_is_the_ring_formula(self, tile, bk):
+        ring = cuh_struct(GEMM.read_text(), "FmaRing", TILE=tile, BK=bk,
+                          STAGES=K.F32_STAGES[(tile, bk)])
+        assert K.fma_smem_bytes(tile, bk) == ring["BYTES"] == \
+            K.smem_footprint((tile, tile, bk))
+        assert ring["LDA"] == bk + K.SMEM_PAD
+        # every ring lets two blocks share an SM
+        assert 2 * (ring["BYTES"] + K.SMEM_PER_RESIDENT_BLOCK) <= K.SMEM_PER_SM
+
+    @pytest.mark.parametrize("itemsize", [4, 8])
+    @pytest.mark.parametrize("p", PANEL_SIZES)
+    @pytest.mark.parametrize("height", [32, 64])
+    def test_k3_footprint_is_the_panel_formula(self, height, p, itemsize):
+        want = cuh_struct(GEMM.read_text(), "FmaPanel", H=height,
+                          W=K.panel_width(p), ELEM=itemsize, P=p)["bytes"]
+        assert K.fma_panel_smem_bytes(p, height, itemsize) == want == \
+            K.panel_smem_footprint(p, height, height, itemsize)
+
+    def test_the_fma_formula_reader_sees_a_changed_formula(self):
+        """The C++ formulas are read from the source, not restated: a ring
+        without the A pad, a panel without its row pad, evaluate to other
+        sizes."""
+        src = GEMM.read_text().replace("LDA = BK + kPad;", "LDA = BK;", 1)
+        assert cuh_struct(src, "FmaRing", TILE=128, BK=32, STAGES=3)[
+            "BYTES"] != K.fma_smem_bytes(128, 32)
+        src = GEMM.read_text().replace("(P + kPad) * ELEM", "P * ELEM", 1)
+        assert cuh_struct(src, "FmaPanel", H=64, W=64, ELEM=4, P=512)[
+            "bytes"] != K.fma_panel_smem_bytes(512, 64)
+
+    @pytest.mark.parametrize("blocks", [(128, 128, 64), (64, 64, 8),
+                                        (32, 32, 8), (128, 64, 32)])
+    def test_the_f32_launch_refuses_pairs_it_lacks(self, blocks):
+        with pytest.raises(ValueError, match="FMA"):
+            K._kernel_tile(*blocks, "matmul_cuda", table=K.F32_BLOCKS)
+        if blocks[0] == blocks[1]:
+            with pytest.raises(KeyError):
+                K.smem_footprint(blocks)
+
+    @pytest.mark.parametrize("itemsize,edge", [(4, 704), (8, 320)])
+    def test_the_demotion_edge(self, itemsize, edge):
+        """At the chain's 64-wide tile the panel tier ends where a 64-row
+        panel and K3's ring outgrow a block's shared memory."""
+        taking_k3 = [p for p in range(256, 2048, 64)
+                     if p * p * itemsize > K.SQUARE_SMEM_LIMIT
+                     and K._resolve_tier(p, itemsize, 64, 64, 32,
+                                         K.SQUARE_SMEM_LIMIT,
+                                         K.SQUARE_PANEL_LIMIT) == "panel"]
+        assert max(taking_k3) == edge
+        assert K.panel_smem_footprint(edge, 64, 64, itemsize) \
+            <= K.SMEM_PER_BLOCK \
+            < K.panel_smem_footprint(edge + 64, 64, 64, itemsize)
+
+
+def _panel_load(p, batch, height, groups):
+    """Output on the busiest SM of a K3 grid: blocks per SM times a block's
+    column tiles times a tile's area."""
+    width = K.panel_width(p)
+    blocks = groups * (p // height) * batch
+    return (-(-blocks // K.SM_COUNT) * -(-(p // width) // groups)
+            * height * width)
+
+
+PANEL_GRID_CASES = [
+    pytest.param(p, tile, id=f"{p}-tile{tile}")
+    for p in PANEL_SIZES for tile in K.KERNEL_TILES if p % tile == 0]
+
+
+class TestPanelGrid:
+    """K3 in f32 / f64 picks its own panel height and grid
+    (``square_panel_grid``), the same function on the kernel route and in
+    the plain version's bookkeeping (``last_launch``)."""
+
+    def test_512_uses_at_least_128_blocks(self):
+        assert K.square_panel_grid(512, 1, torch.float32, 64) == (32, 64, 8)
+        a = torch.from_numpy(randn((512, 512), 44, 0.05))
+        K.square_cuda(a, block_m=64, block_n=64, block_k=32)
+        assert K.last_launch == dict(kernel="plain_square_panel", tile=32,
+                                     width=64, blocks=128, groups=8)
+
+    def test_the_panel_leaves_the_least_output_on_the_busiest_sm(self):
+        # the stacked chain's (64, 256, 256): 256 blocks of one 64-row panel
+        # that all fit the card at once (two per SM), not 512 blocks of 32
+        # rows in two waves -- the same output per SM
+        assert K.square_panel_grid(256, 64, torch.float32, 64) == (64, 64, 1)
+        # an odd stack: 132 blocks either way, the taller panel
+        assert K.square_panel_grid(128, 33, torch.float32, 64) == (64, 64, 2)
+        # f64 at 256^2: every 32 x 64 output tile its own block
+        assert K.square_panel_grid(256, 1, torch.float64, 64) == (32, 64, 4)
+        # never taller than the chain's tile; 32 wide where 64 does not divide
+        assert K.square_panel_grid(288, 1, torch.float32, 32) == (32, 32, 9)
+        assert K.square_panel_grid(512, 1, torch.float32, 128) == (32, 64, 8)
+
+    @pytest.mark.parametrize("batch", [1, 2, 7, 64])
+    @pytest.mark.parametrize("p,chain_tile", PANEL_GRID_CASES)
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+    def test_invariants(self, dtype, p, chain_tile, batch):
+        height, width, groups = K.square_panel_grid(p, batch, dtype,
+                                                    chain_tile)
+        assert (height, width) in K.FMA_PANELS
+        assert width == K.panel_width(p) and p % width == 0
+        assert height <= chain_tile and p % height == 0
+        assert 1 <= groups <= p // width
+        assert _panel_load(p, batch, height, groups) == min(
+            _panel_load(p, batch, h, g)
+            for h in (32, 64) if h <= chain_tile and p % h == 0
+            for g in range(1, p // width + 1))
+
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+    def test_16_bit_keeps_the_chain_tile(self, dtype):
+        assert K.square_panel_grid(1024, 1, dtype, 64) == (64, 64, 9)
+        a = torch.from_numpy(randn((256, 256), 45, 0.1)).to(dtype)
+        K.square_cuda(a, block_m=64, block_n=64, block_k=64, smem_limit=0)
+        assert K.last_launch == dict(kernel="plain_square_panel", tile=64,
+                                     width=64, blocks=16, groups=4)
+
+    def test_stacked_plain_route_records_the_grid(self):
+        a = torch.from_numpy(randn((64, 256, 256), 46, 0.1))
+        K.square_cuda(a, block_m=64, block_n=64, block_k=32)
+        assert K.last_launch == dict(kernel="plain_square_panel", tile=64,
+                                     width=64, blocks=256, groups=1)
+        b = torch.from_numpy(randn((3, 256, 256), 47, 0.1)).double()
+        K.square_cuda(b, block_m=64, block_n=64, block_k=32, smem_limit=0)
+        assert K.last_launch == dict(kernel="plain_square_panel", tile=32,
+                                     width=64, blocks=3 * 8 * 4, groups=4)
+
+    def test_no_panel_height_divides_raises(self):
+        with pytest.raises(ValueError, match="divides"):
+            K.square_panel_grid(48, 1, torch.float32, 32)
 
 
 class TestLaunchCounters:

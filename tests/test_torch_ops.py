@@ -51,6 +51,14 @@ class TestPickBlocks:
 
     @pytest.mark.parametrize("n", [1, 7, 32, 33, 96, 200, 1000, 1536, 3000,
                                    4096])
+    def test_f32_picks_an_instantiated_pair(self, n):
+        bm, bn, bk = ops.pick_blocks(n, n, n, dtype=torch.float32)
+        assert bm == bn and (bm, bk) in K.F32_BLOCKS and bm % bk == 0
+        assert K.smem_footprint((bm, bn, bk)) <= ops.SMEM_BUDGET
+        assert K.F32_STAGES[(bm, bk)] >= 2
+
+    @pytest.mark.parametrize("n", [1, 7, 32, 33, 96, 200, 1000, 1536, 3000,
+                                   4096])
     def test_f64_picks_an_instantiated_dmma_pair(self, n):
         bm, bn, bk = ops.pick_blocks(n, n, n, dtype=torch.float64)
         assert bm == bn and (bm, bk) in K.DMMA_BLOCKS and bm % bk == 0
@@ -89,10 +97,16 @@ class TestPickBlocks:
 
     def test_budget_shrinks_the_k_step(self, monkeypatch):
         roomy = ops.pick_blocks(4096, 4096, 4096)
-        monkeypatch.setattr(ops, "SMEM_BUDGET", 12_000)
+        # between the rings of the 128-wide tile's two K steps
+        budget = K.fma_smem_bytes(128, 16)
+        assert budget < K.fma_smem_bytes(128, 32)
+        monkeypatch.setattr(ops, "SMEM_BUDGET", budget)
         tight = ops.pick_blocks(4096, 4096, 4096)
         assert tight[:2] == roomy[:2] and tight[2] < roomy[2]
-        assert K.smem_footprint(tight) <= 12_000
+        assert K.smem_footprint(tight) <= budget
+        # below every ring of the tile: the smallest one, never a raise
+        monkeypatch.setattr(ops, "SMEM_BUDGET", 12_000)
+        assert ops.pick_blocks(4096, 4096, 4096) == tight
 
     @pytest.mark.parametrize("n,padded", [(1000, 1024), (3000, 3072),
                                           (4096, 4096), (96, 128), (200, 256),

@@ -187,10 +187,14 @@ class TestBuildLayout:
         assert {"matmul_f32.cu", "matmul_f64.cu", "matmul_f16.cu",
                 "matmul_bf16.cu"} <= names
         src = (PKG / "kernels" / "csrc" / "gemm.cuh").read_text()
-        for kernel in ("matmul_kernel", "square_whole_kernel",
-                       "square_panel_kernel"):
-            assert f"__global__ void __launch_bounds__(kThreads)\n{kernel}(" \
-                in src
+        # K1 and K3 ask for registers that let two blocks share an SM
+        for kernel, bounds in (("matmul_kernel",
+                                "MatmulLayout<TILE>::L::THREADS, 2"),
+                               ("square_whole_kernel", "kThreads"),
+                               ("square_panel_kernel",
+                                "kThreads, kPanelMinBlocks<T>")):
+            assert f"__global__ void __launch_bounds__({bounds})\n" \
+                f"{kernel}(" in src
         assert "torch/" not in src and "ATen" not in src   # plain C interface
         assert {"attention.cuh", "attention_tc.cuh", "attention_f32.cu",
                 "attention_f64.cu", "attention_f16.cu",
