@@ -6,10 +6,11 @@
 builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (first use),
 holds every kernel against its plain PyTorch version on the card — the FMA
 kernels of ``gemm.cuh`` (K1 in f32 at every instantiated (tile, K step,
-stages), K2 / K3 in f32 / f64, K3 on the grid of its own rule), the tensor-core
+stages), K2 / K3 in f32, K3 on the grid of its own rule), the tensor-core
 K1–K3 of ``gemm_tc.cuh`` in bf16 / f16 at every instantiated tile and
-output type, the fp64 tensor-core K1 of ``gemm_dmma.cuh`` at every
-instantiated (tile, K step) — then runs the slices end to end —
+output type, the fp64 tensor-core K1–K3 of ``gemm_dmma.cuh`` (K1 at every
+instantiated (tile, K step), K2 / K3 on the grids of their own rules) —
+then runs the slices end to end —
 ``matpow_binary(a, 96, backend="cuda_chain")`` at n = 4096 (f32, bf16, f16,
 f64) and in every squaring tier, the other matpow entry points, the
 stacked chain and ``expm`` against float64 references; ``ops.attention``
@@ -19,6 +20,7 @@ its combine kernel at decode shapes) at the widths of Qwen3-1.7B and
 Mixtral-8x7B against its plain version, with
 ``scaled_dot_product_attention`` timed beside it; and the tuning cache:
 measured sweeps recorded and then used by ``ops.attention`` and by an A^96
+chain, and the f64 squaring tiers measured and then used by an f64 A^96
 chain. Each phase prints one JSON line; any
 failure raises and the script exits non-zero without the final
 ``"ok": true`` line. It needs a CUDA device and ``nvcc``; it imports
@@ -73,8 +75,10 @@ SOURCES = {"matmul": "src/repro_torch/kernels/csrc/gemm.cuh",
            "matmul_dmma": "src/repro_torch/kernels/csrc/gemm_dmma.cuh",
            "square_whole": "src/repro_torch/kernels/csrc/gemm.cuh",
            "square_whole_tc": "src/repro_torch/kernels/csrc/gemm_tc.cuh",
+           "square_whole_dmma": "src/repro_torch/kernels/csrc/gemm_dmma.cuh",
            "square_panel": "src/repro_torch/kernels/csrc/gemm.cuh",
            "square_panel_tc": "src/repro_torch/kernels/csrc/gemm_tc.cuh",
+           "square_panel_dmma": "src/repro_torch/kernels/csrc/gemm_dmma.cuh",
            "flash_attention": "src/repro_torch/kernels/csrc/attention.cuh",
            "flash_attention_tc":
                "src/repro_torch/kernels/csrc/attention_tc.cuh",
@@ -84,8 +88,10 @@ REPLACES = {"matmul": "src/repro/kernels/matmul.py:111",
             "matmul_dmma": "src/repro/kernels/matmul.py:111",
             "square_whole": "src/repro/kernels/matmul.py:275",
             "square_whole_tc": "src/repro/kernels/matmul.py:275",
+            "square_whole_dmma": "src/repro/kernels/matmul.py:275",
             "square_panel": "src/repro/kernels/matmul.py:287",
             "square_panel_tc": "src/repro/kernels/matmul.py:287",
+            "square_panel_dmma": "src/repro/kernels/matmul.py:287",
             "flash_attention": "src/repro/kernels/attention.py:155",
             "flash_attention_tc": "src/repro/kernels/attention.py:155",
             "attn_combine": "src/repro/kernels/attention.py:155"}
@@ -98,7 +104,8 @@ KERNEL_ROWS = (("matmul", "float32"), ("matmul_tc", "bfloat16"),
                ("square_whole_tc", "float16"),
                ("square_panel", "float32"), ("square_panel_tc", "bfloat16"),
                ("square_panel_tc", "float16"),
-               ("square_whole", "float64"), ("square_panel", "float64"),
+               ("square_whole_dmma", "float64"),
+               ("square_panel_dmma", "float64"),
                ("flash_attention_tc", "bfloat16"),
                ("flash_attention", "float32"), ("attn_combine", "bfloat16"))
 DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.float64)
@@ -353,9 +360,10 @@ def phase_kernels() -> dict:
     """K1, K2, K3 — 2-D and stacked — against their plain versions on the
     card, for f32, bf16, f16 and f64 (the 16-bit K1 and K3, the f64 K1 and
     the f32 K1 at every instantiated (tile, K step) and both output types;
-    the 16-bit K2 at both output types; K2 f32 / f64 at the tiles 32 and 64
-    its grid rule picks; K3 f32 / f64 on the panel heights and grids its
-    rule picks); timed at the main path's shapes."""
+    the 16-bit K2 at both output types; K2 f32 at the tiles 32 and 64 its
+    grid rule picks, K2 f64 on its own tiles and grids; K3 f32 / f64 on the
+    panel heights and grids their rules pick); timed at the main path's
+    shapes."""
     rows = []
     for dtype in DTYPES:
         if dtype in SIXTEEN_BIT:
@@ -384,17 +392,22 @@ def phase_kernels() -> dict:
         kernel_case("matmul", dtype, (a, b3), stacked, timed=False,
                     rows=rows)
         # whole-operand tier: the operand must fit a block's shared memory;
-        # K2 picks its tile (32 for one matrix, 64 for the two stacks)
+        # K2 picks its tile (32 for one matrix, 64 for the two stacks; f64
+        # 16 for one matrix, up to the tier's largest operand, 160^2)
         p_whole = 128 if dtype == torch.float64 else 192
         shapes = [(p_whole, p_whole), (32, 128, 128), (33, 128, 128)]
         if dtype in SIXTEEN_BIT:
             shapes.append((256, 256))
+        if dtype == torch.float64:
+            shapes.append((160, 160))
         for i, shape in enumerate(shapes):
             a = randn(shape, dtype, 5 + i)
+            blocks = ops._square_blocks(shape[-1], dtype)[0]
+            if shape[-1] % blocks[0]:
+                blocks = (32, 32, 16)
             for out in (None, torch.float32) if dtype in SIXTEEN_BIT \
                     else (None,):
-                kernel_case("square_whole", dtype, (a,),
-                            ops._square_blocks(shape[-1], dtype)[0],
+                kernel_case("square_whole", dtype, (a,), blocks,
                             timed=False, rows=rows, out_dtype=out)
         # panel tier
         p_panel = 256 if dtype == torch.float64 else 512
@@ -415,6 +428,11 @@ def phase_kernels() -> dict:
             kernel_case("square_panel", dtype,
                         (randn((3, 288, 288), dtype, 9),),
                         (32, 32, 16), timed=False, rows=rows, smem_limit=0)
+        if dtype == torch.float64:
+            # the f64 panel tier's last size at the chain's tile
+            kernel_case("square_panel", dtype,
+                        (randn((384, 384), dtype, 9),), stacked,
+                        timed=False, rows=rows, smem_limit=0)
 
     # The main path's own shapes, timed: the n = 4096 chain runs K1 for its
     # squarings and its combine (f64 on DMMA); n = 192 f32, n = 256 bf16
@@ -482,14 +500,21 @@ def phase_kernels() -> dict:
              width=row["width"], grid_blocks=row["grid_blocks"],
              groups=row["groups"], ms=row["ms"], k1_ms=row["two_operand_ms"],
              library_ms=row["library_ms"], bound_ms=row["bound_ms"])
-    # K2 and K3 in f64, on the FMA pipeline, at their tiers' main-path sizes
-    # (the n = 128 f64 request squares in K2; K3 takes n = 192 .. 320).
+    # K2 and K3 in f64, on the fp64 tensor cores, at their tiers'
+    # main-path sizes (the n = 128 f64 request squares in K2, n = 256 in
+    # K3), each beside K1 on the same operand (``two_operand_ms``).
     for name, n in (("square_whole", 128), ("square_panel", 256)):
         a = randn((n, n), torch.float64, 15)
         row = kernel_case(name, torch.float64, (a,),
                           ops._square_blocks(n, torch.float64)[0],
                           timed=True, rows=rows)
         timed[(row["name"], row["dtype"])] = row
+        emit("k2_grid" if name == "square_whole" else "k3_grid",
+             kernel=row["name"], dtype=row["dtype"], shape=row["shape"],
+             tile=row["tile"], width=row["width"],
+             grid_blocks=row["grid_blocks"], groups=row["groups"],
+             ms=row["ms"], two_operand_ms=row["two_operand_ms"],
+             library_ms=row["library_ms"], bound_ms=row["bound_ms"])
     emit("kernels", kernels=sorted(f"{k} {d}" for k, d in timed),
          cases=len(rows), rows=rows)
     return timed
@@ -553,6 +578,7 @@ def phase_matpow() -> tuple:
         matpow_case(256, torch.bfloat16, "whole", 26),
         matpow_case(4096, torch.float64, "two_operand", 28),
         matpow_case(128, torch.float64, "whole", 29),
+        matpow_case(256, torch.float64, "panel", 31),
     ]
     counts = K.launch_counts()
     for name in K.KERNELS:
@@ -905,6 +931,11 @@ def phase_tuning() -> None:
                                  use_cache=False)
     mm_tc = autotune.sweep(4096, 4096, 4096, torch.bfloat16)
     tiers_tc = autotune.sweep_square_tiers(torch.bfloat16)
+    # And for f64: K2 against K3 at 128^2, K3 against K1 at 256^2 (the
+    # fp64 tensor-core kernels all three), then an A^96 f64 request on the
+    # recorded limits.
+    tiers_f64 = autotune.sweep_square_tiers(torch.float64)
+    f64_chain = f64_tuned_chain(tiers_f64)
 
     n = 512
     chain = ops.MatmulChain(n, torch.float32, device="cuda")
@@ -952,10 +983,42 @@ def phase_tuning() -> None:
                             "probes_us": autotune.load_cache()[
                                 "square_panel/tiers/bfloat16/cuda"][
                                 "probes_us"]},
+         square_tiers_f64={"default": list(autotune.DEFAULT_SQUARE_TIERS),
+                           "recorded": list(tiers_f64),
+                           "probes_us": autotune.load_cache()[
+                               "square_panel/tiers/float64/cuda"][
+                               "probes_us"],
+                           "chain": f64_chain},
          chain={"n": n, "blocks": list(chain.blocks),
                 "tiers": list(chain.tiers), "launches": launches,
                 "max_abs_err_vs_f64": abs_err, "rel_to_peak_vs_f64": rel_peak,
                 "rtol": rtol, "atol": atol})
+
+
+def f64_tuned_chain(tiers) -> dict:
+    """An A^96 f64 request at n = 256 on the squaring tiers just recorded:
+    the chain must take them, launch seven kernels of the tier they give
+    (no plain route) and hold ``error_budget(float64, n, 7)``."""
+    n = 256
+    chain = ops.MatmulChain(n, torch.float64, device="cuda")
+    if chain.tiers != tiers:
+        raise AssertionError(f"f64 chain took tiers {chain.tiers}; the cache "
+                             f"holds {tiers}")
+    a = power_operand(n, torch.float64, 62)
+    want = f64_power(a, POWER, what="tuned f64 chain")
+    K.reset_launches()
+    got = matpow_binary(a, POWER, backend="cuda_chain")
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in K.launch_counts().items() if v}
+    if sum(launches.values()) != MULTS or any(
+            k.startswith("plain_") for k in launches):
+        raise AssertionError(f"tuned f64 chain launches {launches}")
+    abs_err, rel_peak, rtol, atol = check_close(
+        got, want, torch.float64, n=n, mults=MULTS,
+        what=f"matpow_binary(n={n}, float64, p={POWER}) on tuned tiers")
+    return {"n": n, "tiers": list(chain.tiers), "launches": launches,
+            "max_abs_err_vs_f64": abs_err, "rel_to_peak_vs_f64": rel_peak,
+            "rtol": rtol, "atol": atol}
 
 
 def main() -> int:

@@ -1,7 +1,7 @@
 // Hand-written Hopper kernels for the matrix-power chain on the FMA pipeline.
 //
-// Three kernels, each a block of 256 threads whose threads own a register
-// micro-tile of the output, accumulated in fp32 (fp64 for fp64) with exact
+// Three kernels for f32 operands, each a block of 256 threads whose threads
+// own a register micro-tile of the output, accumulated in fp32 with exact
 // IEEE FMAs and stored once:
 //
 //   matmul_kernel        C = A @ B in f32. Replaces the reference's
@@ -12,14 +12,14 @@
 //                        this card run in any order and share nothing, so the
 //                        K loop sits inside the block and the accumulator
 //                        never leaves registers.
-//   square_whole_kernel  C = A @ A from ONE staged copy of A, f32 and f64.
+//   square_whole_kernel  C = A @ A from ONE staged copy of A, f32.
 //                        Replaces `square_kernel` (tier "whole" of
 //                        `square_pallas`). A is copied into the block's
 //                        dynamic shared memory once; the row panel and the
 //                        column panel of every output tile the block computes
 //                        are read from that single copy.
 //   square_panel_kernel  C = A @ A from an (H, P) row panel held in shared
-//                        memory, f32 and f64. Replaces `square_panel_kernel`
+//                        memory, f32. Replaces `square_panel_kernel`
 //                        (tier "panel"). The reference relies on a sequential
 //                        inner grid axis to stage the row panel once per row
 //                        of output tiles; here the loop over the block's
@@ -29,7 +29,7 @@
 //                        operands of this tier).
 //
 // For 16-bit inputs all three are the tensor-core kernels of gemm_tc.cuh,
-// and for fp64 K1 is the fp64 tensor-core kernel of gemm_dmma.cuh.
+// for fp64 the fp64 tensor-core kernels of gemm_dmma.cuh.
 //
 // What bounds them: operations, at every size the chain uses (a 4096^3
 // product is 137 GFLOP over 201 MB: 2.05 ms at the 67 TFLOP/s fp32 FMA rate
@@ -60,8 +60,7 @@
 //     whole output tile and a share of every K step, their sums added
 //     through shared memory at the end of a tile (PanelLayout): a 32 x 64
 //     tile is four slices of 64 threads, where one 2 x 4 tiling of all 256
-//     threads read 6 words per 32 FMAs. In f64 K3 keeps one slice and sums
-//     each output over k in order, bit for bit the library's result.
+//     threads read 6 words per 32 FMAs.
 //   * Warp tiles (FmaLayout). A warp's 32 lanes are 4 rows by 8 columns of
 //     threads and own one contiguous (4 R) x (8 C) block of the output:
 //     thread rows ly + 4 i, columns 8 V c + V lx. Bank arithmetic (4-byte
@@ -72,8 +71,7 @@
 //     or P + 4 (P a multiple of 32) those are {0, 4, 8, 12} or
 //     {0, 20, 8, 28} -- four disjoint groups of four banks. Without the pad
 //     every row would start on bank 0 and the four rows would conflict. B
-//     needs no pad. For fp64 (8-byte elements) the offsets are
-//     {0, 8, 16, 24} words: disjoint as well.
+//     needs no pad.
 //   * K3's grid is its own (kernels/matmul.py:square_panel_grid): a panel of
 //     32 or 64 rows and `groups` blocks per panel sharing its column tiles,
 //     chosen for the least output on the busiest SM, where the chain's
@@ -281,15 +279,15 @@ template <int TILE, int BK, int STAGES> struct FmaRing {
   static constexpr int BYTES = STAGES * STAGE;
 };
 
-// K3 (ELEM-byte elements): the [H][P + kPad] row panel, kPanelStages
-// stages of [kPanelBK][W] column tiles, and the partial sums of the K
-// slices past the first (PanelLayout).
-template <int H, int W, int ELEM> struct FmaPanel {
-  static constexpr int KS = ELEM == 8 ? 1 : kThreads / (2 * H);
-  static constexpr int STAGE = kPanelBK * W * ELEM;
-  static constexpr int SCRATCH = (KS - 1) * H * W * ELEM;
+// K3: the [H][P + kPad] row panel, kPanelStages stages of [kPanelBK][W]
+// column tiles, and the partial sums of the K slices past the first
+// (PanelLayout).
+template <int H, int W> struct FmaPanel {
+  static constexpr int KS = kThreads / (2 * H);
+  static constexpr int STAGE = kPanelBK * W * 4;
+  static constexpr int SCRATCH = (KS - 1) * H * W * 4;
   static size_t bytes(int P) {
-    return (size_t)H * (P + kPad) * ELEM + kPanelStages * STAGE + SCRATCH;
+    return (size_t)H * (P + kPad) * 4 + kPanelStages * STAGE + SCRATCH;
   }
 };
 
@@ -321,27 +319,16 @@ template <> struct MatmulLayout<128> { using L = FmaLayout<8, 8, 4, 2>; };
 template <> struct MatmulLayout<64> { using L = FmaLayout<4, 8, 4, 1>; };
 template <> struct MatmulLayout<32> { using L = FmaLayout<2, 4, 4, 1>; };
 
-// K3 in f32: the block's 256 threads are KS = 128 / H slices of 2 H
-// threads. Each slice is a 4 x (W / 8) thread tiling of the whole H x W
-// output tile over a 1 / KS share of every K step; at the end of a tile the
-// slices past the first add their sums into the first's through shared
-// memory.
-template <typename T, int H, int W> struct PanelLayout {
+// K3: the block's 256 threads are KS = 128 / H slices of 2 H threads. Each
+// slice is a 4 x (W / 8) thread tiling of the whole H x W output tile over a
+// 1 / KS share of every K step; at the end of a tile the slices past the
+// first add their sums into the first's through shared memory. Its
+// registers let two blocks share an SM.
+template <int H, int W> struct PanelLayout {
   static constexpr int R = 4, C = W / 8, SLICE = 2 * H;
   static constexpr int KS = kThreads / SLICE;
   using L = FmaLayout<R, C, H / 16, 1>;
 };
-
-// K3 in f64: one slice, (H / 16) x (W / 16) outputs a thread, each summed
-// over k in order -- the order of the fp64 tensor cores' fused multiply-adds
-// in the library, so K3 f64 stays bit for bit its plain version.
-template <int H, int W> struct PanelLayout<double, H, W> {
-  static constexpr int R = H / 16, C = W / 16, SLICE = kThreads, KS = 1;
-  using L = FmaLayout<R, C, 4, 2>;
-};
-
-// Registers: K3 in f32 lets two blocks share an SM; in f64 one block has it.
-template <typename T> constexpr int kPanelMinBlocks = sizeof(T) == 4 ? 2 : 1;
 
 // acc += A[rows, k0 : k0 + BK] @ B[k0 : k0 + BK, cols] for the thread's
 // outputs: `a` is its first row at k0 (its rows lie 4 * lda apart), `b` its
@@ -506,7 +493,7 @@ square_whole_kernel(const T* __restrict__ A, TOut* __restrict__ C, int P,
 }
 
 // ---------------------------------------------------------------------------
-// K3: C = A @ A, an (H, P) row panel staged once per block, f32 and f64
+// K3: C = A @ A, an (H, P) row panel staged once per block, f32
 // ---------------------------------------------------------------------------
 
 // Block (g, y, z) owns row panel y of matrix z and the column tiles g,
@@ -514,10 +501,11 @@ square_whole_kernel(const T* __restrict__ A, TOut* __restrict__ C, int P,
 // of steps -- (column tile t, K step kt) -- through one ring, so the next
 // tile's first steps are in flight while the last ones of a tile compute.
 template <typename T, int H, int W>
-__global__ void __launch_bounds__(kThreads, kPanelMinBlocks<T>)
+__global__ void __launch_bounds__(kThreads, 2)
 square_panel_kernel(const T* __restrict__ A, T* __restrict__ C, int P,
                     long long sA, long long sC) {
-  using PL = PanelLayout<T, H, W>;
+  static_assert(sizeof(T) == 4, "the FMA K3 is the f32 kernel");
+  using PL = PanelLayout<H, W>;
   constexpr int R = PL::R, CW = PL::C, KS = PL::KS, SLICE = PL::SLICE;
   constexpr int BK = kPanelBK, STAGES = kPanelStages;
   constexpr int KB = BK / KS;               // k of a step in one slice
@@ -656,7 +644,7 @@ template <typename T, int H, int W>
 static int launch_square_panel(const void* a, void* c, int P, long long sA,
                                long long sC, int batch, int groups,
                                cudaStream_t stream) {
-  const size_t smem = FmaPanel<H, W, static_cast<int>(sizeof(T))>::bytes(P);
+  const size_t smem = FmaPanel<H, W>::bytes(P);
   auto kernel = square_panel_kernel<T, H, W>;
   if (int err = allow_smem(kernel, smem)) return err;
   dim3 grid(groups, P / H, batch);
@@ -689,8 +677,7 @@ static int matmul_dispatch(const void* a, const void* b, void* c, int M, int N,
 }
 
 // K2: `out_acc` selects the output type, 0 the input type, 1 the
-// accumulation type (the same for f32 and f64); `tile` is the square output
-// tile.
+// accumulation type (the same for f32); `tile` is the square output tile.
 template <typename T>
 static int square_whole_dispatch(const void* a, void* c, int P, int tile,
                                  long long sA, long long sC, int batch,
@@ -737,12 +724,19 @@ static int square_panel_dispatch(const void* a, void* c, int P, int tile,
 // One translation unit per element type (they compile in parallel) expands
 // this once: REPRO_DEFINE_C_API(f32, float) defines repro_matmul_f32,
 // repro_square_whole_f32 and repro_square_panel_f32. The 16-bit units take
-// all three from gemm_tc.cuh; the fp64 unit takes K1 from gemm_dmma.cuh and
-// K2 / K3 from here (REPRO_DEFINE_SQUARE_API). A squaring's `tile` and
-// `width` are the panel height and column width of K3's output tiles, or
-// K2's square tile; K3 ignores `bk` (its ring's K step is kPanelBK) and
-// `out_acc`, K1 `out_acc`.
-#define REPRO_DEFINE_SQUARE_API(SUFFIX, TYPE)                                 \
+// all three from gemm_tc.cuh, the fp64 unit from gemm_dmma.cuh. A squaring's
+// `tile` and `width` are the panel height and column width of K3's output
+// tiles, or K2's square tile; K3 ignores `bk` (its ring's K step is
+// kPanelBK) and `out_acc`, K1 `out_acc`.
+#define REPRO_DEFINE_C_API(SUFFIX, TYPE)                                      \
+  extern "C" int repro_matmul_##SUFFIX(                                       \
+      const void* a, const void* b, void* c, int M, int N, int K, int tile,  \
+      int bk, long long sA, long long sB, long long sC, int batch,           \
+      int out_acc, void* stream) {                                            \
+    (void)out_acc;                                                            \
+    return repro::matmul_dispatch<TYPE>(a, b, c, M, N, K, tile, bk, sA, sB,  \
+                                        sC, batch, stream);                   \
+  }                                                                           \
   extern "C" int repro_square_whole_##SUFFIX(                                 \
       const void* a, void* c, int P, int tile, long long sA, long long sC,   \
       int batch, int groups, int out_acc, void* stream) {                     \
@@ -758,14 +752,3 @@ static int square_panel_dispatch(const void* a, void* c, int P, int tile,
     return repro::square_panel_dispatch<TYPE>(a, c, P, tile, width, sA, sC,  \
                                               batch, groups, stream);         \
   }
-
-#define REPRO_DEFINE_C_API(SUFFIX, TYPE)                                      \
-  extern "C" int repro_matmul_##SUFFIX(                                       \
-      const void* a, const void* b, void* c, int M, int N, int K, int tile,  \
-      int bk, long long sA, long long sB, long long sC, int batch,           \
-      int out_acc, void* stream) {                                            \
-    (void)out_acc;                                                            \
-    return repro::matmul_dispatch<TYPE>(a, b, c, M, N, K, tile, bk, sA, sB,  \
-                                        sC, batch, stream);                   \
-  }                                                                           \
-  REPRO_DEFINE_SQUARE_API(SUFFIX, TYPE)

@@ -16,9 +16,10 @@ the ``F32_BLOCKS`` pairs, K3 picks its own panel height and grid,
 f16 all three are the tensor-core kernels of ``csrc/gemm_tc.cuh`` (K1 and K3
 ``wgmma`` fed by a TMA ring, ``mma.sync`` at tile 32; K2 ``mma.sync`` on A
 staged by TMA), counted under ``matmul_tc`` / ``square_whole_tc`` /
-``square_panel_tc``. For f64, K1 is the fp64 tensor-core kernel of
-``csrc/gemm_dmma.cuh`` (counted under ``matmul_dmma``) and K2 / K3 stay on
-``gemm.cuh`` (K3 on the same templates and grid rule as f32). The stacked
+``square_panel_tc``. For f64 all three are the fp64 tensor-core (DMMA)
+kernels of ``csrc/gemm_dmma.cuh``, counted under ``matmul_dmma`` /
+``square_whole_dmma`` / ``square_panel_dmma``; K2 and K3 pick their own
+tiles and grids there too. The stacked
 ``(B, ., .)`` form of each is the same kernel with the stack on a grid axis
 — one launch for the stack (the reference's ``jax.vmap``).
 
@@ -44,6 +45,8 @@ chain executors pad arbitrary shapes.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch import accum_dtype, dtype_name
@@ -54,12 +57,14 @@ __all__ = ["matmul_cuda", "matmul_plain", "square_cuda", "square_plain",
            "square_tier", "square_whole_grid", "square_panel_grid",
            "panel_width", "panel_smem_footprint", "smem_footprint",
            "fma_smem_bytes", "fma_panel_smem_bytes", "tc_smem_bytes",
-           "dmma_smem_bytes", "whole_tc_smem_bytes", "kernel_name",
+           "dmma_smem_bytes", "whole_tc_smem_bytes", "whole_dmma_smem_bytes",
+           "dmma_panel_smem_bytes", "dmma_panel_ring", "kernel_name",
            "DEFAULT_BLOCK", "KERNEL_TILES", "SMEM_PER_BLOCK", "SMEM_PER_SM",
            "L2_BYTES", "SM_COUNT", "F32_BLOCKS", "F32_STAGES", "FMA_PANELS",
            "FMA_PANEL_BK", "FMA_PANEL_STAGES", "TC_BLOCKS", "TC_DEFAULT_BK",
-           "DMMA_BLOCKS", "DMMA_STAGES", "DMMA_TILES",
-           "WHOLE_TC_TILES", "KERNELS",
+           "DMMA_BLOCKS", "DMMA_STAGES", "DMMA_TILES", "DMMA_PANELS",
+           "DMMA_PANEL_RINGS",
+           "WHOLE_TC_TILES", "WHOLE_DMMA_TILES", "KERNELS",
            "SQUARE_SMEM_LIMIT", "SQUARE_PANEL_LIMIT", "LAUNCHES",
            "last_launch", "reset_launches", "launch_counts"]
 
@@ -88,7 +93,7 @@ KERNEL_TILES = (32, 64, 128)
 F32_STAGES = {(32, 16): 4, (32, 32): 3, (64, 16): 4, (64, 32): 2,
               (128, 16): 4, (128, 32): 3}
 F32_BLOCKS = tuple(F32_STAGES)
-#: (panel height, column width) pairs the FMA K3 (f32, f64) is instantiated
+#: (panel height, column width) pairs the f32 FMA K3 is instantiated
 #: for (the ``REPRO_FMA_PANEL`` lines of csrc/gemm.cuh), and the K step and
 #: stages of the ring its column tiles stream through (``kPanelBK``,
 #: ``kPanelStages``; ``fma_panel_smem_bytes``).
@@ -127,6 +132,32 @@ DMMA_BLOCKS = tuple(DMMA_STAGES)
 #: The output tiles among them, smallest first.
 DMMA_TILES = tuple(sorted({t for t, _ in DMMA_BLOCKS}))
 DMMA_PAD = 4
+#: Output tiles the fp64 K2 is instantiated for (the ``REPRO_WHOLE_DMMA``
+#: lines of csrc/gemm_dmma.cuh), the side of the boxes it stages A in
+#: (``kBox``) and the bytes it keeps for the K slices' partial sums
+#: (``kWholeRed``; ``whole_dmma_smem_bytes``).
+WHOLE_DMMA_TILES = (16, 32, 64)
+DMMA_BOX = 16
+WHOLE_DMMA_RED = 32 * (32 + DMMA_PAD) * 8
+#: (panel height, column width, K step) rings the fp64 K3 is instantiated
+#: for, and the stages of each (the ``REPRO_DMMA_PANEL`` lines of
+#: csrc/gemm_dmma.cuh; ``dmma_panel_ring``, ``dmma_panel_smem_bytes``), and
+#: the (height, width) pairs among them: one width per height.
+DMMA_PANEL_RINGS = {(16, 32, 64): 3, (16, 32, 32): 4, (32, 32, 64): 2,
+                    (32, 32, 32): 3, (64, 64, 16): 3}
+DMMA_PANELS = tuple(sorted({(h, w) for h, w, _ in DMMA_PANEL_RINGS}))
+#: Warps of a K2 / K3 block of gemm_dmma.cuh (``kSquareWarps``).
+DMMA_SQUARE_WARPS = 4
+#: The fp64 K2 / K3 grid rules' model of a block on its SM (``_dmma_cost``),
+#: fitted to ``tools/sweep_dmma_squares.py``'s timings of K3 grids on an
+#: NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6): each K step a block
+#: waits through costs ``DMMA_STEP_NS``, each byte it copies from L2 into
+#: shared memory 1 / ``DMMA_BLOCK_GBPS`` ns (blocks resident on one SM copy
+#: side by side), and each flop 1 / ``DMMA_SM_GFLOPS`` ns of its SM's fp64
+#: tensor cores, which those blocks share.
+DMMA_STEP_NS = 330
+DMMA_BLOCK_GBPS = 71
+DMMA_SM_GFLOPS = 400
 
 # Default tile: 128 x 128 output tile per 256-thread block (an 8 x 8
 # register micro-tile per thread, 256 FMAs for sixteen 16-byte shared
@@ -151,12 +182,13 @@ SQUARE_PANEL_LIMIT = L2_BYTES // 2
 
 #: The kernels, by the name their launches are counted under.
 KERNELS = ("matmul", "matmul_tc", "matmul_dmma", "square_whole",
-           "square_whole_tc", "square_panel", "square_panel_tc")
+           "square_whole_tc", "square_whole_dmma", "square_panel",
+           "square_panel_tc", "square_panel_dmma")
 
 #: Launches per kernel since the last ``reset_launches()``. The kernel
 #: wrappers add one where they launch (``KERNELS``: the ``_tc`` names are
-#: the 16-bit tensor-core K1–K3, ``matmul_dmma`` the fp64 tensor-core K1);
-#: the plain versions add one under ``plain_<name>``.
+#: the 16-bit tensor-core K1–K3, the ``_dmma`` names the fp64 tensor-core
+#: K1–K3); the plain versions add one under ``plain_<name>``.
 LAUNCHES = {**{name: 0 for name in KERNELS},
             "plain_matmul": 0, "plain_square_whole": 0,
             "plain_square_panel": 0}
@@ -170,14 +202,14 @@ last_launch: dict = {}
 def kernel_name(op: str, dtype) -> str:
     """The counter of ``KERNELS`` that a launch of ``op`` — ``"matmul"``
     (K1), ``"square_whole"`` (K2) or ``"square_panel"`` (K3) — on ``dtype``
-    operands goes to: bf16 / f16 run the tensor-core kernels (``_tc``), K1
-    of f64 the fp64 tensor-core kernel (``matmul_dmma``)."""
+    operands goes to: bf16 / f16 run the tensor-core kernels (``_tc``), f64
+    the fp64 tensor-core kernels (``_dmma``), f32 the FMA kernels."""
     if op not in ("matmul", "square_whole", "square_panel"):
         raise ValueError(f"no kernel for op {op!r}")
     if dtype in (torch.float16, torch.bfloat16):
         return op + "_tc"
-    if dtype == torch.float64 and op == "matmul":
-        return "matmul_dmma"
+    if dtype == torch.float64:
+        return op + "_dmma"
     return op
 
 
@@ -250,6 +282,53 @@ def whole_tc_smem_bytes(p: int) -> int:
         WHOLE_TC_BOX * WHOLE_TC_BOX * 2 + TC_BARRIER)
 
 
+def whole_dmma_smem_bytes(p: int) -> int:
+    """Dynamic shared-memory bytes the fp64 K2 asks for over a ``(p, p)``
+    operand: the ``DmmaWhole`` formula of csrc/gemm_dmma.cuh (a test
+    evaluates it against this one) — the image of A, rows padded by
+    ``DMMA_PAD``, and ``WHOLE_DMMA_RED`` for the partial sums of every
+    instantiated tile."""
+    return p * (p + DMMA_PAD) * 8 + WHOLE_DMMA_RED
+
+
+def dmma_slices(tm: int, tn: int) -> int:
+    """K slices of an fp64 K2 / K3 block over a ``tm`` x ``tn`` output tile
+    (``SquareWarps::KS`` of csrc/gemm_dmma.cuh): the block's warps that the
+    output's warp tiles, 16 (32 at 64 rows) by at most 32, leave over."""
+    wm = 16 if tm < 64 else 32
+    return DMMA_SQUARE_WARPS // (tm // wm * (tn // min(tn, 32)))
+
+
+def dmma_panel_ring(p: int, height: int) -> tuple:
+    """(width, K step, stages) of the fp64 K3's launch over a ``(p, p)``
+    operand with a panel of ``height`` rows: the ``DMMA_PANEL_RINGS`` entry
+    of that height with the deepest K step that divides ``p`` (the
+    shallowest where none does: such a ``p`` is not a multiple of the
+    chain's tile, and ``square_cuda`` refuses it). A height without a pair
+    raises ``KeyError``."""
+    rings = sorted(((p % bk == 0, bk, w, st)
+                    for (h, w, bk), st in DMMA_PANEL_RINGS.items()
+                    if h == height), reverse=True)
+    if not rings:
+        raise KeyError(f"no fp64 K3 ring of height {height}: "
+                       f"{DMMA_PANEL_RINGS}")
+    _, block_k, width, stages = rings[0] if rings[0][0] else rings[-1]
+    return width, block_k, stages
+
+
+def dmma_panel_smem_bytes(p: int, height: int) -> int:
+    """Dynamic shared-memory bytes the fp64 K3 asks for over a ``(p, p)``
+    operand with a panel of ``height`` rows: the ``DmmaPanel`` formula of
+    csrc/gemm_dmma.cuh (a test evaluates it against this one) at
+    ``dmma_panel_ring``'s ring — the row panel, rows padded by
+    ``DMMA_PAD``; the ring's stages of [K step x width] column tiles,
+    padded alike; and the partial sums of its K slices past the first."""
+    width, block_k, stages = dmma_panel_ring(p, height)
+    red = (dmma_slices(height, width) - 1) * height * (width + DMMA_PAD) * 8
+    return (height * (p + DMMA_PAD) * 8
+            + stages * block_k * (width + DMMA_PAD) * 8 + red)
+
+
 def fma_smem_bytes(tile: int, block_k: int) -> int:
     """Dynamic shared-memory bytes the f32 FMA K1 asks for at a square
     ``tile`` and K step ``block_k``: the ``FmaRing`` formula of
@@ -267,20 +346,19 @@ def panel_width(p: int) -> int:
     return 64 if p % 64 == 0 else 32
 
 
-def fma_panel_smem_bytes(p: int, height: int, itemsize: int = 4) -> int:
-    """Dynamic shared-memory bytes the FMA K3 (f32, f64) asks for over a
-    ``(p, p)`` operand with a panel of ``height`` rows: the ``FmaPanel``
-    formula of csrc/gemm.cuh — the row panel, rows padded by ``SMEM_PAD``;
+def fma_panel_smem_bytes(p: int, height: int) -> int:
+    """Dynamic shared-memory bytes the f32 FMA K3 asks for over a ``(p, p)``
+    operand with a panel of ``height`` rows: the ``FmaPanel`` formula of
+    csrc/gemm.cuh — the row panel, rows padded by ``SMEM_PAD``;
     ``FMA_PANEL_STAGES`` stages of [``FMA_PANEL_BK`` x ``panel_width(p)``]
-    column tiles; and, in f32, the partial sums of the block's K slices
-    past the first (its ``FMA_THREADS`` are slices of ``2 * height``
-    threads, each over the whole output tile; f64 sums over k in one
-    slice)."""
+    column tiles; and the partial sums of the block's K slices past the
+    first (its ``FMA_THREADS`` are slices of ``2 * height`` threads, each
+    over the whole output tile)."""
     width = panel_width(p)
-    slices = 1 if itemsize == 8 else FMA_THREADS // (2 * height)
-    return (height * (p + SMEM_PAD) * itemsize
-            + FMA_PANEL_STAGES * FMA_PANEL_BK * width * itemsize
-            + (slices - 1) * height * width * itemsize)
+    slices = FMA_THREADS // (2 * height)
+    return (height * (p + SMEM_PAD) * 4
+            + FMA_PANEL_STAGES * FMA_PANEL_BK * width * 4
+            + (slices - 1) * height * width * 4)
 
 
 def smem_footprint(blocks, itemsize: int = 4) -> int:
@@ -301,13 +379,24 @@ def panel_smem_footprint(p: int, block_m: int, block_n: int,
                          block_k: int = DEFAULT_BLOCK[2]) -> int:
     """Dynamic shared-memory bytes of a panel-tier block whose row panel is
     ``block_m`` rows: for 16-bit ``tc_smem_bytes`` (the chain's tile and K
-    step), for f32 / f64 ``fma_panel_smem_bytes`` (its own ring; ``block_n``
-    and ``block_k`` do not enter). The panel tier is usable only when this
-    fits ``SMEM_PER_BLOCK`` at the chain's tile — ``square_cuda`` demotes to
-    the two-operand kernel otherwise."""
+    step), for f32 ``fma_panel_smem_bytes``, for f64
+    ``dmma_panel_smem_bytes`` at the tallest ``DMMA_PANELS`` height no
+    taller than ``block_m`` (each on its own ring; ``block_n`` and
+    ``block_k`` do not enter). The panel tier is usable only when this fits
+    ``SMEM_PER_BLOCK`` at the chain's tile — ``square_cuda`` demotes to the
+    two-operand kernel otherwise."""
     if itemsize == 2:
         return tc_smem_bytes(block_m, block_k, p)
-    return fma_panel_smem_bytes(p, block_m, itemsize)
+    if itemsize == 8:
+        return dmma_panel_smem_bytes(p, _dmma_panel_height(block_m))
+    return fma_panel_smem_bytes(p, block_m)
+
+
+def _dmma_panel_height(block_m: int) -> int:
+    """The tallest fp64 K3 panel height no taller than ``block_m`` (the
+    shortest where none is)."""
+    heights = sorted(h for h, _ in DMMA_PANELS)
+    return max((h for h in heights if h <= block_m), default=heights[0])
 
 
 def square_tier(operand_bytes: int, smem_limit: int = SQUARE_SMEM_LIMIT,
@@ -406,8 +495,9 @@ def _groups(shared_tiles: int, independent_blocks: int) -> int:
 def square_whole_grid(p: int, batch: int, dtype) -> tuple:
     """(output tile, groups) of a whole-operand squaring (K2) of a ``(p, p)``
     operand, or a stack of ``batch`` of them, chosen by K2 itself whatever
-    the chain's tile. For each of its tiles that divides ``p``
-    (``WHOLE_TC_TILES`` for bf16 / f16, ``KERNEL_TILES`` else), ``_groups``
+    the chain's tile. f64 (the DMMA K2): ``_dmma_whole_grid``. Else, for
+    each of its tiles that divides ``p``
+    (``WHOLE_TC_TILES`` for bf16 / f16, ``KERNEL_TILES`` for f32), ``_groups``
     blocks share each matrix's tiles; the tile taken is the one whose
     busiest SM has the least output to compute — waves of ``SM_COUNT``
     blocks times the tiles of a block times a tile's area — the larger on a
@@ -416,6 +506,8 @@ def square_whole_grid(p: int, batch: int, dtype) -> tuple:
     instead of 9), and a stack of 32 of 128² 64-wide ones (128 blocks of
     one tile, not 160 of four). ``p`` is a multiple of the chain's tile, so
     of 32."""
+    if dtype == torch.float64:
+        return _dmma_whole_grid(p, batch)
     tiles = WHOLE_TC_TILES if dtype in (torch.float16, torch.bfloat16) \
         else KERNEL_TILES
     best = None
@@ -431,13 +523,93 @@ def square_whole_grid(p: int, batch: int, dtype) -> tuple:
     return best[1], best[2]
 
 
+def _dmma_cost(blocks: int, footprint: int, steps: int, staged: int,
+               flops: int) -> float:
+    """Modelled ns of the busiest SM for a grid of ``blocks`` fp64 K2 / K3
+    blocks of ``footprint`` bytes of shared memory, each waiting through
+    ``steps`` K steps, copying ``staged`` bytes from L2 and computing
+    ``flops`` (``DMMA_STEP_NS``, ``DMMA_BLOCK_GBPS``, ``DMMA_SM_GFLOPS``): an
+    SM runs ceil(blocks / ``SM_COUNT``) of them, as many at once as its
+    shared memory holds."""
+    per_sm = -(-blocks // SM_COUNT)
+    resident = max(1, min(SMEM_PER_SM // (footprint + SMEM_PER_RESIDENT_BLOCK),
+                          THREADS_PER_SM // (32 * DMMA_SQUARE_WARPS)))
+    waves = -(-per_sm // resident)
+    return (waves * (steps * DMMA_STEP_NS + staged / DMMA_BLOCK_GBPS)
+            + per_sm * flops / DMMA_SM_GFLOPS)
+
+
+@functools.lru_cache(maxsize=None)
+def _dmma_whole_grid(p: int, batch: int) -> tuple:
+    """(output tile, groups) of the fp64 K2: over the ``WHOLE_DMMA_TILES``
+    that divide ``p`` and every count of blocks sharing a matrix, the least
+    ``_dmma_cost``, counted for a matrix's first block (it has the most
+    tiles): it stages the boxes of A in its tiles' rows and columns, waits
+    for them once and computes its tiles. On a tie, fewer blocks, then the
+    larger tile. So a 128² operand takes 16-wide tiles, one a block (64
+    blocks, each staging 30 KB of the 128 KB), and a stack of 32 of them
+    64-wide ones (128 blocks). Memoised: the search walks every tile and
+    group count, which would cost a small request more host time than its
+    kernels take."""
+    best = None
+    for tile in (t for t in WHOLE_DMMA_TILES if p % t == 0):
+        per_row = p // tile
+        count = per_row * per_row
+        for groups in range(1, count + 1):
+            mine = range(0, count, groups)
+            rows = len({t // per_row for t in mine}) * tile
+            cols = len({t % per_row for t in mine}) * tile
+            staged = (rows * p + p * cols - rows * cols) * 8
+            key = (_dmma_cost(groups * batch, whole_dmma_smem_bytes(p), 1,
+                              staged, len(mine) * 2 * tile * tile * p),
+                   groups * batch, -tile)
+            if best is None or key < best[0]:
+                best = (key, tile, groups)
+    if best is None:
+        raise ValueError(f"no whole-operand tile of {WHOLE_DMMA_TILES} "
+                         f"divides {p}")
+    return best[1], best[2]
+
+
+@functools.lru_cache(maxsize=None)
+def _dmma_panel_grid(p: int, batch: int, chain_tile: int) -> tuple:
+    """(panel height, column width, groups) of the fp64 K3: over the
+    ``DMMA_PANELS`` pairs no taller than ``chain_tile`` that divide ``p``
+    and every group count, the least ``_dmma_cost`` of a block that stages
+    its row panel and its column tiles, one ring step per K step of each,
+    and computes their output; on a tie, fewer blocks, then the taller
+    panel. So 256² takes 16 x 32 tiles, one a block (128 blocks), and a
+    stack of 64 of them 32-row panels (512 blocks)."""
+    best = None
+    for height, width in DMMA_PANELS:
+        if height > chain_tile or p % height or p % width:
+            continue
+        block_k = dmma_panel_ring(p, height)[1]
+        col_tiles = p // width
+        for groups in range(1, col_tiles + 1):
+            mine = -(-col_tiles // groups)
+            blocks = groups * (p // height) * batch
+            key = (_dmma_cost(blocks, dmma_panel_smem_bytes(p, height),
+                              mine * -(-p // block_k),
+                              (height + mine * width) * p * 8,
+                              mine * 2 * height * width * p),
+                   blocks, -height)
+            if best is None or key < best[0]:
+                best = (key, height, width, groups)
+    if best is None:
+        raise ValueError(f"no fp64 panel of {tuple(DMMA_PANELS)} no taller "
+                         f"than {chain_tile} divides {p}")
+    return best[1:]
+
+
 def square_panel_grid(p: int, batch: int, dtype, chain_tile: int) -> tuple:
     """(panel height, column width, groups) of a panel-tier squaring (K3)
     of a ``(p, p)`` operand, or a stack of ``batch`` of them: ``groups``
     blocks share each row panel's column tiles.
 
     bf16 / f16 (the tensor-core K3): the chain's square tile, and as few
-    groups as fill the SMs (``_groups``). f32 / f64 (the FMA K3): K3's own
+    groups as fill the SMs (``_groups``). f64 (the DMMA K3):
+    ``_dmma_panel_grid``. f32 (the FMA K3): K3's own
     grid. Over the ``FMA_PANELS`` heights no taller than ``chain_tile``
     that divide ``p`` (the width is ``panel_width(p)``) and every group
     count, the one whose busiest SM has the least output to compute —
@@ -451,13 +623,14 @@ def square_panel_grid(p: int, batch: int, dtype, chain_tile: int) -> tuple:
     if dtype in (torch.float16, torch.bfloat16):
         tiles = p // chain_tile
         return chain_tile, chain_tile, _groups(tiles, tiles * batch)
-    itemsize = torch.empty((), dtype=dtype).element_size()
+    if dtype == torch.float64:
+        return _dmma_panel_grid(p, batch, chain_tile)
     width = panel_width(p)
     col_tiles = p // width
     best = None
     for height in sorted(h for h, w in FMA_PANELS
                          if w == width and h <= chain_tile and p % h == 0):
-        footprint = fma_panel_smem_bytes(p, height, itemsize)
+        footprint = fma_panel_smem_bytes(p, height)
         resident = max(1, min(
             SMEM_PER_SM // (footprint + SMEM_PER_RESIDENT_BLOCK),
             THREADS_PER_SM // FMA_THREADS))
@@ -685,9 +858,9 @@ def square_cuda(a: torch.Tensor, *,
     shared memory), the two-operand :func:`matmul_cuda` above that. Both
     limits are arguments so a caller (or a tuned entry, later) can move
     them. For bf16 / f16 the panel tier is the tensor-core K3, which takes
-    the ``TC_BLOCKS`` pairs only; for f32 / f64 the FMA K3 launches on a
-    panel height no taller than the chain's tile and a grid of its own
-    (``square_panel_grid``). K2 takes any square chain tile of
+    the ``TC_BLOCKS`` pairs only; for f32 (the FMA K3) and f64 (the DMMA
+    K3) K3 launches on a panel height no taller than the chain's tile and a
+    grid of its own (``square_panel_grid``). K2 takes any square chain tile of
     ``KERNEL_TILES`` that divides the operand and launches on its own output
     tile and grid (``square_whole_grid``).
 
@@ -726,8 +899,9 @@ def square_cuda(a: torch.Tensor, *,
             f"shape ({p},{p}) not divisible by the K step {block_k} the "
             f"panel kernel stages the column panel in; use ops.MatmulChain "
             f"/ ops.matmul for arbitrary shapes")
-    whole_bytes = whole_tc_smem_bytes(p) if name == "square_whole_tc" \
-        else p * p * a.element_size()
+    whole_bytes = {"square_whole_tc": whole_tc_smem_bytes,
+                   "square_whole_dmma": whole_dmma_smem_bytes}.get(
+        name, lambda p: p * p * a.element_size())(p)
     if tier == "whole" and whole_bytes > SMEM_PER_BLOCK:
         raise ValueError(
             f"{what}: smem_limit={smem_limit} sends a ({p},{p}) "
@@ -742,6 +916,8 @@ def square_cuda(a: torch.Tensor, *,
                 (a.data_ptr(), c.data_ptr(), p, launch["tile"], stride,
                  stride, batch or 1, launch["groups"], out_acc))
     else:
+        if name == "square_panel_dmma":
+            block_k = dmma_panel_ring(p, launch["tile"])[1]
         _launch("repro_square_panel", a,
                 (a.data_ptr(), c.data_ptr(), p, launch["tile"],
                  launch["width"], block_k, stride, stride, batch or 1,

@@ -134,18 +134,32 @@ def cuh_constants(src: str) -> dict:
 
 
 def cuh_struct(src: str, name: str, **params) -> dict:
-    """The members of ``struct name`` in ``src`` at the given template
-    parameters (and ``P``), evaluated in order over the source's constants:
-    each ``static constexpr int`` member, and ``bytes`` for the value its
-    ``bytes(P)`` returns."""
-    body = re.search(rf"^template <[^>]*> struct {name} \{{\n(.*?)^\}};",
+    """The members of ``struct name`` in ``src`` (a template or not) at the
+    given template parameters (and ``P``), evaluated in order over the
+    source's constants: each ``static constexpr int`` member, and ``bytes``
+    for the value its ``bytes(P)`` returns. A member of another struct of
+    the source (``Other<A, B>::MEMBER``) is evaluated the same way."""
+    body = re.search(rf"^(?:template <[^>]*> )?struct {name} \{{\n(.*?)^\}};",
                      src, flags=re.M | re.S).group(1)
     names = {**cuh_constants(src), **params}
+
+    def nested(match):
+        other, args, member = match.groups()
+        decl = re.search(rf"^template <([^>]*)> struct {other} \{{", src,
+                         flags=re.M).group(1)
+        keys = [p.split()[-1] for p in decl.split(",")]
+        values = [cuh_expr(a, names) for a in args.split(",")]
+        return str(cuh_struct(src, other, **dict(zip(keys, values)))[member])
+
+    def evaluate(expr):
+        return cuh_expr(re.sub(r"(\w+)<([^<>]*)>::(\w+)", nested, expr),
+                        names)
+
     for member, expr in re.findall(r"static constexpr int (\w+) =\s*(.*?);",
                                    body, flags=re.S):
-        names[member] = cuh_expr(expr, names)
+        names[member] = evaluate(expr)
     returned = re.search(r"bytes\(int P\) \{\s*return (.*?);", body,
                          flags=re.S)
     if returned and "P" in params:
-        names["bytes"] = cuh_expr(returned.group(1), names)
+        names["bytes"] = evaluate(returned.group(1))
     return names

@@ -282,13 +282,17 @@ def test_tc_square_whole_fills_the_card_at_192(cuda):
                                         ((33, 128, 128), 64),
                                         ((132, 64, 64), 64)])
 def test_fma_square_whole_grid_rule(cuda, shape, tile, dtype):
-    """f32 / f64 K2 on the FMA pipeline at tiles 32 and 64, as its grid
-    rule picks them."""
+    """f32 K2 on the FMA pipeline at tiles 32 and 64, as its grid rule
+    picks them; f64 K2 on the fp64 tensor cores (``square_whole_dmma``) on
+    the tile its own rule picks."""
     a = _randn(shape, dtype, cuda, 22)
     kw = dict(block_m=32, block_n=32, block_k=16)
     got = K.square_cuda(a, **kw)
-    assert K.last_launch["kernel"] == "square_whole"
-    assert K.last_launch["tile"] == tile
+    p, batch = shape[-1], (shape[0] if len(shape) == 3 else 1)
+    assert K.last_launch["kernel"] == K.kernel_name("square_whole", dtype)
+    assert K.last_launch["tile"] == (
+        tile if dtype == torch.float32
+        else K.square_whole_grid(p, batch, dtype)[0])
     _close(got, K.square_plain(a, **kw), dtype)
 
 
@@ -345,7 +349,7 @@ def _panel_case(a, kw, dtype):
     launch = dict(K.last_launch)
     _close(got, K.square_plain(a, **kw), dtype)
     p, batch = a.shape[-1], (a.shape[0] if a.ndim == 3 else 1)
-    assert launch["kernel"] == "square_panel"
+    assert launch["kernel"] == K.kernel_name("square_panel", dtype)
     assert (launch["tile"], launch["width"], launch["groups"]) == \
         K.square_panel_grid(p, batch, dtype, kw["block_m"])
     assert launch["blocks"] == launch["groups"] * p // launch["tile"] * batch
@@ -387,7 +391,8 @@ def test_f32_square_panel_uneven_groups(cuda, monkeypatch):
 @pytest.mark.parametrize("blocks", [(64, 64, 32), (32, 32, 16)])
 @pytest.mark.parametrize("shape", [(256, 256), (3, 256, 256)])
 def test_f64_square_panel(cuda, shape, blocks):
-    """K3 in f64 shares the f32 templates: held to 1e-12 of the peak."""
+    """K3 in f64 on the fp64 tensor cores (``square_panel_dmma``), on the
+    grid its rule picks: held to 1e-12 of the peak."""
     a = _randn(shape, torch.float64, cuda, 39)
     t, _, bk = blocks
     _panel_case(a, dict(block_m=t, block_n=t, block_k=bk, smem_limit=0),
@@ -474,6 +479,130 @@ def test_dmma_chain_holds_the_f64_budget(cuda):
     rtol, atol = error_budget(torch.float64, n=512, mults=7)
     want = torch.linalg.matrix_power(a, 96)
     assert torch.allclose(got, want, rtol=rtol, atol=atol)
+    assert torch.allclose(got, matpow_binary(a, 96, backend="torch"),
+                          rtol=rtol, atol=atol)
+
+
+# -- K2 and K3 in f64 on the fp64 tensor cores (csrc/gemm_dmma.cuh) ----------
+#
+# Held to their plain versions at 1e-12 of the peak, not bit for bit: the K
+# slices of a block add their partial sums in slice order, another order
+# than the plain version's in-order sum over k.
+
+@pytest.mark.parametrize("shape", [(128, 128), (160, 160), (96, 96),
+                                   (32, 128, 128), (33, 128, 128),
+                                   (3, 32, 32)])
+def test_dmma_square_whole_vs_plain(cuda, shape):
+    """The main path's 128^2, the largest operand of the f64 whole tier,
+    the stacks of the smoke and a size with one box row per K step."""
+    a = _randn(shape, torch.float64, cuda, 60)
+    kw = dict(block_m=32, block_n=32, block_k=16)
+    got = K.square_cuda(a, **kw)
+    launch = dict(K.last_launch)
+    _close(got, K.square_plain(a, **kw), torch.float64)
+    p, batch = shape[-1], (shape[0] if len(shape) == 3 else 1)
+    assert launch["kernel"] == "square_whole_dmma"
+    assert (launch["tile"], launch["groups"]) == \
+        K.square_whole_grid(p, batch, torch.float64)
+    assert K.launch_counts()["square_whole_dmma"] == 1
+    assert K.launch_counts()["square_whole"] == 0
+
+
+@pytest.mark.parametrize("groups", [1, 3, 7])
+@pytest.mark.parametrize("tile", K.WHOLE_DMMA_TILES)
+def test_dmma_square_whole_every_tile(cuda, monkeypatch, tile, groups):
+    """Every instantiated K2 tile, with blocks of several tiles each
+    (uneven counts too): a block stages the union of its tiles' rows and
+    columns."""
+    monkeypatch.setattr(K, "square_whole_grid",
+                        lambda p, batch, dtype: (tile, groups))
+    a = _randn((2, 128, 128), torch.float64, cuda, 61)
+    kw = dict(block_m=64, block_n=64, block_k=32)
+    got = K.square_cuda(a, **kw)
+    assert K.last_launch["tile"] == tile
+    _close(got, K.square_plain(a, **kw), torch.float64)
+
+
+@pytest.mark.parametrize("shape,blocks", [
+    ((256, 256), (64, 64, 32)), ((64, 256, 256), (64, 64, 32)),
+    ((33, 128, 128), (64, 64, 16)), ((3, 288, 288), (32, 32, 16)),
+    ((192, 192), (64, 64, 32)), ((384, 384), (64, 64, 32)),
+    ((2, 320, 320), (64, 64, 32))])
+def test_dmma_square_panel_vs_plain(cuda, shape, blocks):
+    """The smoke's K3 shapes, and the f64 panel tier's first and last
+    sizes, forced into the panel tier, on the grids the rule picks."""
+    a = _randn(shape, torch.float64, cuda, 62)
+    t, _, bk = blocks
+    _panel_case(a, dict(block_m=t, block_n=t, block_k=bk, smem_limit=0),
+                torch.float64)
+    assert K.launch_counts()["square_panel_dmma"] == 1
+    assert K.launch_counts()["square_panel"] == 0
+
+
+@pytest.mark.parametrize("groups", [1, 3])
+@pytest.mark.parametrize("height,width", list(K.DMMA_PANELS))
+def test_dmma_square_panel_every_pair(cuda, monkeypatch, height, width,
+                                      groups):
+    """Every instantiated (height, width) pair, a block over one column
+    tile or several (and uneven shares of them), 2-D and stacked, on its
+    64-deep ring (256^2, 192^2) and its 32-deep one (288^2)."""
+    monkeypatch.setattr(K, "square_panel_grid",
+                        lambda p, batch, dtype, tile: (height, width,
+                                                       groups))
+    shapes = [(256, 256), (3, 192, 192)]
+    if 288 % width == 0:
+        shapes.append((2, 288, 288))
+    for shape in shapes:
+        a = _randn(shape, torch.float64, cuda, 63)
+        tile = 64 if shape[-1] % 64 == 0 else 32
+        kw = dict(block_m=tile, block_n=tile, block_k=16, smem_limit=0)
+        got = K.square_cuda(a, **kw)
+        assert (K.last_launch["tile"], K.last_launch["width"]) == \
+            (height, width)
+        _close(got, K.square_plain(a, **kw), torch.float64)
+
+
+def test_dmma_squares_refuse_a_pair_they_do_not_instantiate(cuda,
+                                                           monkeypatch):
+    """A tile or pair outside the tables reaches the launcher, which
+    refuses it (-1), or finds no ring: the wrapper raises, counts nothing
+    and falls back to nothing."""
+    a = _randn((192, 192), torch.float64, cuda, 64)
+    monkeypatch.setattr(K, "square_panel_grid",
+                        lambda p, batch, dtype, tile: (16, 64, 1))
+    with pytest.raises(ValueError, match="instantiated"):
+        K.square_cuda(a, **B64, smem_limit=0)
+    monkeypatch.setattr(K, "square_panel_grid",
+                        lambda p, batch, dtype, tile: (48, 32, 1))
+    with pytest.raises(KeyError, match="no fp64 K3 ring of height 48"):
+        K.square_cuda(a, **B64, smem_limit=0)
+    monkeypatch.setattr(K, "square_whole_grid",
+                        lambda p, batch, dtype: (48, 1))
+    with pytest.raises(ValueError, match="instantiated"):
+        K.square_cuda(a[:96, :96].contiguous(), block_m=32, block_n=32,
+                      block_k=16)
+    assert not any(K.launch_counts().values())
+
+
+@pytest.mark.parametrize("n,counts", [
+    (128, {"square_whole_dmma": 6, "matmul_dmma": 1}),
+    (200, {"square_panel_dmma": 6, "matmul_dmma": 1}),
+    (256, {"square_panel_dmma": 6, "matmul_dmma": 1}),
+    (320, {"square_panel_dmma": 6, "matmul_dmma": 1})])
+def test_dmma_squaring_chain_holds_the_f64_budget(cuda, n, counts):
+    """A^96 in f64 through the chain, its squarings on the fp64 K2 / K3:
+    within ``error_budget(float64, n, mults=7)`` of the float64 power and of
+    the ``"torch"`` route; the operand unaltered."""
+    a = _power_operand(n, cuda, 65).double()
+    keep = a.clone()
+    got = matpow_binary(a, 96, backend="cuda_chain")
+    assert {k: v for k, v in K.launch_counts().items() if v} == counts
+    assert torch.equal(a, keep)
+    rtol, atol = error_budget(torch.float64, n=n, mults=7)
+    want = torch.linalg.matrix_power(a, 96)
+    assert _rel_to_peak(torch.linalg.matrix_power(a, 64), want) > 0.5
+    assert torch.allclose(got, want, rtol=rtol, atol=atol)
+    assert _rel_to_peak(got, want) <= error_budget(torch.float64)[0]
     assert torch.allclose(got, matpow_binary(a, 96, backend="torch"),
                           rtol=rtol, atol=atol)
 

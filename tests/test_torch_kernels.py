@@ -294,9 +294,9 @@ class TestTensorCoreContract:
         ("square_whole", torch.bfloat16, "square_whole_tc"),
         ("square_whole", torch.float16, "square_whole_tc"),
         ("square_whole", torch.float32, "square_whole"),
-        ("square_whole", torch.float64, "square_whole"),
+        ("square_whole", torch.float64, "square_whole_dmma"),
         ("square_panel", torch.float32, "square_panel"),
-        ("square_panel", torch.float64, "square_panel"),
+        ("square_panel", torch.float64, "square_panel_dmma"),
         ("square_panel", torch.bfloat16, "square_panel_tc"),
         ("square_panel", torch.float16, "square_panel_tc")])
     def test_kernel_name_is_the_counter_a_launch_goes_to(self, op, dtype,
@@ -339,7 +339,9 @@ class TestWholeOperandGrid:
     def test_the_tile_leaves_the_least_output_on_the_busiest_sm(self):
         # one matrix: the smallest tile, a block per tile
         assert K.square_whole_grid(256, 1, torch.bfloat16) == (32, 64)
-        assert K.square_whole_grid(128, 1, torch.float64) == (32, 16)
+        # f64 (the DMMA K2): 16-wide tiles, so each of 64 blocks stages
+        # only the rows and columns of A its tile reads
+        assert K.square_whole_grid(128, 1, torch.float64) == (16, 64)
         # a stack of 32: 128 blocks of one 64-wide tile, not 160 blocks of
         # four 32-wide ones (two waves)
         assert K.square_whole_grid(128, 32, torch.float32) == (64, 4)
@@ -453,8 +455,9 @@ class TestNewKernelTables:
 
     @pytest.mark.parametrize("tile,bk", K.DMMA_BLOCKS)
     def test_dmma_pairs_are_fma_k2_k3_pairs_too(self, tile, bk):
-        """A chain's blocks serve the f64 K1 (DMMA) and the FMA K2 / K3
-        alike: every DMMA pair is one the FMA kernels take."""
+        """A chain's blocks serve the f64 K1 and K2 / K3 alike: every K1
+        pair is one the squaring wrapper takes (K2 and K3 then pick their
+        own tiles)."""
         assert tile in K.KERNEL_TILES and bk % 8 == 0 and tile % bk == 0
         assert K._kernel_tile(tile, tile, bk, "square_cuda") == tile
 
@@ -471,10 +474,11 @@ PANEL_SIZES = [256, 288, 320, 384, 512, 640, 768, 832]
 
 
 class TestFmaContract:
-    """What the Python side knows of csrc/gemm.cuh's f32 K1 and f32 / f64
-    K3: their instantiation tables and the shared memory each launcher asks
-    for, evaluated from the C++ as written (a footprint that disagreed with
-    the launcher's request would pass a tiling the card refuses)."""
+    """What the Python side knows of csrc/gemm.cuh's f32 K1 and K3 (and of
+    the f64 K3 of csrc/gemm_dmma.cuh that took over its f64 cases): their
+    instantiation tables and the shared memory each launcher asks for,
+    evaluated from the C++ as written (a footprint that disagreed with the
+    launcher's request would pass a tiling the card refuses)."""
 
     def test_f32_table_is_the_kernels(self):
         lines = re.findall(
@@ -509,10 +513,19 @@ class TestFmaContract:
     @pytest.mark.parametrize("p", PANEL_SIZES)
     @pytest.mark.parametrize("height", [32, 64])
     def test_k3_footprint_is_the_panel_formula(self, height, p, itemsize):
-        want = cuh_struct(GEMM.read_text(), "FmaPanel", H=height,
-                          W=K.panel_width(p), ELEM=itemsize, P=p)["bytes"]
-        assert K.fma_panel_smem_bytes(p, height, itemsize) == want == \
-            K.panel_smem_footprint(p, height, height, itemsize)
+        """f32: the FMA K3's ``FmaPanel``; f64: the DMMA K3's
+        ``DmmaPanel`` at the ring of that height it launches on."""
+        if itemsize == 8:
+            width, bk, stages = K.dmma_panel_ring(p, height)
+            want = cuh_struct(GEMM_DMMA.read_text(), "DmmaPanel", H=height,
+                              W=width, BK=bk, STAGES=stages, P=p)["bytes"]
+            got = K.dmma_panel_smem_bytes(p, height)
+        else:
+            want = cuh_struct(GEMM.read_text(), "FmaPanel", H=height,
+                              W=K.panel_width(p), P=p)["bytes"]
+            got = K.fma_panel_smem_bytes(p, height)
+        assert got == want == K.panel_smem_footprint(p, height, height,
+                                                      itemsize)
 
     def test_the_fma_formula_reader_sees_a_changed_formula(self):
         """The C++ formulas are read from the source, not restated: a ring
@@ -521,8 +534,8 @@ class TestFmaContract:
         src = GEMM.read_text().replace("LDA = BK + kPad;", "LDA = BK;", 1)
         assert cuh_struct(src, "FmaRing", TILE=128, BK=32, STAGES=3)[
             "BYTES"] != K.fma_smem_bytes(128, 32)
-        src = GEMM.read_text().replace("(P + kPad) * ELEM", "P * ELEM", 1)
-        assert cuh_struct(src, "FmaPanel", H=64, W=64, ELEM=4, P=512)[
+        src = GEMM.read_text().replace("(P + kPad) * 4", "P * 4", 1)
+        assert cuh_struct(src, "FmaPanel", H=64, W=64, P=512)[
             "bytes"] != K.fma_panel_smem_bytes(512, 64)
 
     @pytest.mark.parametrize("blocks", [(128, 128, 64), (64, 64, 8),
@@ -534,10 +547,12 @@ class TestFmaContract:
             with pytest.raises(KeyError):
                 K.smem_footprint(blocks)
 
-    @pytest.mark.parametrize("itemsize,edge", [(4, 704), (8, 320)])
+    @pytest.mark.parametrize("itemsize,edge", [(4, 704), (8, 384)])
     def test_the_demotion_edge(self, itemsize, edge):
         """At the chain's 64-wide tile the panel tier ends where a 64-row
-        panel and K3's ring outgrow a block's shared memory."""
+        panel and K3's ring outgrow a block's shared memory (f64: the DMMA
+        K3's 64 x 64 pair, whose ring of 16-deep stages took the edge from
+        the FMA K3's 320² to 384²)."""
         taking_k3 = [p for p in range(256, 2048, 64)
                      if p * p * itemsize > K.SQUARE_SMEM_LIMIT
                      and K._resolve_tier(p, itemsize, 64, 64, 32,
@@ -547,6 +562,28 @@ class TestFmaContract:
         assert K.panel_smem_footprint(edge, 64, 64, itemsize) \
             <= K.SMEM_PER_BLOCK \
             < K.panel_smem_footprint(edge + 64, 64, 64, itemsize)
+
+
+def _dmma_model(blocks, footprint, steps, staged, flops):
+    """The fp64 K2 / K3 grid model, restated: an SM runs ceil(blocks / 132)
+    blocks, as many at once as its 228 KB of shared memory hold (1 KB kept
+    per block); each wave waits through the K steps and copies the staged
+    bytes; the SM's tensor cores do every block's flops."""
+    per_sm = -(-blocks // 132)
+    waves = -(-per_sm // max(1, min(233_472 // (footprint + 1024), 16)))
+    return (waves * (steps * K.DMMA_STEP_NS + staged / K.DMMA_BLOCK_GBPS)
+            + per_sm * flops / K.DMMA_SM_GFLOPS)
+
+
+def _dmma_panel_cost(p, batch, height, width, groups):
+    """The busiest SM of an fp64 K3 grid: a block stages its row panel and
+    its column tiles, one ring step per K step of each."""
+    block_k = K.dmma_panel_ring(p, height)[1]
+    mine = -(-(p // width) // groups)
+    return _dmma_model(groups * (p // height) * batch,
+                       K.dmma_panel_smem_bytes(p, height),
+                       mine * -(-p // block_k), (height + mine * width) * p * 8,
+                       mine * 2 * height * width * p)
 
 
 def _panel_load(p, batch, height, groups):
@@ -582,8 +619,9 @@ class TestPanelGrid:
         assert K.square_panel_grid(256, 64, torch.float32, 64) == (64, 64, 1)
         # an odd stack: 132 blocks either way, the taller panel
         assert K.square_panel_grid(128, 33, torch.float32, 64) == (64, 64, 2)
-        # f64 at 256^2: every 32 x 64 output tile its own block
-        assert K.square_panel_grid(256, 1, torch.float64, 64) == (32, 64, 4)
+        # f64 at 256^2 (the DMMA K3): every 16 x 32 output tile its own
+        # block, 128 of them
+        assert K.square_panel_grid(256, 1, torch.float64, 64) == (16, 32, 8)
         # never taller than the chain's tile; 32 wide where 64 does not divide
         assert K.square_panel_grid(288, 1, torch.float32, 32) == (32, 32, 9)
         assert K.square_panel_grid(512, 1, torch.float32, 128) == (32, 64, 8)
@@ -594,6 +632,17 @@ class TestPanelGrid:
     def test_invariants(self, dtype, p, chain_tile, batch):
         height, width, groups = K.square_panel_grid(p, batch, dtype,
                                                     chain_tile)
+        if dtype == torch.float64:
+            # the DMMA K3: an instantiated pair, the least cost of all
+            assert (height, width) in K.DMMA_PANELS
+            assert height <= chain_tile and p % height == 0
+            assert p % width == 0 and 1 <= groups <= p // width
+            assert _dmma_panel_cost(p, batch, height, width, groups) == min(
+                _dmma_panel_cost(p, batch, h, w, g)
+                for h, w in K.DMMA_PANELS
+                if h <= chain_tile and p % h == 0 and p % w == 0
+                for g in range(1, p // w + 1))
+            return
         assert (height, width) in K.FMA_PANELS
         assert width == K.panel_width(p) and p % width == 0
         assert height <= chain_tile and p % height == 0
@@ -619,11 +668,197 @@ class TestPanelGrid:
         b = torch.from_numpy(randn((3, 256, 256), 47, 0.1)).double()
         K.square_cuda(b, block_m=64, block_n=64, block_k=32, smem_limit=0)
         assert K.last_launch == dict(kernel="plain_square_panel", tile=32,
-                                     width=64, blocks=3 * 8 * 4, groups=4)
+                                     width=32, blocks=3 * 8 * 8, groups=8)
 
     def test_no_panel_height_divides_raises(self):
         with pytest.raises(ValueError, match="divides"):
             K.square_panel_grid(48, 1, torch.float32, 32)
+
+
+DMMA_PANEL_PAIRS = [pytest.param(h, w, id=f"{h}x{w}") for h, w in
+                    K.DMMA_PANELS]
+DMMA_SIZES = [128, 192, 256, 288, 320, 384, 512]
+
+
+def _dmma_whole_cost(p, batch, tile, groups):
+    """The busiest SM of an fp64 K2 grid, restated: a matrix's first block
+    (tiles 0, groups, ...) stages the boxes in its tiles' rows and columns,
+    waits once and computes its tiles."""
+    per_row = p // tile
+    mine = list(range(0, per_row * per_row, groups))
+    rows = len({t // per_row for t in mine}) * tile
+    cols = len({t % per_row for t in mine}) * tile
+    staged = (rows * p + cols * p - rows * cols) * 8
+    return _dmma_model(groups * batch, K.whole_dmma_smem_bytes(p), 1, staged,
+                       len(mine) * 2 * tile * tile * p)
+
+
+class TestDmmaSquares:
+    """What the Python side knows of the fp64 K2 and K3 of
+    csrc/gemm_dmma.cuh: the tables, the shared memory each launcher asks
+    for (the ``.cuh``'s formulas evaluated as written), the grid rules and
+    the f64 tier edges they imply. On a CPU tensor the same tier and grid
+    bookkeeping runs and ``last_launch`` shows the grid the kernel would
+    get."""
+
+    def test_tables_are_the_kernels(self):
+        src = GEMM_DMMA.read_text()
+        whole = re.findall(r"^\s*REPRO_WHOLE_DMMA\((\d+)\)\s*$", src,
+                           flags=re.M)
+        assert tuple(int(t) for t in whole) == K.WHOLE_DMMA_TILES
+        panels = re.findall(
+            r"^\s*REPRO_DMMA_PANEL\((\d+), (\d+), (\d+), (\d+)\)\s*$", src,
+            flags=re.M)
+        assert {(int(h), int(w), int(bk)): int(st)
+                for h, w, bk, st in panels} == K.DMMA_PANEL_RINGS
+        assert len(panels) == len(K.DMMA_PANEL_RINGS)
+        # one width per height: dmma_panel_smem_bytes(p, height) is defined
+        heights = [h for h, _ in K.DMMA_PANELS]
+        assert len(set(heights)) == len(heights)
+        # every pair has a ring whose K step divides every multiple of 32
+        for h, w in K.DMMA_PANELS:
+            assert min(bk for hh, ww, bk in K.DMMA_PANEL_RINGS
+                       if (hh, ww) == (h, w)) <= 32
+
+    def test_constants_are_the_kernels(self):
+        consts = cuh_constants(GEMM_DMMA.read_text())
+        assert consts["kBox"] == K.DMMA_BOX == 16
+        assert consts["kSquareWarps"] == K.DMMA_SQUARE_WARPS == 4
+        assert consts["kWholeRed"] == K.WHOLE_DMMA_RED
+        assert consts["kSquareThreads"] == 128
+
+    @pytest.mark.parametrize("tile", K.WHOLE_DMMA_TILES)
+    def test_k_slices_and_partial_sums(self, tile):
+        """``dmma_slices`` is ``SquareWarps::KS``, every K2 tile's partial
+        sums fit ``kWholeRed``, and the slices take whole k8 steps."""
+        warps = cuh_struct(GEMM_DMMA.read_text(), "SquareWarps", TM=tile,
+                           TN=tile)
+        assert warps["KS"] == K.dmma_slices(tile, tile)
+        assert warps["OUT"] * warps["KS"] == K.DMMA_SQUARE_WARPS
+        assert warps["RED"] <= K.WHOLE_DMMA_RED
+        assert tile % K.DMMA_BOX == 0
+
+    @pytest.mark.parametrize("p", DMMA_SIZES)
+    @pytest.mark.parametrize("height,width", DMMA_PANEL_PAIRS)
+    def test_k3_footprint_is_the_dmma_panel_formula(self, height, width, p):
+        """The ring a launch takes is the deepest whose K step divides p,
+        and its footprint is the ``.cuh``'s."""
+        ring_w, bk, stages = K.dmma_panel_ring(p, height)
+        assert ring_w == width and p % bk == 0
+        assert all(p % other or other <= bk for h, w, other in
+                   K.DMMA_PANEL_RINGS if (h, w) == (height, width))
+        assert stages == K.DMMA_PANEL_RINGS[(height, width, bk)]
+        src = GEMM_DMMA.read_text()
+        panel = cuh_struct(src, "DmmaPanel", H=height, W=width, BK=bk,
+                           STAGES=stages, P=p)
+        assert K.dmma_panel_smem_bytes(p, height) == panel["bytes"]
+        warps = cuh_struct(src, "SquareWarps", TM=height, TN=width)
+        assert warps["OUT"] * warps["KS"] == K.DMMA_SQUARE_WARPS
+        assert (bk // 8) % warps["KS"] == 0
+        assert K.dmma_slices(height, width) == warps["KS"]
+
+    @pytest.mark.parametrize("p", [32, 64, 96, 128, 160, 192])
+    def test_k2_footprint_is_the_image_formula(self, p):
+        want = cuh_struct(GEMM_DMMA.read_text(), "DmmaWhole", P=p)["bytes"]
+        assert K.whole_dmma_smem_bytes(p) == want
+        # the f64 whole tier (p^2 * 8 within a block's shared memory) fits
+        # with the padding and the partial sums: up to 160^2
+        assert (want <= K.SMEM_PER_BLOCK) == (p <= 160)
+        assert K.square_tier(p * p * 8) == ("whole" if p <= 160 else "panel")
+
+    def test_the_formula_reader_sees_a_changed_formula(self):
+        src = GEMM_DMMA.read_text().replace("(size_t)H * (P + kPad) * 8",
+                                            "(size_t)H * P * 8", 1)
+        assert cuh_struct(src, "DmmaPanel", H=16, W=32, BK=32, STAGES=4,
+                          P=256)["bytes"] != K.dmma_panel_smem_bytes(256, 16)
+        src = GEMM_DMMA.read_text().replace("(KS - 1) * TM", "KS * TM", 1)
+        assert cuh_struct(src, "DmmaPanel", H=16, W=32, BK=32, STAGES=4,
+                          P=256)["bytes"] != K.dmma_panel_smem_bytes(256, 16)
+
+    def test_a_height_without_a_pair_raises(self):
+        with pytest.raises(KeyError):
+            K.dmma_panel_smem_bytes(256, 48)
+        # no K step divides 40: the shallowest ring's footprint, and the
+        # shape is refused as not divisible, as in every dtype
+        assert K.dmma_panel_ring(40, 64) == (64, 16, 3)
+        with pytest.raises(ValueError, match="not divisible by blocks"):
+            K.square_cuda(torch.zeros(200, 200, dtype=torch.float64),
+                          block_m=64, block_n=64, block_k=32)
+
+    @pytest.mark.parametrize("p,batch,grid", [
+        (128, 1, (16, 64)), (160, 1, (16, 100)), (96, 1, (16, 36)),
+        (128, 3, (16, 32)), (128, 32, (64, 4)), (128, 33, (64, 4)),
+        (64, 132, (32, 4))])
+    def test_k2_grid(self, p, batch, grid):
+        """One matrix: 16-wide tiles, a block each (every block stages only
+        its tile's rows and columns of A); a stack that fills the card on
+        its own: 64-wide ones."""
+        assert K.square_whole_grid(p, batch, torch.float64) == grid
+
+    @pytest.mark.parametrize("batch", [1, 2, 3, 32, 33, 500])
+    @pytest.mark.parametrize("p", [32, 64, 96, 128, 160])
+    def test_k2_grid_invariants(self, p, batch):
+        tile, groups = K.square_whole_grid(p, batch, torch.float64)
+        assert tile in K.WHOLE_DMMA_TILES and p % tile == 0
+        assert 1 <= groups <= (p // tile) ** 2
+        assert _dmma_whole_cost(p, batch, tile, groups) == min(
+            _dmma_whole_cost(p, batch, t, g) for t in K.WHOLE_DMMA_TILES
+            if p % t == 0 for g in range(1, (p // t) ** 2 + 1))
+
+    @pytest.mark.parametrize("p,batch,chain_tile,grid", [
+        (128, 1, 64, (16, 32, 4)), (192, 1, 64, (16, 32, 6)),
+        (256, 1, 64, (16, 32, 8)), (288, 1, 32, (16, 32, 9)),
+        (320, 1, 64, (16, 32, 10)), (384, 1, 64, (32, 32, 6)),
+        (256, 3, 64, (32, 32, 8)), (256, 64, 64, (32, 32, 1)),
+        (128, 33, 64, (32, 32, 2)), (288, 3, 32, (32, 32, 9))])
+    def test_k3_grid(self, p, batch, chain_tile, grid):
+        """At 256^2, 128 blocks of one 16 x 32 tile (where the FMA K3 had
+        32 blocks); the stacked chain's (64, 256, 256) on 32-row panels, a
+        block a panel."""
+        assert K.square_panel_grid(p, batch, torch.float64,
+                                   chain_tile) == grid
+
+    def test_no_f64_panel_divides_raises(self):
+        with pytest.raises(ValueError, match="divides"):
+            K.square_panel_grid(48, 1, torch.float64, 64)
+        with pytest.raises(ValueError, match="divides"):
+            K.square_whole_grid(40, 1, torch.float64)
+
+    @pytest.mark.parametrize("p,tier", [
+        (128, "whole"), (160, "whole"), (192, "panel"), (256, "panel"),
+        (320, "panel"), (384, "panel"), (448, "two_operand"),
+        (512, "two_operand")])
+    def test_the_f64_tiers_at_the_chain_tile(self, p, tier):
+        """The f64 demotion edge through ``_resolve_tier``: the DMMA K3's
+        64-row panel fits up to 384^2 at the chain's tile 64."""
+        assert K._resolve_tier(p, 8, 64, 64, 32, K.SQUARE_SMEM_LIMIT,
+                               K.SQUARE_PANEL_LIMIT) == tier
+        if tier != "whole":
+            fits = K.dmma_panel_smem_bytes(p, 64) <= K.SMEM_PER_BLOCK
+            assert fits == (tier == "panel")
+
+    @pytest.mark.parametrize("shape,blocks,launch", [
+        ((128, 128), (64, 64, 32),
+         dict(kernel="plain_square_whole", tile=16, blocks=64, groups=64)),
+        ((33, 128, 128), (64, 64, 32),
+         dict(kernel="plain_square_whole", tile=64, blocks=132, groups=4)),
+        ((256, 256), (64, 64, 32),
+         dict(kernel="plain_square_panel", tile=16, width=32, blocks=128,
+              groups=8)),
+        ((2, 384, 384), (64, 64, 32),
+         dict(kernel="plain_square_panel", tile=32, width=32, blocks=96,
+              groups=4))])
+    def test_plain_route_records_the_dmma_grid(self, shape, blocks, launch):
+        """An f64 CPU tensor runs ``square_plain`` and records the grid the
+        DMMA kernel would launch on, the product held to a float64 one."""
+        a = randn(shape, 48, shape[-1] ** -0.5).astype(np.float64)
+        bm, bn, bk = blocks
+        got = K.square_cuda(torch.from_numpy(a), block_m=bm, block_n=bn,
+                            block_k=bk)
+        assert K.last_launch == launch
+        assert got.dtype == torch.float64
+        assert_close(got, np.matmul(a, a), "float64", n=shape[-1])
+        assert K.launch_counts()[launch["kernel"]] == 1
 
 
 class TestLaunchCounters:

@@ -298,3 +298,42 @@ class TestChainBoundary:
         got = chain.unpad(chain.square(chain.square(chain.pad(ta))))
         assert_close(got, want, "float32", n=96, mults=2)
         assert K.launch_counts()["plain_square_whole"] == 2   # one per step
+
+
+class TestF64Chain:
+    """The f64 chain on CPU tensors takes the tiers and grids that the fp64
+    tensor-core K2 / K3 get on the card (``last_launch`` on the plain
+    route): K2 at n = 128, K3 from 192² to the demotion edge at 384², K1
+    past it; A^96 held to the float64 power under ``error_budget(float64, n,
+    7)``."""
+
+    @pytest.mark.parametrize("n,launch", [
+        (128, dict(kernel="plain_square_whole", tile=16, blocks=64,
+                   groups=64)),
+        (200, dict(kernel="plain_square_panel", tile=16, width=32,
+                   blocks=128, groups=8)),
+        (256, dict(kernel="plain_square_panel", tile=16, width=32,
+                   blocks=128, groups=8)),
+        (320, dict(kernel="plain_square_panel", tile=16, width=32,
+                   blocks=200, groups=10)),
+        (400, dict(kernel="plain_matmul", tile=64, blocks=49))])
+    def test_squaring_grid(self, n, launch):
+        chain = ops.MatmulChain(n, torch.float64)
+        assert chain.blocks == (64, 64, 32)
+        x = chain.pad(torch.from_numpy(stochastic(n, 50).astype(np.float64)))
+        chain.square(x)
+        assert K.last_launch == launch
+
+    @pytest.mark.parametrize("n,square", [(128, "plain_square_whole"),
+                                          (256, "plain_square_panel")])
+    def test_matpow_launches_and_budget(self, n, square):
+        from repro_torch.core import matpow_binary
+        a = stochastic(n, 51).astype(np.float64)
+        ta = torch.from_numpy(a)
+        got = matpow_binary(ta, 96, backend="cuda_chain")
+        counts = {k: v for k, v in K.launch_counts().items() if v}
+        assert counts == {square: 6, "plain_matmul": 1}
+        assert got.dtype == torch.float64
+        assert torch.equal(ta, torch.from_numpy(a))    # operand unaltered
+        assert_close(got, np.linalg.matrix_power(a, 96), "float64", n=n,
+                     mults=7)

@@ -192,10 +192,17 @@ class TestBuildLayout:
                                 "MatmulLayout<TILE>::L::THREADS, 2"),
                                ("square_whole_kernel", "kThreads"),
                                ("square_panel_kernel",
-                                "kThreads, kPanelMinBlocks<T>")):
+                                "kThreads, 2")):
             assert f"__global__ void __launch_bounds__({bounds})\n" \
                 f"{kernel}(" in src
         assert "torch/" not in src and "ATen" not in src   # plain C interface
+        # the fp64 K2 / K3: four warps each, on the fp64 tensor cores
+        src = (PKG / "kernels" / "csrc" / "gemm_dmma.cuh").read_text()
+        for kernel in ("square_whole_dmma_kernel", "square_panel_dmma_kernel"):
+            assert f"__global__ void __launch_bounds__(kSquareThreads)\n" \
+                f"{kernel}(" in src
+        assert "mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64" in src
+        assert "torch/" not in src and "ATen" not in src
         assert {"attention.cuh", "attention_tc.cuh", "attention_f32.cu",
                 "attention_f64.cu", "attention_f16.cu",
                 "attention_bf16.cu"} <= names
