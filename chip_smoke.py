@@ -6,7 +6,7 @@
 builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (first use),
 holds every kernel against its plain PyTorch version on the card — the FMA
 kernels of ``gemm.cuh`` (K1 in f32 at every instantiated (tile, K step,
-stages), K2 / K3 in f32, K3 on the grid of its own rule), the tensor-core
+stages), K2 / K3 in f32, each on the grid of its own rule), the tensor-core
 K1–K3 of ``gemm_tc.cuh`` in bf16 / f16 at every instantiated tile and
 output type, the fp64 tensor-core K1–K3 of ``gemm_dmma.cuh`` (K1 at every
 instantiated (tile, K step), K2 / K3 on the grids of their own rules) —
@@ -95,9 +95,11 @@ REPLACES = {"matmul": "src/repro/kernels/matmul.py:111",
             "flash_attention": "src/repro/kernels/attention.py:155",
             "flash_attention_tc": "src/repro/kernels/attention.py:155",
             "attn_combine": "src/repro/kernels/attention.py:155"}
-#: The rows of the ``{"kernels": [...]}`` line: (kernel, dtype of its timed
-#: main-path shape). K5 on the tensor cores at Qwen3-1.7B prefill, K5 on the
-#: FMA pipeline at f32 decode, the combine at bf16 decode.
+#: The rows of the ``{"kernels": [...]}`` line: (kernel, label of its timed
+#: main-path shape: the dtype, and for a kernel timed at two shapes of one
+#: dtype the shape's name too). K5 on the tensor cores at Qwen3-1.7B
+#: prefill; K5 on the FMA pipeline at f32 decode, f32 prefill and f64
+#: decode; the combine at bf16 decode.
 KERNEL_ROWS = (("matmul", "float32"), ("matmul_tc", "bfloat16"),
                ("matmul_tc", "float16"), ("matmul_dmma", "float64"),
                ("square_whole", "float32"), ("square_whole_tc", "bfloat16"),
@@ -107,7 +109,9 @@ KERNEL_ROWS = (("matmul", "float32"), ("matmul_tc", "bfloat16"),
                ("square_whole_dmma", "float64"),
                ("square_panel_dmma", "float64"),
                ("flash_attention_tc", "bfloat16"),
-               ("flash_attention", "float32"), ("attn_combine", "bfloat16"))
+               ("flash_attention", "float32"),
+               ("flash_attention", "float32 prefill"),
+               ("flash_attention", "float64"), ("attn_combine", "bfloat16"))
 DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.float64)
 SIXTEEN_BIT = (torch.bfloat16, torch.float16)
 POWER = 96          # 6 squarings + 1 combine
@@ -340,7 +344,8 @@ def kernel_case(name, dtype, operands, blocks, *, timed, rows,
            "out_dtype": str(out_dtype).removeprefix("torch."),
            "shape": shape, "blocks": list(blocks), "tile": launch["tile"],
            "grid_blocks": launch["blocks"], "width": launch.get("width"),
-           "groups": launch.get("groups"), "max_abs_err": abs_err,
+           "groups": launch.get("groups"), "slices": launch.get("slices"),
+           "max_abs_err": abs_err,
            "rel_to_peak": rel_peak, "rel_to_peak_limit": KERNEL_RTOL[out_dtype]}
     if timed:
         b_ms, b_by = bound(2.0 * batch * m * n * k, nbytes, dtype)
@@ -356,11 +361,22 @@ def kernel_case(name, dtype, operands, blocks, *, timed, rows,
     return row
 
 
+def emit_k2_grid(row) -> None:
+    """K2's tile, grid and K slices on a timed operand, beside K1 on the
+    same operand (``two_operand_ms``: the squaring with the tiers off) and
+    the library."""
+    emit("k2_grid", kernel=row["name"], dtype=row["dtype"],
+         shape=row["shape"], tile=row["tile"], groups=row["groups"],
+         slices=row["slices"], grid_blocks=row["grid_blocks"], ms=row["ms"],
+         k1_ms=row["two_operand_ms"], library_ms=row["library_ms"],
+         bound_ms=row["bound_ms"])
+
+
 def phase_kernels() -> dict:
     """K1, K2, K3 — 2-D and stacked — against their plain versions on the
     card, for f32, bf16, f16 and f64 (the 16-bit K1 and K3, the f64 K1 and
     the f32 K1 at every instantiated (tile, K step) and both output types;
-    the 16-bit K2 at both output types; K2 f32 at the tiles 32 and 64 its
+    the 16-bit K2 at both output types; K2 f32 at the tiles 16 and 64 its
     grid rule picks, K2 f64 on its own tiles and grids; K3 f32 / f64 on the
     panel heights and grids their rules pick); timed at the main path's
     shapes."""
@@ -392,14 +408,17 @@ def phase_kernels() -> dict:
         kernel_case("matmul", dtype, (a, b3), stacked, timed=False,
                     rows=rows)
         # whole-operand tier: the operand must fit a block's shared memory;
-        # K2 picks its tile (32 for one matrix, 64 for the two stacks; f64
-        # 16 for one matrix, up to the tier's largest operand, 160^2)
+        # K2 picks its tile (16-bit: 32 for one matrix, 64 for the two
+        # stacks; f32 and f64: 16 for one matrix, 64 for the stacks, up to
+        # the tier's largest operand, 224^2 and 160^2)
         p_whole = 128 if dtype == torch.float64 else 192
         shapes = [(p_whole, p_whole), (32, 128, 128), (33, 128, 128)]
         if dtype in SIXTEEN_BIT:
             shapes.append((256, 256))
         if dtype == torch.float64:
             shapes.append((160, 160))
+        if dtype == torch.float32:
+            shapes.append((224, 224))     # the f32 tier's largest operand
         for i, shape in enumerate(shapes):
             a = randn(shape, dtype, 5 + i)
             blocks = ops._square_blocks(shape[-1], dtype)[0]
@@ -479,18 +498,16 @@ def phase_kernels() -> dict:
             if name == "square_panel" and dtype == torch.float32:
                 k3_f32 = row
             if name == "square_whole":
-                emit("k2_grid", kernel=row["name"], dtype=row["dtype"],
-                     shape=row["shape"], tile=row["tile"],
-                     grid_blocks=row["grid_blocks"], ms=row["ms"])
+                emit_k2_grid(row)
     # One more timed point each for the stacked shapes of phase 6.
     stack = kernel_case("square_panel", torch.float32,
                         (randn((64, 256, 256), torch.float32, 13),),
                         ops._square_blocks(256, torch.float32)[0], timed=True,
                         rows=rows)
-    kernel_case("square_whole", torch.float32,
-                (randn((32, 128, 128), torch.float32, 14),),
-                ops._square_blocks(128, torch.float32)[0], timed=True,
-                rows=rows)
+    emit_k2_grid(kernel_case("square_whole", torch.float32,
+                             (randn((32, 128, 128), torch.float32, 14),),
+                             ops._square_blocks(128, torch.float32)[0],
+                             timed=True, rows=rows))
     # K3 f32's grid, beside K1 on the same operands (``two_operand_ms``: the
     # squaring with panel_limit=0), the K1-vs-K3 reading for the f32 panel
     # tier.
@@ -691,9 +708,13 @@ def phase_batched() -> None:
 #: tokens, and the same without the window (what the band skip saves);
 #: decode alignment (128 new queries against 4096 keys, f32 and bf16: one
 #: query block per head, so the KV bands split); Sq > Skv (no key for rows
-#: 0..127, f32 and bf16); float16, float64 and a head width that pads.
+#: 0..127, f32 and bf16); float16, float64 and a head width that pads. The
+#: FMA kernel (f32 / f64) is timed at decode in both types and at the
+#: Qwen3-1.7B prefill in f32.
 ATTN_CASES = (
     ("qwen3_1.7b_prefill", (16,), 4096, 4096, 128, torch.bfloat16, True,
+     None, True),
+    ("qwen3_1.7b_prefill_f32", (16,), 4096, 4096, 128, torch.float32, True,
      None, True),
     ("mixtral_8x7b_window", (8,), 8192, 8192, 128, torch.bfloat16, True,
      4096, True),
@@ -701,6 +722,7 @@ ATTN_CASES = (
      None, True),
     ("decode_f32", (16,), 128, 4096, 128, torch.float32, True, None, True),
     ("decode_bf16", (16,), 128, 4096, 128, torch.bfloat16, True, None, True),
+    ("decode_f64", (16,), 128, 4096, 128, torch.float64, True, None, True),
     ("sq_gt_skv", (1,), 256, 128, 64, torch.float32, True, None, False),
     ("sq_gt_skv_bf16", (1,), 256, 128, 64, torch.bfloat16, True, None,
      False),
@@ -821,7 +843,7 @@ def phase_attention() -> tuple:
         rows.append(row)
         del want
     by_name = {r["name"]: r for r in rows}
-    for name in ("decode_f32", "decode_bf16"):
+    for name in ("decode_f32", "decode_bf16", "decode_f64"):
         if by_name[name]["splits"] < 2:
             raise AssertionError(f"{name} did not split: {by_name[name]}")
     combine = combine_case(cases, by_name["decode_bf16"])
@@ -834,6 +856,9 @@ def phase_attention() -> tuple:
          window_to_causal_pair_ratio=pair_ratio)
     timed = {("flash_attention_tc", "bfloat16"): by_name["qwen3_1.7b_prefill"],
              ("flash_attention", "float32"): by_name["decode_f32"],
+             ("flash_attention", "float32 prefill"):
+                 by_name["qwen3_1.7b_prefill_f32"],
+             ("flash_attention", "float64"): by_name["decode_f64"],
              ("attn_combine", "bfloat16"): combine}
     return counts, timed
 
@@ -1047,8 +1072,8 @@ def main() -> int:
     counts = {**counts, **attn_counts}
     timed = {**timed, **attn_timed}
     kernels = []
-    for name, dtype in KERNEL_ROWS:
-        row = timed[(name, dtype)]
+    for name, label in KERNEL_ROWS:
+        row = timed[(name, label)]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": counts[name],

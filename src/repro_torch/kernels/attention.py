@@ -31,7 +31,8 @@ chunks on a third grid axis (``kv_range``); each split writes its
 unnormalised accumulator and its rows' max and denominator to an fp32
 workspace, and ``attn_combine`` (a third kernel, in ``attention.cuh``)
 merges them. ``split_partials_plain`` / ``flash_attention_split_plain`` are
-the same arithmetic in plain PyTorch.
+the same arithmetic in plain PyTorch. The FMA kernel (f32 / f64) streams
+K and V through a ``cp.async`` ring of ``ATTN_FMA_STAGES`` slots per tile.
 
 On a CUDA tensor :func:`flash_attention` launches its dtype's kernel (and
 the combine when it splits) or raises; on a CPU tensor it runs the same
@@ -60,20 +61,27 @@ __all__ = ["flash_attention", "flash_attention_plain",
            "attn_combine_plain", "attn_smem_footprint", "attn_tiles",
            "head_dim_for", "kernel_tile", "kernel_name", "tile_family",
            "kv_range", "band_tiles", "kv_splits", "sm_count", "ATTN_TILES",
-           "HEAD_DIMS", "KERNELS", "LAUNCHES", "last_launch",
+           "HEAD_DIMS", "ATTN_FMA_STAGES", "KERNELS", "LAUNCHES",
+           "last_launch",
            "reset_launches", "launch_counts"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 
 
-def _read_tiles(source: str, macro: str) -> dict:
-    """``{head width: ((tile_q, tile_k), ...)}`` from the ``macro(D, TQ,
-    TK)`` lines of ``csrc/<source>``, in their order."""
-    tiles: dict = {}
+def _tile_lines(source: str, macro: str) -> list:
+    """The ``macro(D, TQ, TK[, STAGES])`` lines of ``csrc/<source>``, in
+    their order, as tuples of ints."""
     text = (_CSRC / source).read_text()
-    for d, tq, tk in re.findall(rf"^\s*{macro}\((\d+), (\d+), (\d+)\)\s*$",
-                                text, flags=re.M):
-        tiles.setdefault(int(d), []).append((int(tq), int(tk)))
+    return [tuple(int(x) for x in line.split(", ")) for line in re.findall(
+        rf"^\s*{macro}\((\d+(?:, \d+){{2,3}})\)\s*$", text, flags=re.M)]
+
+
+def _read_tiles(source: str, macro: str) -> dict:
+    """``{head width: ((tile_q, tile_k), ...)}`` from the tile lines of
+    ``csrc/<source>``, in their order."""
+    tiles: dict = {}
+    for d, tq, tk, *_ in _tile_lines(source, macro):
+        tiles.setdefault(d, []).append((tq, tk))
     return {d: tuple(pairs) for d, pairs in sorted(tiles.items())}
 
 
@@ -87,9 +95,17 @@ ATTN_TILES = {"tc": _read_tiles("attention_tc.cuh", "REPRO_ATTN_TC_TILE"),
 #: Head widths the kernels are instantiated for (both families); others pad
 #: up to the next.
 HEAD_DIMS = tuple(sorted(ATTN_TILES["fma"]))
-#: Shared-memory row padding of the FMA kernel's staged tiles, in floats
-#: (attention.cuh).
+#: Ring slots (each a K or a V tile) of every FMA tile, by (head width,
+#: tile_q, tile_k): the fourth number of the ``REPRO_ATTN_TILE`` lines.
+ATTN_FMA_STAGES = {(d, tq, tk): st for d, tq, tk, st in
+                   _tile_lines("attention.cuh", "REPRO_ATTN_TILE")}
+#: Shared-memory row padding of the FMA kernel's Q, K and V tiles and of its
+#: P tile, in floats (attention.cuh ``kPad``, ``kPadP``; P's is halved where
+#: the score product's d is split across lane pairs), and its threads a
+#: block (``kThreads``).
 ATTN_PAD = 4
+ATTN_PAD_P = 16
+ATTN_THREADS = 256
 #: K / V ring stages of the tensor-core kernel (attention_tc.cuh).
 ATTN_TC_STAGES = 2
 #: Multiply a score by this to take it to base 2 (the split workspace's max).
@@ -156,15 +172,21 @@ def attn_smem_footprint(tile_q: int, tile_k: int, d: int,
     width of ``d``. 16-bit (attention_tc.cuh ``Smem``): the Q tile and
     ``ATTN_TC_STAGES`` stages of K and V tiles in the storage type, a full
     and an empty barrier per stage and one for Q, after the alignment
-    slack. f32 / f64 (attention.cuh ``Layout``): the query, key and
-    probability tiles transposed and the value tile, all fp32."""
+    slack. f32 / f64 (attention.cuh ``Layout``): the query tile, the
+    tile's ``ATTN_FMA_STAGES`` ring slots of K or V tiles, rows padded by
+    ``ATTN_PAD``, and the probability tile, rows padded by ``ATTN_PAD_P``
+    (half of it where a thread's share of the score tile is under 64 and
+    the kernel splits d across lane pairs), all fp32. A tile that is not
+    instantiated raises ``KeyError``."""
     width = head_dim_for(d)
     if tile_family(dtype) == "tc":
         return (TC_ALIGN + tile_q * width * 2
                 + ATTN_TC_STAGES * 2 * tile_k * width * 2
                 + (2 * ATTN_TC_STAGES + 1) * TC_BARRIER)
-    return 4 * (width * (tile_q + ATTN_PAD) + width * (tile_k + ATTN_PAD)
-                + tile_k * (width + ATTN_PAD) + tile_k * (tile_q + ATTN_PAD))
+    stages = ATTN_FMA_STAGES[(width, tile_q, tile_k)]
+    split = 2 if tile_q * tile_k < 64 * ATTN_THREADS else 1
+    return 4 * ((tile_q + stages * tile_k) * (width + ATTN_PAD)
+                + tile_q * (tile_k + ATTN_PAD_P // split))
 
 
 def kernel_tile(block_q: int, block_k: int, d: int, dtype=torch.float32):

@@ -1,8 +1,8 @@
 // Hand-written Hopper kernels for the matrix-power chain on the FMA pipeline.
 //
-// Three kernels for f32 operands, each a block of 256 threads whose threads
-// own a register micro-tile of the output, accumulated in fp32 with exact
-// IEEE FMAs and stored once:
+// Three kernels for f32 operands, each a block whose threads own a register
+// micro-tile of the output, accumulated in fp32 with exact IEEE FMAs and
+// stored once:
 //
 //   matmul_kernel        C = A @ B in f32. Replaces the reference's
 //                        `matmul_kernel` (src/repro/kernels/matmul.py,
@@ -12,12 +12,13 @@
 //                        this card run in any order and share nothing, so the
 //                        K loop sits inside the block and the accumulator
 //                        never leaves registers.
-//   square_whole_kernel  C = A @ A from ONE staged copy of A, f32.
-//                        Replaces `square_kernel` (tier "whole" of
-//                        `square_pallas`). A is copied into the block's
-//                        dynamic shared memory once; the row panel and the
-//                        column panel of every output tile the block computes
-//                        are read from that single copy.
+//   square_whole_kernel  C = A @ A from one staged copy of the rows and
+//                        columns of A a block's tiles read, f32. Replaces
+//                        `square_kernel` (tier "whole" of `square_pallas`).
+//                        They are copied into the block's dynamic shared
+//                        memory once, as a row strip and a column strip, and
+//                        every output tile the block computes reads both of
+//                        its panels from that copy.
 //   square_panel_kernel  C = A @ A from an (H, P) row panel held in shared
 //                        memory, f32. Replaces `square_panel_kernel`
 //                        (tier "panel"). The reference relies on a sequential
@@ -72,6 +73,13 @@
 //     {0, 20, 8, 28} -- four disjoint groups of four banks. Without the pad
 //     every row would start on bank 0 and the four rows would conflict. B
 //     needs no pad.
+//   * K2 (f32) is bound by latency and its grid, not by either rate (a
+//     192^2 squaring is 14 MFLOP, 0.2 us at 67 TFLOP/s): each block copies
+//     only the tile rows and tile columns of A its tiles read, into two
+//     compact strips padded like K3's panel, with one wait, so five
+//     16-wide one-tile blocks share an SM; K slices of 4 x 8 or 8 x 8
+//     thread tiles (WholeFma) share each tile's K loop. Its grid is its own
+//     (kernels/matmul.py:square_whole_grid, a model of the card's rates).
 //   * K3's grid is its own (kernels/matmul.py:square_panel_grid): a panel of
 //     32 or 64 rows and `groups` blocks per panel sharing its column tiles,
 //     chosen for the least output on the busiest SM, where the chain's
@@ -178,70 +186,12 @@ __device__ __forceinline__ void store_cvt(TOut* p, const Acc* s) {
   }
 }
 
-// Micro-tile geometry of K2 (16 x 16 threads). A thread with coordinate t
-// (0..15) along one axis owns TM elements of that axis, in chunks of V
-// consecutive elements; chunk c starts at c * 16 * V + t * V. For TM = 8
-// that is columns [4t, 4t+4) and [64 + 4t, 64 + 4t + 4): sixteen threads
-// read 256 contiguous bytes.
-template <int TM> struct Frag {
-  static constexpr int V = TM < 4 ? TM : 4;
-  static constexpr int NCHUNK = TM / V;
-  static __device__ __forceinline__ int offset(int chunk, int t) {
-    return chunk * 16 * V + t * V;
-  }
-  // Tile row (or column) of the thread's micro-element i.
-  static __device__ __forceinline__ int row(int i, int t) {
-    return offset(i / V, t) + i % V;
-  }
-};
-
 template <typename Acc, int TM, int TN = TM>
 __device__ __forceinline__ void zero_acc(Acc (&acc)[TM][TN]) {
 #pragma unroll
   for (int i = 0; i < TM; ++i)
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = Acc(0);
-}
-
-template <typename Acc, int TM>
-__device__ __forceinline__ void outer_fma(Acc (&acc)[TM][TM],
-                                          const Acc (&a)[TM],
-                                          const Acc (&b)[TM]) {
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TM; ++j) acc[i][j] = fma(a[i], b[j], acc[i][j]);
-}
-
-// Write the thread's micro-tile of a TILE x TILE output tile whose top-left
-// element is c (row stride ldc), one cast from the accumulator per element.
-template <typename TOut, typename Acc, int TM>
-__device__ __forceinline__ void store_tile(TOut* c, long long ldc, int ty,
-                                           int tx, const Acc (&acc)[TM][TM]) {
-  using F = Frag<TM>;
-#pragma unroll
-  for (int ci = 0; ci < F::NCHUNK; ++ci)
-#pragma unroll
-    for (int e = 0; e < F::V; ++e) {
-      const int i = ci * F::V + e;
-      TOut* row = c + (long long)(F::offset(ci, ty) + e) * ldc;
-#pragma unroll
-      for (int cj = 0; cj < F::NCHUNK; ++cj)
-        store_cvt<TOut, Acc, F::V>(row + F::offset(cj, tx),
-                                   &acc[i][cj * F::V]);
-    }
-}
-
-// Copy `count` contiguous elements (a multiple of 16 bytes) into shared
-// memory unchanged.
-template <typename T>
-__device__ __forceinline__ void stage_flat(const T* src, long long count,
-                                           T* dst, int tid) {
-  constexpr int VEC = 16 / sizeof(T);
-  const long long nvec = count / VEC;
-  const uint4* s = reinterpret_cast<const uint4*>(src);
-  uint4* d = reinterpret_cast<uint4*>(dst);
-  for (long long v = tid; v < nvec; v += kThreads) d[v] = s[v];
 }
 
 // ---------------------------------------------------------------------------
@@ -290,6 +240,46 @@ template <int H, int W> struct FmaPanel {
     return (size_t)H * (P + kPad) * 4 + kPanelStages * STAGE + SCRATCH;
   }
 };
+
+// K2: a TILE x TILE output tile in KS K slices of R x C thread tiles (the
+// REPRO_WHOLE_F32 lines). A slice is LY x LX threads, thread (ly, lx)
+// owning rows ly + LY i (i < R) and columns 4 lx + 4 LX c + e (c < C / 4,
+// e < 4): a warp's B load is 8 (LX >= 8) or LX distinct 16-byte addresses
+// in a row, its A loads rows at one k (pitch P + kPad puts four rows on
+// disjoint banks). The dynamic shared memory is the block's row strip
+// [NR * TILE][P + kPad] (the rows of A its tiles read as the left
+// operand), its column strip [P][NC * TILE + kPad] (the columns they read
+// as the right one) and the [KS][TILE][TILE] partial sums of every slice;
+// NR and NC are the most tile rows and tile columns a block of the grid
+// has (whole_strips).
+template <int TILE, int R, int C, int KS> struct WholeFma {
+  static constexpr int LY = TILE / R;
+  static constexpr int LX = TILE / C;
+  static constexpr int SLICE = LY * LX;
+  static constexpr int THREADS = KS * SLICE;
+  static constexpr int RED = KS * TILE * TILE * 4;
+  static size_t bytes(int P, int NR, int NC) {
+    return ((size_t)NR * TILE * (P + kPad) + (size_t)P * (NC * TILE + kPad)) *
+               4 + RED;
+  }
+};
+
+// The most tile rows (nr) and tile columns (nc) one block of a K2 grid of
+// `groups` blocks a matrix owns: block b takes tiles b, b + groups, ...
+// of the per_row^2 tiles (kernels/matmul.py:whole_strips is the same).
+inline void whole_strips(int per_row, int groups, int* nr, int* nc) {
+  const int n = per_row * per_row;
+  *nr = *nc = 0;
+  for (int b = 0; b < groups && b < n; ++b) {
+    unsigned rows = 0, cols = 0;
+    for (int t = b; t < n; t += groups) {
+      rows |= 1u << (t / per_row);
+      cols |= 1u << (t % per_row);
+    }
+    *nr = __builtin_popcount(rows) > *nr ? __builtin_popcount(rows) : *nr;
+    *nc = __builtin_popcount(cols) > *nc ? __builtin_popcount(cols) : *nc;
+  }
+}
 
 // Threads of a (4 R WM) x (8 C WN) output tile, R x C outputs each: WM x WN
 // warps, a warp's lanes 4 rows (ly) by 8 columns (lx). Thread t's outputs
@@ -439,56 +429,123 @@ matmul_kernel(const T* __restrict__ A, const T* __restrict__ B,
 }
 
 // ---------------------------------------------------------------------------
-// K2: C = A @ A, the whole of A staged once per block
+// K2: C = A @ A, the boxes of A a block's tiles read staged once per block
 // ---------------------------------------------------------------------------
 
-template <typename T, typename TOut, int TILE>
-__global__ void __launch_bounds__(kThreads)
-square_whole_kernel(const T* __restrict__ A, TOut* __restrict__ C, int P,
-                    long long sA, long long sC) {
-  using Acc = typename Num<T>::Acc;
-  constexpr int TM = TILE / 16;
-  using F = Frag<TM>;
+// Block (x, 0, z) computes the output tiles x, x + gridDim.x, ... of matrix
+// z. It copies the rows of A those tiles read (their tile rows, whole) into
+// its row strip and the columns they read (their tile columns, every row)
+// into its column strip, a tile row or column at the strip's next slot in
+// index order, by 16-byte `cp.async`; waits once; and computes every tile
+// from that copy. A tile's K loop is cut into KS K slices (WholeFma):
+// slice q takes the k groups q, q + KS, ... of kStepK k each; at the end of
+// the tile every slice writes its sums to shared memory and all threads add
+// them in slice order, each a share of the tile, and store it. `nr` is the
+// row strip's tile rows, `ldc` the column strip's pitch (NC * TILE + kPad).
+template <int TILE, int R, int C, int KS>
+__global__ void __launch_bounds__(WholeFma<TILE, R, C, KS>::THREADS)
+square_whole_kernel(const float* __restrict__ A, float* __restrict__ Out,
+                    int P, int nr, int ldc, long long sA, long long sC) {
+  using W = WholeFma<TILE, R, C, KS>;
+  constexpr int THREADS = W::THREADS, LY = W::LY, LX = W::LX;
+  constexpr int T4 = TILE * TILE / 4;      // float4s of an output tile
+  static_assert(C % 4 == 0 && W::SLICE % 8 == 0,
+                "K2's thread tiles and slices");
 
   extern __shared__ __align__(16) unsigned char smem[];
-  T* As = reinterpret_cast<T*>(smem);  // [P][P], storage type
+  const int ldr = P + kPad;
+  float* Rs = reinterpret_cast<float*>(smem);   // [nr * TILE][ldr]
+  float* Cs = Rs + (size_t)nr * TILE * ldr;      // [P][ldc]
+  float* red = Cs + (size_t)P * ldc;             // [KS][TILE][TILE]
 
   const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
+  const int q = tid / W::SLICE, st = tid % W::SLICE;
+  const int ly = st / LX, lx = st % LX;
   A += blockIdx.z * sA;
-  C += blockIdx.z * sC;
+  Out += blockIdx.z * sC;
 
-  stage_flat<T>(A, (long long)P * P, As, tid);
+  const int per_row = P / TILE, n_tiles = per_row * per_row;
+  unsigned rows = 0, cols = 0;   // bit i: tile row / column i is the block's
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    rows |= 1u << (tile / per_row);
+    cols |= 1u << (tile % per_row);
+  }
+
+  // Tile rows whole (TILE rows of P / 4 chunks each), then tile columns
+  // (P rows of TILE / 4 chunks each); one commit group.
+  const int cpr = P / 4;
+  for (int tr = 0; tr < per_row; ++tr) {
+    if (!(rows >> tr & 1)) continue;
+    float* dst = Rs + __popc(rows & ((1u << tr) - 1)) * TILE * ldr;
+    const float* src = A + (long long)tr * TILE * P;
+    for (int v = tid; v < TILE * cpr; v += THREADS) {
+      const int r = v / cpr, c = v % cpr * 4;
+      cp_async16(dst + r * ldr + c, src + (long long)r * P + c);
+    }
+  }
+  for (int tc = 0; tc < per_row; ++tc) {
+    if (!(cols >> tc & 1)) continue;
+    float* dst = Cs + __popc(cols & ((1u << tc) - 1)) * TILE;
+    const float* src = A + tc * TILE;
+    for (int v = tid; v < P * (TILE / 4); v += THREADS) {
+      const int r = v / (TILE / 4), c = v % (TILE / 4) * 4;
+      cp_async16(dst + r * ldc + c, src + (long long)r * P + c);
+    }
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
   __syncthreads();
 
-  // The blocks of one matrix (gridDim.x of them) share its output tiles.
-  const int tiles_per_row = P / TILE;
-  const int n_tiles = tiles_per_row * tiles_per_row;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int row0 = (tile / tiles_per_row) * TILE;
-    const int col0 = (tile % tiles_per_row) * TILE;
-    Acc acc[TM][TM];
-    zero_acc<Acc, TM>(acc);
-    for (int kk = 0; kk < P; kk += kStepK) {
-      // The thread's rows of A, kStepK consecutive k at a time: one 16-byte
-      // shared load per row (all sixteen threads of a row broadcast).
-      Acc a4[TM][kStepK];
+    const int tr = tile / per_row, tc = tile % per_row;
+    float acc[R][C];
+    zero_acc<float, R, C>(acc);
+    // The thread's rows of A four k at a time (one 16-byte load per row),
+    // each k's row of A across its columns.
+    const float* a =
+        Rs + (__popc(rows & ((1u << tr) - 1)) * TILE + ly) * ldr;
+    const float* b = Cs + __popc(cols & ((1u << tc) - 1)) * TILE + 4 * lx;
+    for (int k = kStepK * q; k < P; k += kStepK * KS) {
+      float a4[R][kStepK];
 #pragma unroll
-      for (int i = 0; i < TM; ++i)
-        load_cvt<T, kStepK>(As + (row0 + F::row(i, ty)) * P + kk, a4[i]);
+      for (int i = 0; i < R; ++i)
+        load_cvt<float, kStepK>(a + LY * i * ldr + k, a4[i]);
 #pragma unroll
       for (int s = 0; s < kStepK; ++s) {
-        Acc a[TM], b[TM];
+        float bv[C];
 #pragma unroll
-        for (int i = 0; i < TM; ++i) a[i] = a4[i][s];
+        for (int c = 0; c < C / 4; ++c)
+          load_cvt<float, 4>(b + (k + s) * ldc + 4 * LX * c, bv + 4 * c);
 #pragma unroll
-        for (int c = 0; c < F::NCHUNK; ++c)
-          load_cvt<T, F::V>(As + (kk + s) * P + col0 + F::offset(c, tx),
-                            b + c * F::V);
-        outer_fma<Acc, TM>(acc, a, b);
+        for (int i = 0; i < R; ++i)
+#pragma unroll
+          for (int j = 0; j < C; ++j)
+            acc[i][j] = fmaf(a4[i][s], bv[j], acc[i][j]);
       }
     }
-    store_tile<TOut, Acc, TM>(C + (long long)row0 * P + col0, P, ty, tx, acc);
+    float* part = red + q * TILE * TILE;
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int c = 0; c < C / 4; ++c)
+        store_cvt<float, float, 4>(
+            part + (ly + LY * i) * TILE + 4 * lx + 4 * LX * c, &acc[i][4 * c]);
+    __syncthreads();
+    for (int v = tid; v < T4; v += THREADS) {
+      float sum[4];
+      load_cvt<float, 4>(red + 4 * v, sum);
+#pragma unroll
+      for (int p = 1; p < KS; ++p) {
+        float more[4];
+        load_cvt<float, 4>(red + p * TILE * TILE + 4 * v, more);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sum[e] += more[e];
+      }
+      const int r = v / (TILE / 4), c = v % (TILE / 4) * 4;
+      store_cvt<float, float, 4>(
+          Out + (long long)(tr * TILE + r) * P + tc * TILE + c, sum);
+    }
+    __syncthreads();   // the partial sums are written again by the next tile
   }
 }
 
@@ -627,16 +684,21 @@ static int launch_matmul(const void* a, const void* b, void* c, int M, int N,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, typename TOut, int TILE>
+template <int TILE, int R, int C, int KS>
 static int launch_square_whole(const void* a, void* c, int P, long long sA,
                                long long sC, int batch, int groups,
                                cudaStream_t stream) {
-  const size_t smem = (size_t)P * P * sizeof(T);
-  auto kernel = square_whole_kernel<T, TOut, TILE>;
+  using W = WholeFma<TILE, R, C, KS>;
+  if (P / TILE > 32) return -1;   // a block's tile rows are one bit mask
+  int nr, nc;
+  whole_strips(P / TILE, groups, &nr, &nc);
+  const size_t smem = W::bytes(P, nr, nc);
+  auto kernel = square_whole_kernel<TILE, R, C, KS>;
   if (int err = allow_smem(kernel, smem)) return err;
   dim3 grid(groups, 1, batch);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(a), static_cast<TOut*>(c), P, sA, sC);
+  kernel<<<grid, W::THREADS, smem, stream>>>(
+      static_cast<const float*>(a), static_cast<float*>(c), P, nr,
+      nc * TILE + kPad, sA, sC);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -676,28 +738,24 @@ static int matmul_dispatch(const void* a, const void* b, void* c, int M, int N,
   return -1;
 }
 
-// K2: `out_acc` selects the output type, 0 the input type, 1 the
-// accumulation type (the same for f32); `tile` is the square output tile.
+// K2's instantiated output tiles and the thread tile (R x C) and K slices
+// of each; kernels/matmul.py:WHOLE_F32 is the same table. `tile` is the
+// square output tile; the output is f32 (its own accumulation type).
 template <typename T>
 static int square_whole_dispatch(const void* a, void* c, int P, int tile,
                                  long long sA, long long sC, int batch,
-                                 int groups, int out_acc, void* stream) {
-  using Acc = typename Num<T>::Acc;
+                                 int groups, void* stream) {
+  static_assert(sizeof(T) == 4, "the FMA K2 is the f32 kernel");
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (tile) {
-#define REPRO_WHOLE_TILE(TILE_)                                               \
-  case TILE_:                                                                \
-    return out_acc ? launch_square_whole<T, Acc, TILE_>(a, c, P, sA, sC,     \
-                                                        batch, groups, st)   \
-                   : launch_square_whole<T, T, TILE_>(a, c, P, sA, sC,       \
-                                                      batch, groups, st);
-    REPRO_WHOLE_TILE(32)
-    REPRO_WHOLE_TILE(64)
-    REPRO_WHOLE_TILE(128)
-#undef REPRO_WHOLE_TILE
-    default:
-      return -1;
-  }
+#define REPRO_WHOLE_F32(TILE_, R_, C_, KS_)                                 \
+  if (tile == TILE_)                                                       \
+    return launch_square_whole<TILE_, R_, C_, KS_>(a, c, P, sA, sC, batch, \
+                                                   groups, st);
+  REPRO_WHOLE_F32(16, 4, 8, 16)
+  REPRO_WHOLE_F32(32, 8, 4, 4)
+  REPRO_WHOLE_F32(64, 8, 8, 4)
+#undef REPRO_WHOLE_F32
+  return -1;
 }
 
 // K3's instantiated (panel height, column width) pairs;
@@ -740,8 +798,9 @@ static int square_panel_dispatch(const void* a, void* c, int P, int tile,
   extern "C" int repro_square_whole_##SUFFIX(                                 \
       const void* a, void* c, int P, int tile, long long sA, long long sC,   \
       int batch, int groups, int out_acc, void* stream) {                     \
+    (void)out_acc;                                                            \
     return repro::square_whole_dispatch<TYPE>(a, c, P, tile, sA, sC, batch,  \
-                                              groups, out_acc, stream);       \
+                                              groups, stream);                \
   }                                                                           \
   extern "C" int repro_square_panel_##SUFFIX(                                 \
       const void* a, void* c, int P, int tile, int width, int bk,            \

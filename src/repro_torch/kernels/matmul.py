@@ -12,7 +12,8 @@ kernels stand where its three Pallas kernels stood:
 For f32 all three are the FMA kernels of ``csrc/gemm.cuh`` (K1 and K3 fed by
 a ``cp.async`` ring whose K step and stages are compile-time: K1 takes only
 the ``F32_BLOCKS`` pairs, K3 picks its own panel height and grid,
-``square_panel_grid``). For bf16 and
+``square_panel_grid``; K2 stages the boxes of A its tiles read and splits
+K into slices, on a tile and grid of its own). For bf16 and
 f16 all three are the tensor-core kernels of ``csrc/gemm_tc.cuh`` (K1 and K3
 ``wgmma`` fed by a TMA ring, ``mma.sync`` at tile 32; K2 ``mma.sync`` on A
 staged by TMA), counted under ``matmul_tc`` / ``square_whole_tc`` /
@@ -26,8 +27,9 @@ tiles and grids there too. The stacked
 K1 and K3 are bound by operations, not bytes, at the sizes the chain uses,
 and K2 by latency and the grid; the ``.cuh`` files say what each design does
 about it. What each squaring tier keeps out of device memory: "whole" stages
-A once per block (its tiles' boxes of it, on the tensor cores) and takes
-both panels of every output tile from that copy (no second read of A);
+what a block's tiles read of A once per block (its tiles' boxes of it on
+the tensor cores, their rows and columns in f32) and takes both panels of
+every output tile from that copy (no second read of A);
 "panel" stages a row panel once per block and loops over the column tiles
 inside the block (no re-read of the row panel per output tile).
 
@@ -58,13 +60,14 @@ __all__ = ["matmul_cuda", "matmul_plain", "square_cuda", "square_plain",
            "panel_width", "panel_smem_footprint", "smem_footprint",
            "fma_smem_bytes", "fma_panel_smem_bytes", "tc_smem_bytes",
            "dmma_smem_bytes", "whole_tc_smem_bytes", "whole_dmma_smem_bytes",
-           "dmma_panel_smem_bytes", "dmma_panel_ring", "kernel_name",
+           "dmma_panel_smem_bytes", "dmma_panel_ring", "whole_fma_smem_bytes",
+           "whole_smem_bytes", "kernel_name",
            "DEFAULT_BLOCK", "KERNEL_TILES", "SMEM_PER_BLOCK", "SMEM_PER_SM",
            "L2_BYTES", "SM_COUNT", "F32_BLOCKS", "F32_STAGES", "FMA_PANELS",
            "FMA_PANEL_BK", "FMA_PANEL_STAGES", "TC_BLOCKS", "TC_DEFAULT_BK",
            "DMMA_BLOCKS", "DMMA_STAGES", "DMMA_TILES", "DMMA_PANELS",
            "DMMA_PANEL_RINGS",
-           "WHOLE_TC_TILES", "WHOLE_DMMA_TILES", "KERNELS",
+           "WHOLE_TC_TILES", "WHOLE_DMMA_TILES", "WHOLE_F32", "KERNELS",
            "SQUARE_SMEM_LIMIT", "SQUARE_PANEL_LIMIT", "LAUNCHES",
            "last_launch", "reset_launches", "launch_counts"]
 
@@ -87,6 +90,13 @@ SM_COUNT = 132
 SMEM_PAD = 4
 #: Square output tiles the kernels are instantiated for.
 KERNEL_TILES = (32, 64, 128)
+#: Output tiles the f32 FMA K2 is instantiated for, each with its thread
+#: tile (R rows x C columns) and K slices (the ``REPRO_WHOLE_F32`` lines of
+#: csrc/gemm.cuh; ``whole_fma_smem_bytes``).
+WHOLE_F32 = {16: (4, 8, 16), 32: (8, 4, 4), 64: (8, 8, 4)}
+#: Tiles a side of an f32 K2 operand at most (a block's tile rows and
+#: columns are one 32-bit mask each).
+WHOLE_F32_MAX_PER_ROW = 32
 #: (tile, K step) pairs the f32 FMA K1 is instantiated for, and the ring
 #: stages of each (the ``REPRO_F32_TILE`` lines of csrc/gemm.cuh;
 #: ``fma_smem_bytes``).
@@ -158,6 +168,17 @@ DMMA_SQUARE_WARPS = 4
 DMMA_STEP_NS = 330
 DMMA_BLOCK_GBPS = 71
 DMMA_SM_GFLOPS = 400
+#: The f32 K2 grid rule's model of a block on its SM (``_fma_whole_grid``):
+#: each block costs ``FMA_WHOLE_BLOCK_NS`` (its wait and barriers), each
+#: byte it copies from L2 1 / ``FMA_WHOLE_BLOCK_GBPS`` ns (both the fp64
+#: rule's fit), and each flop 1 / ``FMA_SM_GFLOPS`` ns of its SM's FMA
+#: pipeline (67 TFLOP/s over 132 SMs) divided by the share of that rate its
+#: thread tile can feed from shared memory (``_fma_feed``). At each operand
+#: ``tools/sweep_fma_k2_k5.py`` times (128², 192², 224², 32 x 128²) the grid
+#: it picks was the fastest of those timed (PERF.md §6).
+FMA_WHOLE_BLOCK_NS = 330
+FMA_WHOLE_BLOCK_GBPS = 71
+FMA_SM_GFLOPS = 507
 
 # Default tile: 128 x 128 output tile per 256-thread block (an 8 x 8
 # register micro-tile per thread, 256 FMAs for sixteen 16-byte shared
@@ -167,9 +188,10 @@ DMMA_SM_GFLOPS = 400
 # the SMs with 128s.
 DEFAULT_BLOCK = (128, 128, 32)
 
-# "whole" tier: the operand itself (in its storage dtype) is the block's
-# dynamic shared memory, so the limit IS the per-block shared memory:
-# P <= 224 at 4 bytes, P <= 320 at 2 bytes for tile-divisible P.
+# "whole" tier: the operand (in its storage dtype) fits the per-block shared
+# memory: P <= 224 at 4 bytes, P <= 320 at 2 bytes for tile-divisible P.
+# Each K2 block stages what its tiles read of it (the f32 K2 their rows and
+# columns only, in strips far smaller than the operand).
 SQUARE_SMEM_LIMIT = SMEM_PER_BLOCK
 
 # "panel" tier: every block row streams the whole column panel again, so the
@@ -289,6 +311,43 @@ def whole_dmma_smem_bytes(p: int) -> int:
     ``DMMA_PAD``, and ``WHOLE_DMMA_RED`` for the partial sums of every
     instantiated tile."""
     return p * (p + DMMA_PAD) * 8 + WHOLE_DMMA_RED
+
+
+@functools.lru_cache(maxsize=None)
+def whole_strips(per_row: int, groups: int) -> tuple:
+    """(tile rows, tile columns): the most that one block of a K2 grid of
+    ``groups`` blocks a matrix owns, block b taking tiles b, b + groups, ...
+    of ``per_row``² (``whole_strips`` of csrc/gemm.cuh). Memoised: a
+    launch checks its footprint on every call."""
+    n = per_row * per_row
+    nr = nc = 0
+    for b in range(min(groups, n)):
+        mine = range(b, n, groups)
+        nr = max(nr, len({t // per_row for t in mine}))
+        nc = max(nc, len({t % per_row for t in mine}))
+    return nr, nc
+
+
+def whole_fma_smem_bytes(p: int, tile: int, groups: int) -> int:
+    """Dynamic shared-memory bytes the f32 K2 asks for over a ``(p, p)``
+    operand on output tiles of ``tile``, ``groups`` blocks a matrix: the
+    ``WholeFma`` formula of csrc/gemm.cuh (a test evaluates it against this
+    one) — the row strip of the block's tile rows and the column strip of
+    its tile columns (``whole_strips``), rows padded by ``SMEM_PAD``, and
+    the partial sums of the tile's K slices. A tile that is not
+    instantiated raises ``KeyError``."""
+    nr, nc = whole_strips(p // tile, groups)
+    return ((nr * tile * (p + SMEM_PAD) + p * (nc * tile + SMEM_PAD)) * 4
+            + WHOLE_F32[tile][2] * tile * tile * 4)
+
+
+def _fma_feed(rows: int, cols: int) -> float:
+    """Share of the FMA rate an R x C thread tile keeps fed: it reads R + C
+    16-byte words from shared memory per 4 R C FMAs, and a word costs the
+    SM four of the cycles in which it issues 16 warp FMAs (the rates
+    PERF.md §6 records for the FMA kernels), so the pipe is fed where
+    4 R C >= 16 (R + C)."""
+    return min(1.0, rows * cols / (4 * (rows + cols)))
 
 
 def dmma_slices(tm: int, tn: int) -> int:
@@ -495,21 +554,21 @@ def _groups(shared_tiles: int, independent_blocks: int) -> int:
 def square_whole_grid(p: int, batch: int, dtype) -> tuple:
     """(output tile, groups) of a whole-operand squaring (K2) of a ``(p, p)``
     operand, or a stack of ``batch`` of them, chosen by K2 itself whatever
-    the chain's tile. f64 (the DMMA K2): ``_dmma_whole_grid``. Else, for
-    each of its tiles that divides ``p``
-    (``WHOLE_TC_TILES`` for bf16 / f16, ``KERNEL_TILES`` for f32), ``_groups``
-    blocks share each matrix's tiles; the tile taken is the one whose
-    busiest SM has the least output to compute — waves of ``SM_COUNT``
-    blocks times the tiles of a block times a tile's area — the larger on a
-    tie (fewer, larger tiles stage A fewer times and keep more of each
-    block's math in registers). So 192² takes 32-wide tiles (36 blocks
-    instead of 9), and a stack of 32 of 128² 64-wide ones (128 blocks of
-    one tile, not 160 of four). ``p`` is a multiple of the chain's tile, so
-    of 32."""
+    the chain's tile. f64 (the DMMA K2): ``_dmma_whole_grid``; f32 (the FMA
+    K2): ``_fma_whole_grid``. bf16 / f16: for each of ``WHOLE_TC_TILES``
+    that divides ``p``, ``_groups`` blocks share each matrix's tiles; the
+    tile taken is the one whose busiest SM has the least output to compute
+    — waves of ``SM_COUNT`` blocks times the tiles of a block times a
+    tile's area — the larger on a tie (fewer, larger tiles stage A fewer
+    times and keep more of each block's math in registers). So 192² takes
+    32-wide tiles (36 blocks instead of 9), and a stack of 32 of 128²
+    64-wide ones (128 blocks of one tile, not 160 of four). ``p`` is a
+    multiple of the chain's tile, so of 32."""
     if dtype == torch.float64:
         return _dmma_whole_grid(p, batch)
-    tiles = WHOLE_TC_TILES if dtype in (torch.float16, torch.bfloat16) \
-        else KERNEL_TILES
+    if dtype == torch.float32:
+        return _fma_whole_grid(p, batch)
+    tiles = WHOLE_TC_TILES
     best = None
     for tile in sorted((t for t in tiles if p % t == 0), reverse=True):
         count = (p // tile) ** 2
@@ -553,13 +612,10 @@ def _dmma_whole_grid(p: int, batch: int) -> tuple:
     kernels take."""
     best = None
     for tile in (t for t in WHOLE_DMMA_TILES if p % t == 0):
-        per_row = p // tile
-        count = per_row * per_row
+        count = (p // tile) ** 2
         for groups in range(1, count + 1):
             mine = range(0, count, groups)
-            rows = len({t // per_row for t in mine}) * tile
-            cols = len({t % per_row for t in mine}) * tile
-            staged = (rows * p + p * cols - rows * cols) * 8
+            staged = _whole_staged(p, tile, mine) * 8
             key = (_dmma_cost(groups * batch, whole_dmma_smem_bytes(p), 1,
                               staged, len(mine) * 2 * tile * tile * p),
                    groups * batch, -tile)
@@ -568,6 +624,62 @@ def _dmma_whole_grid(p: int, batch: int) -> tuple:
     if best is None:
         raise ValueError(f"no whole-operand tile of {WHOLE_DMMA_TILES} "
                          f"divides {p}")
+    return best[1], best[2]
+
+
+def _whole_staged(p: int, tile: int, mine) -> int:
+    """Elements of A a K2 block stages for its output tiles ``mine`` (on a
+    ``(p, p)`` operand cut in tiles of ``tile``): the rows and the columns
+    its tiles read, their crossing once."""
+    per_row = p // tile
+    rows = len({t // per_row for t in mine}) * tile
+    cols = len({t % per_row for t in mine}) * tile
+    return rows * p + p * cols - rows * cols
+
+
+@functools.lru_cache(maxsize=None)
+def _fma_whole_grid(p: int, batch: int) -> tuple:
+    """(output tile, groups) of the f32 K2: over the ``WHOLE_F32`` tiles
+    that divide ``p`` and every count of blocks sharing a matrix whose
+    footprint fits a block's shared memory (every one where none fits: a
+    call the kernel route refuses), the least modelled time of the busiest
+    SM (``FMA_WHOLE_BLOCK_NS``, ``FMA_WHOLE_BLOCK_GBPS``,
+    ``FMA_SM_GFLOPS``) for a matrix's first block (it has the most tiles):
+    it stages the rows and columns of A its tiles read, waits for them once
+    and computes its tiles, as many blocks at once on an SM as their shared
+    memory and threads allow. On a tie, fewer blocks, then the larger tile.
+    So a single 192² operand takes 16-wide tiles, one a block (144 blocks,
+    five to an SM), and a stack of 32 of 128² 64-wide ones (128 blocks).
+    Memoised, as the f64 rule."""
+    grids = [(t, g) for t in WHOLE_F32
+             if p % t == 0 and p // t <= WHOLE_F32_MAX_PER_ROW
+             for g in range(1, (p // t) ** 2 + 1)]
+    fitting = [(t, g) for t, g in grids
+               if whole_fma_smem_bytes(p, t, g) <= SMEM_PER_BLOCK]
+    best = None
+    for tile, groups in fitting or grids:
+        rows, cols, slices = WHOLE_F32[tile]
+        footprint = whole_fma_smem_bytes(p, tile, groups)
+        threads = slices * tile * tile // (rows * cols)
+        resident = max(1, min(SMEM_PER_SM // (footprint
+                                              + SMEM_PER_RESIDENT_BLOCK),
+                              THREADS_PER_SM // threads))
+        rate = FMA_SM_GFLOPS * _fma_feed(rows, cols)
+        mine = range(0, (p // tile) ** 2, groups)
+        blocks = groups * batch
+        per_sm = -(-blocks // SM_COUNT)
+        waves = -(-per_sm // resident)
+        ns = (waves * (FMA_WHOLE_BLOCK_NS
+                       + _whole_staged(p, tile, mine) * 4
+                       / FMA_WHOLE_BLOCK_GBPS)
+              + per_sm * len(mine) * 2 * tile * tile * p / rate)
+        key = (ns, blocks, -tile)
+        if best is None or key < best[0]:
+            best = (key, tile, groups)
+    if best is None:
+        raise ValueError(f"no whole-operand tile of {tuple(WHOLE_F32)} "
+                         f"divides {p} in at most "
+                         f"{WHOLE_F32_MAX_PER_ROW} tiles a side")
     return best[1], best[2]
 
 
@@ -899,10 +1011,9 @@ def square_cuda(a: torch.Tensor, *,
             f"shape ({p},{p}) not divisible by the K step {block_k} the "
             f"panel kernel stages the column panel in; use ops.MatmulChain "
             f"/ ops.matmul for arbitrary shapes")
-    whole_bytes = {"square_whole_tc": whole_tc_smem_bytes,
-                   "square_whole_dmma": whole_dmma_smem_bytes}.get(
-        name, lambda p: p * p * a.element_size())(p)
-    if tier == "whole" and whole_bytes > SMEM_PER_BLOCK:
+    launch = _square_grid(tier, p, batch or 1, a.dtype, tile)
+    if tier == "whole" and whole_smem_bytes(
+            name, p, launch["tile"], launch["groups"]) > SMEM_PER_BLOCK:
         raise ValueError(
             f"{what}: smem_limit={smem_limit} sends a ({p},{p}) "
             f"{a.dtype} operand to the whole-operand kernel, but it does "
@@ -910,7 +1021,6 @@ def square_cuda(a: torch.Tensor, *,
     out_dtype, kernel_dtype, out_acc = _kernel_types(a, out_dtype)
     c = _kernel_output(out, a.shape, kernel_dtype, a, (a,), what)
     stride = p * p if batch is not None else 0
-    launch = _square_grid(tier, p, batch or 1, a.dtype, tile)
     if tier == "whole":
         _launch("repro_square_whole", a,
                 (a.data_ptr(), c.data_ptr(), p, launch["tile"], stride,
@@ -927,13 +1037,27 @@ def square_cuda(a: torch.Tensor, *,
     return _finish(c, out, out_dtype)
 
 
+def whole_smem_bytes(name: str, p: int, tile: int, groups: int) -> int:
+    """Dynamic shared-memory bytes the K2 counted under ``name`` asks for
+    over a ``(p, p)`` operand on output tiles of ``tile``, ``groups``
+    blocks a matrix."""
+    if name == "square_whole_tc":
+        return whole_tc_smem_bytes(p)
+    if name == "square_whole_dmma":
+        return whole_dmma_smem_bytes(p)
+    return whole_fma_smem_bytes(p, tile, groups)
+
+
 def _square_grid(tier, p, batch, dtype, block_m) -> dict:
     """The grid of a squaring launch, the same on both routes: K2's from
-    ``square_whole_grid``, K3's from ``square_panel_grid`` (its ``tile`` is
-    the panel height, ``width`` the column width of its output tiles)."""
+    ``square_whole_grid`` (f32 also its K ``slices``), K3's from
+    ``square_panel_grid`` (its ``tile`` is the panel height, ``width`` the
+    column width of its output tiles)."""
     if tier == "whole":
         tile, groups = square_whole_grid(p, batch, dtype)
-        return dict(tile=tile, blocks=groups * batch, groups=groups)
+        extra = {"slices": WHOLE_F32[tile][2]} \
+            if dtype == torch.float32 else {}
+        return dict(tile=tile, blocks=groups * batch, groups=groups, **extra)
     tile, width, groups = square_panel_grid(p, batch, dtype, block_m)
     return dict(tile=tile, width=width,
                 blocks=groups * (p // tile) * batch, groups=groups)

@@ -158,7 +158,7 @@ def cuh_struct(src: str, name: str, **params) -> dict:
     for member, expr in re.findall(r"static constexpr int (\w+) =\s*(.*?);",
                                    body, flags=re.S):
         names[member] = evaluate(expr)
-    returned = re.search(r"bytes\(int P\) \{\s*return (.*?);", body,
+    returned = re.search(r"bytes\(int P[^)]*\) \{\s*return (.*?);", body,
                          flags=re.S)
     if returned and "P" in params:
         names["bytes"] = evaluate(returned.group(1))

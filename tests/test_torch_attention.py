@@ -32,7 +32,7 @@ from repro.kernels import ref as jref
 from repro_torch.kernels import attention_kernels as A
 from repro_torch.kernels import autotune, ops, ref
 
-from _torch_parity import as_f64, cuh_struct, pair
+from _torch_parity import as_f64, cuh_constants, cuh_struct, pair
 
 RTOL = {"float32": 1e-5, "bfloat16": 2.0 ** -8, "float16": 2.0 ** -10}
 CSRC = Path(A.__file__).parent / "csrc"
@@ -219,10 +219,18 @@ class TestBlocks:
         tile the picker could choose but the library lacks would only show
         as a -1 from the launcher on the card. The 16-bit tiles are 64 or
         128 queries (one or two consumer warpgroups) and a multiple of 16
-        keys, and every head width has one in both families."""
+        keys, and every head width has one in both families. The FMA lines
+        carry each tile's ring slots too (``ATTN_FMA_STAGES``)."""
         src = (CSRC / source).read_text()
-        lines = re.findall(rf"^\s*{macro}\((\d+), (\d+), (\d+)\)\s*$",
-                           src, flags=re.M)
+        tail = r", (\d+)" if family == "fma" else ""
+        lines = re.findall(
+            rf"^\s*{macro}\((\d+), (\d+), (\d+){tail}\)\s*$", src,
+            flags=re.M)
+        if family == "fma":
+            assert {tuple(int(x) for x in line[:3]): int(line[3])
+                    for line in lines} == A.ATTN_FMA_STAGES
+            assert all(int(line[3]) >= 2 for line in lines)
+            lines = [line[:3] for line in lines]
         in_cuda = sorted(tuple(int(x) for x in line) for line in lines)
         in_python = sorted((d, tq, tk)
                            for d, tiles in A.ATTN_TILES[family].items()
@@ -256,8 +264,13 @@ class TestBlocks:
             for d, tiles in A.attn_tiles(dtype).items():
                 for tile in tiles:
                     assert A.attn_smem_footprint(*tile, d, dtype) <= 232_448
-        # the issue's figure: q, k, v and score tiles at 64 x 64, d 128
-        assert 110_000 < A.attn_smem_footprint(64, 64, 128) < 125_000
+        # the FMA kernel at 64 x 64, d 128: Q 33,792 B, three ring slots of
+        # a K or a V tile of 33,792 B each, P 64 x 72 floats
+        assert A.attn_smem_footprint(64, 64, 128) \
+            == 4 * 64 * 132 + 3 * 4 * 64 * 132 + 4 * 64 * 72 == 153_600
+        # with copies in flight, Q 128 x 128 and two slots in flight beside
+        # the one that computes fit at d = 128
+        assert A.attn_smem_footprint(128, 64, 128) == 205_824
         # the tensor-core ring: Q 32 KB + 2 x (K 32 KB + V 32 KB) at
         # (128, 128, 128), one block per SM; Q 32 KB + 2 x (16 + 16) KB at
         # (128, 64, 128)
@@ -265,6 +278,31 @@ class TestBlocks:
             == 1024 + 32768 + 2 * 65536 + 5 * 8
         assert A.attn_smem_footprint(128, 64, 128, torch.float16) \
             == 1024 + 32768 + 2 * 32768 + 5 * 8
+
+    @pytest.mark.parametrize("d,tile", [
+        (d, t) for d, ts in A.ATTN_TILES["fma"].items() for t in ts])
+    def test_fma_footprint_is_the_cuh_formula(self, d, tile):
+        """What ``attn_smem_footprint`` says an f32 / f64 block asks for is
+        attention.cuh's ``Layout`` evaluated as written: Q, the tile's ring
+        slots and P fit a block with at least two slots; at D = 128 a 128-row
+        Q tile and a 64-key ring slot are 67.6 and 33.8 KB."""
+        src = (CSRC / "attention.cuh").read_text()
+        stages = A.ATTN_FMA_STAGES[(d, *tile)]
+        layout = cuh_struct(src, "Layout", BQ=tile[0], BK=tile[1], D=d,
+                            STAGES=stages)
+        assert A.attn_smem_footprint(*tile, d, torch.float32) \
+            == A.attn_smem_footprint(*tile, d, torch.float64) \
+            == layout["BYTES"] <= 232_448
+        assert layout["LD"] % 32 == 4
+        # a split score product (fewer than 64 scores a thread) pads P rows
+        # to 8 mod 32 banks, else to 16
+        split = tile[0] * tile[1] < 64 * A.ATTN_THREADS
+        assert layout["SPLIT"] == (2 if split else 1)
+        assert layout["LDP"] % 32 == (8 if split else 16)
+        assert cuh_constants(src)["kThreads"] == A.ATTN_THREADS
+        assert cuh_struct(src.replace("STAGES * SLOT", "SLOT", 1), "Layout",
+                          BQ=tile[0], BK=tile[1], D=d,
+                          STAGES=stages)["BYTES"] != layout["BYTES"]
 
     @pytest.mark.parametrize("d,tile", [
         (d, t) for d, ts in A.ATTN_TILES["tc"].items() for t in ts])

@@ -124,8 +124,10 @@ def test_kernel_route_refuses_what_it_does_not_take(cuda):
         K.matmul_cuda(a, a, block_m=16, block_n=16, block_k=16)
     with pytest.raises(TypeError, match="dtype"):
         K.matmul_cuda(a.int(), a.int(), **B64)
+    # sent to the whole tier, 1024^2 f32 has no K2 grid whose strips fit
+    # a block (512^2 has since K2 stages only its tiles' rows and columns)
     with pytest.raises(ValueError, match="does not fit"):
-        K.square_cuda(_randn((512, 512), torch.float32, cuda), **B64,
+        K.square_cuda(_randn((1024, 1024), torch.float32, cuda), **B64,
                       smem_limit=1 << 30)
     assert not any(K.launch_counts().values())
 
@@ -278,13 +280,13 @@ def test_tc_square_whole_fills_the_card_at_192(cuda):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("shape,tile", [((128, 128), 32), ((3, 128, 128), 32),
+@pytest.mark.parametrize("shape,tile", [((128, 128), 16), ((3, 128, 128), 16),
                                         ((33, 128, 128), 64),
                                         ((132, 64, 64), 64)])
 def test_fma_square_whole_grid_rule(cuda, shape, tile, dtype):
-    """f32 K2 on the FMA pipeline at tiles 32 and 64, as its grid rule
-    picks them; f64 K2 on the fp64 tensor cores (``square_whole_dmma``) on
-    the tile its own rule picks."""
+    """f32 K2 on the FMA pipeline at tiles 16 and 64, as its grid rule
+    picks them, with its K slices; f64 K2 on the fp64 tensor cores
+    (``square_whole_dmma``) on the tile its own rule picks."""
     a = _randn(shape, dtype, cuda, 22)
     kw = dict(block_m=32, block_n=32, block_k=16)
     got = K.square_cuda(a, **kw)
@@ -293,7 +295,64 @@ def test_fma_square_whole_grid_rule(cuda, shape, tile, dtype):
     assert K.last_launch["tile"] == (
         tile if dtype == torch.float32
         else K.square_whole_grid(p, batch, dtype)[0])
+    if dtype == torch.float32:
+        assert K.last_launch["slices"] == K.WHOLE_F32[tile][2]
     _close(got, K.square_plain(a, **kw), dtype)
+
+
+def _f32_whole_grids():
+    """(tile, groups, shape) for every f32 K2 tile: one block per tile, a
+    few blocks of several tiles each (uneven counts too), single and
+    stacked — each grid whose strips fit a block's shared memory."""
+    cases = []
+    for shape in ((192, 192), (2, 96, 96)):
+        p = shape[-1]
+        for tile in sorted(K.WHOLE_F32):
+            count = (p // tile) ** 2
+            for groups in sorted({1, 3, 7, count}):
+                if p % tile == 0 and groups <= count and \
+                        K.whole_fma_smem_bytes(p, tile, groups) \
+                        <= K.SMEM_PER_BLOCK:
+                    cases.append(pytest.param(
+                        tile, groups, shape, id=f"{tile}-{groups}-{p}-"
+                        f"{len(shape)}d"))
+    return cases
+
+
+@pytest.mark.parametrize("out_dtype", [None, torch.float64])
+@pytest.mark.parametrize("tile,groups,shape", _f32_whole_grids())
+def test_f32_square_whole_every_tile(cuda, monkeypatch, tile, groups, shape,
+                                     out_dtype):
+    """Every instantiated f32 K2 tile and its K slices, with one block per
+    tile and blocks of several tiles each (a block stages the union of its
+    tiles' rows and columns in its strips), single and stacked, written as
+    f32 and widened after (both ``out_acc`` routes). Partial sums are added
+    in another order than one sequential FMA loop: held to 1e-4 of the
+    peak, not to equality."""
+    monkeypatch.setattr(K, "square_whole_grid",
+                        lambda p, batch, dtype: (tile, groups))
+    a = _randn(shape, torch.float32, cuda, 62)
+    kw = dict(block_m=32, block_n=32, block_k=16, out_dtype=out_dtype)
+    got = K.square_cuda(a, **kw)
+    assert K.last_launch == dict(
+        kernel="square_whole", tile=tile, groups=groups,
+        blocks=groups * (shape[0] if len(shape) == 3 else 1),
+        slices=K.WHOLE_F32[tile][2])
+    assert got.dtype == (out_dtype or torch.float32)
+    _close(got, K.square_plain(a, **kw), torch.float32)
+
+
+@pytest.mark.parametrize("p", [32, 128, 160, 224])
+def test_f32_square_whole_on_its_rule(cuda, p):
+    """The whole tier's sizes up to its edge (224²) on the grid the rule
+    picks."""
+    a = _randn((p, p), torch.float32, cuda, 63)
+    kw = dict(block_m=32, block_n=32, block_k=16)
+    got = K.square_cuda(a, **kw)
+    assert K.last_launch["kernel"] == "square_whole"
+    assert (K.last_launch["tile"], K.last_launch["groups"]) == \
+        K.square_whole_grid(p, 1, torch.float32)
+    _close(got, K.square_plain(a, **kw), torch.float32)
 
 
 # -- K1 f32 and K3 f32 / f64 on the cp.async rings of csrc/gemm.cuh ----------
@@ -712,6 +771,67 @@ def test_flash_attention_refuses_what_it_does_not_take(cuda):
     with pytest.raises(TypeError, match="dtype"):
         A.flash_attention(q.int(), k.int(), v.int(), block_q=64, block_k=64)
     assert A.launch_counts()["flash_attention"] == 0
+
+
+FMA_ATTN_TILES = [pytest.param(d, t, id=f"d{d}-{t[0]}x{t[1]}")
+                  for d, ts in A.ATTN_TILES["fma"].items() for t in ts]
+
+
+@pytest.mark.parametrize("grid", ["split", "whole"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("d,tile", FMA_ATTN_TILES)
+def test_fma_attention_every_tile(cuda, d, tile, dtype, grid):
+    """Every FMA tile on its ring, causal, four KV steps (eight half steps:
+    two trips round a ring of three slots, four of two): with 2 leading
+    slices the grid splits the bands and the combine merges them; with 140
+    it fills the card and does not."""
+    lead = (2,) if grid == "split" else (140,)
+    q, k, v = _qkv(lead, 4 * tile[0], 4 * tile[1], d, dtype, cuda, 26)
+    got = A.flash_attention(q, k, v, block_q=tile[0], block_k=tile[1])
+    assert A.launch_counts() == _attn_launched(dtype)
+    assert A.last_launch["tile"] == tile
+    assert (A.last_launch["splits"] > 1) == (grid == "split")
+    assert got.dtype == dtype
+    _attn_close(got, A.flash_attention_plain(q, k, v), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("sq,skv,d,blocks,window", [
+    (333, 333, 64, (111, 37), None),     # ragged: keys past bk are masked
+    (333, 333, 128, (111, 37), 50),
+    (256, 256, 128, (32, 16), None),     # a block far below its tile
+    (192, 192, 48, (64, 64), None),      # head width padded to 64
+    (96, 96, 256, (48, 48), 20),
+    (256, 128, 64, (64, 64), None),      # Sq > Skv: rows before every key
+    (256, 256, 64, (64, 64), 0),         # an empty window: every row 0
+])
+def test_fma_attention_ragged_blocks_and_windows(cuda, sq, skv, d, blocks,
+                                                 window, dtype):
+    for lead in ((3,), (3, 50)):
+        q, k, v = _qkv(lead, sq, skv, d, dtype, cuda, 27)
+        kw = dict(causal=True, window=window)
+        got = A.flash_attention(q, k, v, block_q=blocks[0],
+                                block_k=blocks[1], **kw)
+        assert A.last_launch["tile"] == A.kernel_tile(*blocks, d, dtype)
+        assert A.last_launch["kernel"] == "flash_attention"
+        _attn_close(got, A.flash_attention_plain(q, k, v, **kw), dtype)
+        if window == 0:
+            assert torch.equal(got, torch.zeros_like(got))
+        if sq > skv:
+            assert torch.equal(got[..., :sq - skv, :],
+                               torch.zeros_like(got[..., :sq - skv, :]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("lead", [(1,), (140,)])
+def test_fma_attention_row_with_no_key_is_zero(cuda, lead, dtype):
+    """Sq > Skv, causal: query rows 0..127 sit before every key, with a
+    split grid (1 slice) and a whole one (140)."""
+    q, k, v = _qkv(lead, 256, 128, 64, dtype, cuda, 28)
+    got = ops.attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got[:, :128], torch.zeros_like(got[:, :128]))
+    _attn_close(got, A.flash_attention_plain(q, k, v, causal=True), dtype)
 
 
 # -- K5 on the tensor cores (csrc/attention_tc.cuh) and split-KV -------------

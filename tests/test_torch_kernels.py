@@ -319,6 +319,29 @@ GEMM_DMMA = Path(K.__file__).parent / "csrc" / "gemm_dmma.cuh"
 WHOLE_TC_SIZES = [32, 64, 96, 128, 192, 256, 288, 320]
 
 
+def _fma_whole_model(p, batch, tile, groups):
+    """The f32 K2 grid rule's modelled ns of a grid, restated: waves of the
+    blocks an SM holds at once (shared memory, threads) times the block's
+    fixed cost and its staged bytes, plus the SM's FMAs at the rate its
+    thread tile feeds."""
+    rows, cols, slices = K.WHOLE_F32[tile]
+    threads = slices * tile * tile // (rows * cols)
+    resident = max(1, min(
+        K.SMEM_PER_SM // (K.whole_fma_smem_bytes(p, tile, groups)
+                          + K.SMEM_PER_RESIDENT_BLOCK),
+        K.THREADS_PER_SM // threads))
+    per_row = p // tile
+    mine = range(0, per_row * per_row, groups)
+    r = len({t // per_row for t in mine}) * tile
+    c = len({t % per_row for t in mine}) * tile
+    per_sm = -(-groups * batch // K.SM_COUNT)
+    rate = K.FMA_SM_GFLOPS * min(1.0, rows * cols / (4 * (rows + cols)))
+    return (-(-per_sm // resident) * (K.FMA_WHOLE_BLOCK_NS + (r * p + p * c
+                                                               - r * c) * 4
+                                      / K.FMA_WHOLE_BLOCK_GBPS)
+            + per_sm * len(mine) * 2 * tile * tile * p / rate)
+
+
 class TestWholeOperandGrid:
     """K2 picks its own output tile and grid (``square_whole_grid``), the
     same function on the kernel route and in the plain version's
@@ -328,43 +351,69 @@ class TestWholeOperandGrid:
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                        torch.float16])
     def test_192_uses_at_least_36_blocks(self, dtype):
+        """The 16-bit K2: 36 blocks of one 32-wide tile; the f32 K2 (since
+        it stages only the rows and columns of A its tiles read, in strips
+        that let five blocks share an SM): 144 blocks of one 16-wide
+        tile."""
+        want = (16, 144) if dtype == torch.float32 else (32, 36)
         tile, groups = K.square_whole_grid(192, 1, dtype)
-        assert (tile, groups) == (32, 36)
+        assert (tile, groups) == want
         a = torch.from_numpy(randn((192, 192), 40, 0.2)).to(dtype)
         K.square_cuda(a, block_m=64, block_n=64, block_k=64)
         assert K.last_launch["kernel"] == "plain_square_whole"
-        assert K.last_launch["tile"] == 32
+        assert K.last_launch["tile"] == want[0]
         assert K.last_launch["blocks"] >= 36
 
     def test_the_tile_leaves_the_least_output_on_the_busiest_sm(self):
         # one matrix: the smallest tile, a block per tile
         assert K.square_whole_grid(256, 1, torch.bfloat16) == (32, 64)
-        # f64 (the DMMA K2): 16-wide tiles, so each of 64 blocks stages
-        # only the rows and columns of A its tile reads
+        # f64 (the DMMA K2) and f32 (the FMA K2): 16-wide tiles, so each of
+        # 64 blocks stages only the rows and columns of A its tile reads
         assert K.square_whole_grid(128, 1, torch.float64) == (16, 64)
+        assert K.square_whole_grid(128, 1, torch.float32) == (16, 64)
         # a stack of 32: 128 blocks of one 64-wide tile, not 160 blocks of
         # four 32-wide ones (two waves)
         assert K.square_whole_grid(128, 32, torch.float32) == (64, 4)
         assert K.square_whole_grid(128, 32, torch.bfloat16) == (64, 4)
         # a tie goes to the larger tile
         assert K.square_whole_grid(128, 33, torch.float32) == (64, 4)
-        assert K.square_whole_grid(128, 132, torch.float32) == (128, 1)
+        # a stack that fills the card alone: one block a matrix (the f32 K2
+        # has no 128-wide tile)
+        assert K.square_whole_grid(128, 132, torch.float32) == (64, 1)
         # the tensor-core K2 has no 128-wide tile
         assert K.square_whole_grid(128, 132, torch.bfloat16) == (64, 1)
 
     @pytest.mark.parametrize("p", [32, 96, 160, 224])
     def test_sizes_that_only_32_divides(self, p):
+        """f32 takes 16-wide tiles there, a block each (at 224², 196
+        blocks: four or five share an SM, all in one wave)."""
         tile, groups = K.square_whole_grid(p, 1, torch.float32)
-        assert tile == 32 and groups == min((p // 32) ** 2, K.SM_COUNT)
+        assert (tile, groups) == (16, (p // 16) ** 2)
+        assert K.square_whole_grid(p, 1, torch.bfloat16) == (
+            32, min((p // 32) ** 2, K.SM_COUNT))
 
     @pytest.mark.parametrize("batch", [1, 2, 7, 64, 500])
     @pytest.mark.parametrize("p", WHOLE_TC_SIZES)
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     def test_invariants(self, p, batch, dtype):
         tile, groups = K.square_whole_grid(p, batch, dtype)
-        tiles = K.WHOLE_TC_TILES if dtype == torch.bfloat16 \
-            else K.KERNEL_TILES
-        assert tile in tiles and p % tile == 0
+        if dtype == torch.float32:
+            # the least modelled time over every tile and group count
+            assert tile in K.WHOLE_F32 and p % tile == 0
+            assert 1 <= groups <= (p // tile) ** 2
+            grids = [(t, g) for t in K.WHOLE_F32
+                     if p % t == 0 and p // t <= K.WHOLE_F32_MAX_PER_ROW
+                     for g in range(1, (p // t) ** 2 + 1)]
+            fit = [(t, g) for t, g in grids if K.whole_fma_smem_bytes(
+                p, t, g) <= K.SMEM_PER_BLOCK]
+            best = min((_fma_whole_model(p, batch, t, g), g * batch, -t)
+                       for t, g in fit or grids)
+            assert K.whole_fma_smem_bytes(p, tile, groups) \
+                <= K.SMEM_PER_BLOCK or not fit
+            assert best == (_fma_whole_model(p, batch, tile, groups),
+                            groups * batch, -tile)
+            return
+        assert tile in K.WHOLE_TC_TILES and p % tile == 0
         assert groups == K._groups((p // tile) ** 2, batch)
         assert 1 <= groups <= (p // tile) ** 2
         # while the 32-wide tiles fit one wave, a block per tile is the
@@ -374,13 +423,18 @@ class TestWholeOperandGrid:
 
     def test_no_tile_divides_raises(self):
         with pytest.raises(ValueError, match="divides"):
-            K.square_whole_grid(48, 1, torch.float32)
+            K.square_whole_grid(40, 1, torch.float32)
+        # the f32 K2 takes at most 32 tiles a side
+        with pytest.raises(ValueError, match="divides"):
+            K.square_whole_grid(16 * 33, 1, torch.float32)
+        with pytest.raises(ValueError, match="divides"):
+            K.square_whole_grid(48, 1, torch.bfloat16)
 
     def test_stacked_plain_route_records_the_grid(self):
         a = torch.from_numpy(randn((32, 128, 128), 41, 0.2))
         K.square_cuda(a, block_m=64, block_n=64, block_k=16)
         assert K.last_launch == dict(kernel="plain_square_whole", tile=64,
-                                     blocks=4 * 32, groups=4)
+                                     blocks=4 * 32, groups=4, slices=4)
 
     def test_16_bit_plain_route_records_its_own_grid(self):
         """The 16-bit K2's grid is ``groups`` blocks per matrix of the
@@ -399,6 +453,115 @@ class TestWholeOperandGrid:
         # K3 takes 32-row panels of 32 x 64 output tiles, 4 blocks a panel
         assert K.last_launch == dict(kernel="plain_square_panel", tile=32,
                                      width=64, blocks=8 * 4, groups=4)
+
+
+class TestWholeFma:
+    """What the Python side knows of the f32 K2 of csrc/gemm.cuh: its table
+    of tiles, thread tiles and K slices, the shared memory its launcher asks
+    for (``WholeFma`` evaluated as written), the f32 whole tier's edge that
+    follows, and the slices a launch records."""
+
+    def test_table_is_the_kernels(self):
+        lines = re.findall(
+            r"^\s*REPRO_WHOLE_F32\((\d+), (\d+), (\d+), (\d+)\)\s*$",
+            GEMM.read_text(), flags=re.M)
+        assert {int(t): (int(r), int(c), int(ks))
+                for t, r, c, ks in lines} == K.WHOLE_F32
+        assert len(lines) == len(K.WHOLE_F32)
+
+    @pytest.mark.parametrize("tile", sorted(K.WHOLE_F32))
+    def test_thread_tiles_and_slices(self, tile):
+        """Every slice is 4 x 8 or 8 x 8 outputs a thread over the whole
+        tile, whole warps or quarter warps of them, and the block's threads
+        are the slices' (128 or 256)."""
+        rows, cols, slices = K.WHOLE_F32[tile]
+        w = cuh_struct(GEMM.read_text(), "WholeFma", TILE=tile, R=rows,
+                       C=cols, KS=slices)
+        assert w["LY"] * rows == tile and w["LX"] * cols == tile
+        assert rows * cols >= 32 and cols % 4 == 0
+        assert w["SLICE"] % 8 == 0 and w["THREADS"] in (128, 256)
+        assert w["THREADS"] == slices * tile * tile // (rows * cols)
+        assert w["RED"] == slices * tile * tile * 4
+
+    @pytest.mark.parametrize("per_row,groups,strips", [
+        (12, 144, (1, 1)), (12, 72, (2, 1)), (12, 5, (12, 12)),
+        (12, 1, (12, 12)), (2, 4, (1, 1)), (2, 3, (2, 2)), (14, 98, (2, 1)),
+        (4, 6, (3, 2))])
+    def test_strips(self, per_row, groups, strips):
+        """A block's tile rows and columns, the most over the grid's blocks
+        (block b takes tiles b, b + groups, ...)."""
+        assert K.whole_strips(per_row, groups) == strips
+        nr = max(len({t // per_row for t in range(b, per_row ** 2, groups)})
+                 for b in range(min(groups, per_row ** 2)))
+        assert nr == strips[0]
+
+    @pytest.mark.parametrize("groups", [1, 2, 3, 36, 144])
+    @pytest.mark.parametrize("p", [32, 64, 128, 192, 224])
+    @pytest.mark.parametrize("tile", sorted(K.WHOLE_F32))
+    def test_footprint_is_the_strip_formula(self, tile, p, groups):
+        rows, cols, slices = K.WHOLE_F32[tile]
+        if p % tile or groups > (p // tile) ** 2:
+            return
+        nr, nc = K.whole_strips(p // tile, groups)
+        want = cuh_struct(GEMM.read_text(), "WholeFma", TILE=tile, R=rows,
+                          C=cols, KS=slices, P=p, NR=nr, NC=nc)["bytes"]
+        assert K.whole_fma_smem_bytes(p, tile, groups) == want
+        assert K.whole_smem_bytes("square_whole", p, tile, groups) == want
+
+    def test_a_forced_operand_past_the_strips_is_refused(self):
+        """Sent to the whole tier (``smem_limit`` raised), 512² f32 runs on
+        one-tile blocks; at 1024² no grid's strips fit a block, and the
+        kernel route refuses the call before launching."""
+        assert K.whole_fma_smem_bytes(512, *K.square_whole_grid(
+            512, 1, torch.float32)) <= K.SMEM_PER_BLOCK
+        tile, groups = K.square_whole_grid(1024, 1, torch.float32)
+        assert K.whole_fma_smem_bytes(1024, tile, groups) > K.SMEM_PER_BLOCK
+        assert K.whole_smem_bytes("square_whole", 1024, tile, groups) \
+            > K.SMEM_PER_BLOCK
+
+    def test_the_whole_tier_edge(self):
+        """The f32 whole tier ends at 224² as before (the tier policy: the
+        operand within a block's shared memory); K2 itself no longer holds
+        all of A, so at 224² its blocks, one 16-wide tile each, ask for
+        48,896 B, and five share an SM. A block that owned every tile
+        would need both strips whole and does not fit: the rule never
+        picks it."""
+        assert K.square_tier(224 * 224 * 4) == "whole"
+        assert K.square_tier(256 * 256 * 4) == "panel"
+        assert K.whole_fma_smem_bytes(224, 16, 196) == \
+            (16 * 228 + 224 * 20) * 4 + 16384 == 48_896
+        assert K.whole_fma_smem_bytes(224, 16, 1) > K.SMEM_PER_BLOCK
+        assert K._resolve_tier(224, 4, 32, 32, 16, K.SQUARE_SMEM_LIMIT,
+                               K.SQUARE_PANEL_LIMIT) == "whole"
+
+    def test_the_formula_reader_sees_a_changed_formula(self):
+        src = GEMM.read_text().replace("(size_t)NR * TILE * (P + kPad)",
+                                       "(size_t)NR * TILE * P", 1)
+        assert cuh_struct(src, "WholeFma", TILE=16, R=4, C=8, KS=16,
+                          P=192, NR=1, NC=1)["bytes"] \
+            != K.whole_fma_smem_bytes(192, 16, 144)
+
+    @pytest.mark.parametrize("p,batch,grid", [
+        (128, 1, (16, 64)), (192, 1, (16, 144)), (224, 1, (16, 196)),
+        (160, 1, (16, 100)), (128, 32, (64, 4)), (128, 33, (64, 4)),
+        (128, 64, (64, 2)), (192, 7, (16, 72))])
+    def test_grid(self, p, batch, grid):
+        """A single operand takes 16-wide tiles, one a block (each stages a
+        16-row and a 16-column strip of A, and up to five blocks share an
+        SM); a stack that fills the card takes 64-wide ones on 8 x 8 thread
+        tiles."""
+        assert K.square_whole_grid(p, batch, torch.float32) == grid
+
+    @pytest.mark.parametrize("shape,launch", [
+        ((192, 192), dict(tile=16, blocks=144, groups=144, slices=16)),
+        ((3, 96, 96), dict(tile=16, blocks=3 * 36, groups=36, slices=16)),
+        ((32, 128, 128), dict(tile=64, blocks=128, groups=4, slices=4))])
+    def test_plain_route_records_tile_grid_and_slices(self, shape, launch):
+        a = torch.from_numpy(randn(shape, 44, 0.2))
+        got = K.square_cuda(a, block_m=32, block_n=32, block_k=16)
+        assert K.last_launch == dict(kernel="plain_square_whole", **launch)
+        assert torch.equal(got, K.square_plain(a, block_m=32, block_n=32,
+                                               block_k=16))
 
 
 class TestNewKernelTables:

@@ -190,7 +190,8 @@ class TestBuildLayout:
         # K1 and K3 ask for registers that let two blocks share an SM
         for kernel, bounds in (("matmul_kernel",
                                 "MatmulLayout<TILE>::L::THREADS, 2"),
-                               ("square_whole_kernel", "kThreads"),
+                               ("square_whole_kernel",
+                                "WholeFma<TILE, R, C, KS>::THREADS"),
                                ("square_panel_kernel",
                                 "kThreads, 2")):
             assert f"__global__ void __launch_bounds__({bounds})\n" \
@@ -209,6 +210,9 @@ class TestBuildLayout:
         src = (PKG / "kernels" / "csrc" / "attention.cuh").read_text()
         assert "__global__ void __launch_bounds__(kThreads)\n" \
             "flash_attention_kernel(" in src
+        # the FMA K5: K and V through a cp.async ring, exponents in base 2
+        assert "cp.async.cg.shared.global [%0], [%1], 16, %2;" in src
+        assert "exp2f(" in src and "expf(" not in src
         assert "__global__ void __launch_bounds__(kCombineThreads)\n" \
             "attn_combine_kernel(" in src
         assert "torch/" not in src and "ATen" not in src
