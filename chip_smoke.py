@@ -36,18 +36,28 @@ the H100 SXM data-sheet rates below.
 
 from __future__ import annotations
 
+import collections
 import json
+import math
 import os
 import shutil
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
 import numpy as np
-import torch
+
+# cuBLAS is deterministic across streams only with a fixed workspace
+# (PyTorch's reproducibility notes); phase serve_daemon holds the "torch"
+# route to the same bits under any stream count, so it is set before CUDA
+# starts.
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import torch  # noqa: E402
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
@@ -60,6 +70,9 @@ from repro_torch.kernels import (_build, autotune, error_budget, ops,  # noqa: E
                                  ref)
 from repro_torch.kernels import attention_kernels as A  # noqa: E402
 from repro_torch.kernels import matmul_kernels as K  # noqa: E402
+from repro_torch.launch import matserve  # noqa: E402
+from repro_torch.serve import (ExecutionStreams, ManualClock,  # noqa: E402
+                               MatFnEngine)
 
 # NVIDIA H100 SXM data sheet, dense rates, the fastest pipeline the card has
 # for each type, so that the bound is the least time the card could take
@@ -1046,6 +1059,311 @@ def f64_tuned_chain(tiers) -> dict:
             "rtol": rtol, "atol": atol}
 
 
+
+# ---------------------------------------------------------------------------
+# The serving engine (repro_torch.serve.matfn) and its driver
+# ---------------------------------------------------------------------------
+
+#: The serving mix: (op, dtype, n) classes, each matpow class at every power
+#: of SERVE_POWERS. With the default thresholds (64, 4096) n = 64 takes the
+#: "torch" route (cuBLAS) and the rest the kernel chain, through K2 / K3 / K1
+#: in every dtype: f32 192 (K2), 512 and 1024 (K3), bf16 256 (K2) and 1024
+#: (K3), f64 128 (K2) and 256 (K3), the combines on K1.
+SERVE_CLASSES = ([("matpow", torch.float32, n) for n in (64, 192, 512, 1024)]
+                 + [("matpow", torch.bfloat16, n) for n in (256, 1024)]
+                 + [("matpow", torch.float64, n) for n in (128, 256)]
+                 + [("expm", dt, n) for dt in (torch.float32, torch.float64)
+                    for n in (64, 192)])
+SERVE_POWERS = (7, 96)
+SERVE_REQUESTS = 192
+DAEMON_REQUESTS = 1024
+DAEMON_PRODUCERS = 4
+#: Phase serve_daemon's sustained runs: requests each, and offered load as
+#: a fraction of the rate its overload run served.
+SUSTAINED_REQUESTS = 512
+SUSTAINED_LOADS = (0.5, 0.8)
+ROUTE_BACKEND = {"torch": "torch", "chain": "cuda_chain"}
+THETA13 = 5.371920351148152   # the Pade-13 1-norm threshold of core.expm
+
+
+def serve_requests(count, seed):
+    """``count`` requests cycling over the mix's classes, as (op, operand,
+    power, float64 answer, multiplies): matpow operands are row-stochastic
+    with distinct powers (``power_operand``), expm operands zero-mean
+    normal with entries of size n^-1/2. The answer is the port's
+    ``"torch"`` route in float64; ``mults`` counts the binary chain's
+    multiplies, or expm's Pade-13 and solve (8) and its squarings."""
+    classes = [(op, dt, n, p) for op, dt, n in SERVE_CLASSES
+               for p in (SERVE_POWERS if op == "matpow" else (1,))]
+    out = []
+    for i in range(count):
+        op, dt, n, p = classes[i % len(classes)]
+        if op == "matpow":
+            a = power_operand(n, dt, seed + i)
+            want = matpow_binary(a.double(), p, backend="torch")
+            mults = (p.bit_length() - 1) + (bin(p).count("1") - 1)
+        else:
+            a = randn((n, n), dt, seed + i, scale=n ** -0.5)
+            want = expm(a.double(), backend="torch")
+            norm = float(torch.linalg.matrix_norm(a.double(), ord=1))
+            mults = 8 + max(0, math.ceil(math.log2(norm / THETA13)))
+        out.append((op, a, p, want, mults))
+    torch.cuda.synchronize()
+    return out
+
+
+def check_served(req, got, what):
+    op, a, p, want, mults = req
+    return check_close(got, want, a.dtype, n=a.shape[0], mults=mults,
+                       what=f"{what} {op} n={a.shape[0]} {a.dtype} p={p}")[0]
+
+
+def warm_classes(eng, reqs, batches) -> int:
+    """Warm every class of ``reqs``; returns the chunks warmed (they count
+    into the engine's ``buckets``)."""
+    return sum(eng.warm(op, n, dtype=dtype, power=p,
+                        batches=batches(op, n, dtype, p))
+               for op, n, dtype, p in sorted({(op, a.shape[0], a.dtype, p)
+                                              for op, a, p, *_ in reqs},
+                                             key=str))
+
+
+def phase_serve() -> tuple:
+    """One engine on the card, warmed for every bucket of the mix, answers
+    SERVE_REQUESTS requests in one synchronous flush. Every answer is held
+    to float64; the chain buckets must launch every K1–K3 kernel (and no
+    plain version); the flush's wall time stands beside a serial loop of
+    per-request calls on the same routes."""
+    reqs = serve_requests(SERVE_REQUESTS, 500)
+    per_class = collections.Counter(
+        (op, a.shape[0], a.dtype, p) for op, a, p, *_ in reqs)
+    eng = MatFnEngine(device="cuda")
+    warm_classes(eng, reqs, lambda *key: (per_class[key],))
+    torch.cuda.synchronize()
+    warm_stats = {k: eng.stats[k] for k in ("compiles", "cache_hits")}
+
+    def flush():
+        for op, a, p, *_ in reqs:
+            eng.submit(op, a, power=p)
+        return eng.flush()
+
+    K.reset_launches()
+    results = flush()
+    counts = K.launch_counts()
+    t0 = time.perf_counter()
+    flush()                                    # timed: the second flush
+    flush_ms = (time.perf_counter() - t0) * 1e3
+    errs = [check_served(r, g, "serve") for r, g in zip(reqs, results)]
+    missing = [k for k in K.KERNELS if counts[k] < 1]
+    plain = {k: v for k, v in counts.items() if k.startswith("plain_") and v}
+    if missing or plain:
+        raise AssertionError(f"serve: chain buckets never launched {missing}"
+                             f" or took the plain route {plain}: {counts}")
+
+    def serial():
+        for op, a, p, *_ in reqs:
+            backend = ROUTE_BACKEND[eng.route_for(a.shape[0], 1, a.dtype)]
+            if op == "matpow":
+                matpow_binary(a, p, backend=backend)
+            else:
+                expm(a, backend=backend)
+        torch.cuda.synchronize()
+
+    serial()                                   # first calls out of the way
+    t0 = time.perf_counter()
+    serial()
+    serial_ms = (time.perf_counter() - t0) * 1e3
+    routes = {r: c for r, c in eng.stats["routes"].items() if c}
+    emit("serve", requests=len(reqs), classes=len(per_class),
+         buckets_by_route=routes, warm=warm_stats,
+         compiles=eng.stats["compiles"], cache_hits=eng.stats["cache_hits"],
+         launches={k: v for k, v in counts.items() if v},
+         flush_ms=flush_ms, serial_ms=serial_ms,
+         flush_req_per_s=len(reqs) / flush_ms * 1e3,
+         serial_req_per_s=len(reqs) / serial_ms * 1e3,
+         max_abs_err=max(errs))
+    return reqs, len(reqs) / serial_ms * 1e3
+
+
+def serve_same_bits(reqs) -> dict:
+    """The same 64 requests through one stream and through the default
+    streams: every answer must have the same bits (same callables, same
+    inputs, same buckets: a ManualClock and one kick)."""
+    outs = []
+    for streams in (ExecutionStreams(streams=1), None):
+        with MatFnEngine(device="cuda", streams=streams, clock=ManualClock(),
+                         max_delay_ms=1e6) as eng:
+            futs = [eng.submit(op, a, power=p) for op, a, p, *_ in reqs]
+            eng.kick()
+            outs.append([f.result(timeout=120) for f in futs])
+            routes = {r: c for r, c in eng.stats["routes"].items() if c}
+    diff = [i for i, (x, y) in enumerate(zip(*outs)) if not torch.equal(x, y)]
+    if diff or set(routes) != {"torch", "chain"}:
+        raise AssertionError(f"streams=1 and the default streams differ at "
+                             f"requests {diff} (routes {routes})")
+    return routes
+
+
+def daemon_run(pool, count, rate, seed, *, trace):
+    """One daemon with default streams, warmed for every bucket of the mix,
+    offered ``count`` requests of ``pool`` open loop at ``rate`` requests a
+    second by DAEMON_PRODUCERS threads, a quarter on the latency lane. Every
+    future must resolve once with a verified value and nothing may be shed.
+    Returns the closed engine, its ``stats()`` snapshot and a report: the
+    offered and served rates, ``drain_ms`` (last resolution after the last
+    submit, engine clock: near 0 while the daemon keeps up, the backlog's
+    age when it does not), and p50 / p95 / p99 per lane."""
+    rng = np.random.default_rng(seed)
+    order = rng.integers(0, len(pool), count)
+    lanes = np.where(rng.random(count) < 0.25, "latency", "bulk")
+    eng = MatFnEngine(device="cuda", trace=trace)
+    futs = [None] * count
+    with eng:
+        warmed = warm_classes(eng, pool,
+                              lambda *key: (1, 2, 4, 8, 16, 32, 64))
+        torch.cuda.synchronize()
+        t_start = time.perf_counter()
+
+        def producer(k):
+            for i in range(k, count, DAEMON_PRODUCERS):
+                delay = t_start + i / rate - time.perf_counter()
+                if delay > 0:
+                    time.sleep(delay)
+                op, a, p, *_ = pool[order[i]]
+                futs[i] = eng.submit(op, a, power=p, priority=str(lanes[i]))
+
+        threads = [threading.Thread(target=producer, args=(k,))
+                   for k in range(DAEMON_PRODUCERS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+            if t.is_alive():
+                raise AssertionError("serve_daemon: a producer hung")
+        results = [f.result(timeout=300) for f in futs]
+        wall_s = time.perf_counter() - t_start
+        snap = eng.stats()
+        p99 = {lane: eng.metrics.merged("latency", lane=lane).quantile(0.99)
+               * 1e3 for lane in ("bulk", "latency")}
+    errs = [check_served(pool[order[i]], g, "serve_daemon")
+            for i, g in enumerate(results)]
+    flushed = sum(row["flushed"] for row in snap["lanes"].values())
+    shed = sum(row["shed"] for row in snap["lanes"].values())
+    if snap["requests"] != count or flushed != count or shed:
+        raise AssertionError(f"serve_daemon: {snap['requests']} admitted, "
+                             f"{flushed} flushed, {shed} shed")
+    drain_s = max(f.resolved_at for f in futs) - max(f.submitted_at
+                                                     for f in futs)
+    report = dict(
+        requests=count, offered_req_per_s=rate,
+        served_req_per_s=count / wall_s, wall_s=wall_s,
+        drain_ms=drain_s * 1e3,
+        lanes={lane: {"submitted": row["submitted"], "p50_ms": row["p50_ms"],
+                      "p95_ms": row["p95_ms"], "p99_ms": p99[lane]}
+               for lane, row in snap["lanes"].items()},
+        flush_triggers=snap["flush_triggers"],
+        buckets=snap["buckets"] - warmed,
+        stragglers=snap["stragglers"], retries=snap["retries"], shed=shed,
+        max_abs_err=max(errs))
+    return eng, snap, report
+
+
+def phase_serve_daemon(pool, capacity) -> None:
+    """The daemon under open-loop load, in two settings. Overload:
+    DAEMON_REQUESTS requests of the mix at 1.5x the serial capacity phase
+    serve measured, traced; the Chrome trace must parse with spans on every
+    stream that served, and the stream count must not change a bit. Its
+    latencies are a backlog's age, not a serving latency. Sustained: fewer
+    requests at each of SUSTAINED_LOADS times the rate the overload run
+    served, untraced; their per-lane latencies are the serving metric."""
+    K.reset_launches()
+    eng, snap, overload = daemon_run(pool, DAEMON_REQUESTS, 1.5 * capacity,
+                                     501, trace=True)
+    counts = K.launch_counts()
+    # host ms per bucket and stage (engine clock), and per route for the
+    # execute stage (the launches; expm's own syncs included)
+    stages = {stage: {"count": h["count"], "mean_ms": h["mean"] * 1e3,
+                      "p50_ms": h["p50"] * 1e3, "p95_ms": h["p95"] * 1e3}
+              for stage, h in snap["stages"].items()}
+    for route in ("torch", "chain"):
+        h = eng.metrics.merged("stage", stage="execute", route=route)
+        stages[f"execute_{route}"] = {"count": h.count,
+                                      "mean_ms": None if h.mean is None
+                                      else h.mean * 1e3}
+    trace_path = Path(tempfile.mkdtemp(prefix="chip-smoke-trace-")) / "t.json"
+    eng.tracer.export(trace_path)
+    doc = json.loads(trace_path.read_text())
+    shutil.rmtree(trace_path.parent, ignore_errors=True)
+    tracks = {e["args"]["name"] for e in doc["traceEvents"]
+              if e["ph"] == "M"}
+    served = [row for row in snap["streams"] if row["executed"]]
+    untraced = [row["label"] for row in served
+                if f"stream-{row['stream']}" not in tracks
+                or not any(row["label"] in t for t in tracks)]
+    if untraced or len(served) < 2:
+        raise AssertionError(f"serve_daemon: streams {untraced} have no "
+                             f"spans in the trace ({sorted(tracks)})")
+    same_bits_routes = serve_same_bits(pool[:64])
+    emit("serve_daemon", load="overload", producers=DAEMON_PRODUCERS,
+         **overload, peak_concurrent_streams=snap["peak_concurrent_streams"],
+         streams={row["label"]: row["executed"] for row in served},
+         trace_events=len(doc["traceEvents"]),
+         launches={k: v for k, v in counts.items() if v},
+         stages=stages, same_bits_routes=same_bits_routes)
+    for k, factor in enumerate(SUSTAINED_LOADS):
+        rate = factor * overload["served_req_per_s"]
+        _, _, report = daemon_run(pool, SUSTAINED_REQUESTS, rate, 502 + k,
+                                  trace=False)
+        emit("serve_daemon", load="sustained", of_overload_served=factor,
+             **report)
+
+
+def phase_matserve() -> None:
+    """The port's serving driver as a user starts it, on the card."""
+    argv = ["--daemon", "--rate", "2000", "--requests", "256", "--sizes",
+            "64,192,512", "--powers", "7,96", "--dtypes", "float32,float64",
+            "--verify"]
+    t0 = time.perf_counter()
+    rc = matserve.main(argv)
+    if rc != 0:
+        raise AssertionError(f"matserve {' '.join(argv)} returned {rc}")
+    emit("matserve", argv=argv, rc=rc,
+         seconds=round(time.perf_counter() - t0, 2))
+
+
+def phase_dispatch() -> None:
+    """Measurement only: one (B, n, n) f32 bucket at p = 96 through the
+    "torch" route and the kernel chain — device ms (CUDA-graph replays) and
+    host ms (one call ending in a synchronise) — the sizes at which the
+    chain wins, and the smallest n from which the "torch" route wins at
+    every larger size measured. ``DEFAULT_DISPATCH_THRESHOLDS`` is not
+    changed."""
+    rows, crossover = [], {}
+    for batch in (1, 16):
+        for n in (32, 64, 128, 256, 512, 1024):
+            a = power_operand(n, torch.float32, 600 + n, batch=batch)
+            row = {"batch": batch, "n": n}
+            for route, backend in ROUTE_BACKEND.items():
+                fn = (lambda b=backend: batched_matpow(a, POWER, backend=b))
+                row[f"{route}_device_ms"] = time_ms(fn)
+                row[f"{route}_host_ms"] = wall_ms(fn)
+            rows.append(row)
+        for kind in ("device", "host"):
+            mine = [r for r in rows if r["batch"] == batch]
+            chain = [r["n"] for r in mine
+                     if r[f"chain_{kind}_ms"] < r[f"torch_{kind}_ms"]]
+            torch_from = None
+            for r in reversed(mine):
+                if r["n"] in chain:
+                    break
+                torch_from = r["n"]
+            crossover[f"B{batch}_{kind}"] = {"chain_wins_at": chain,
+                                             "torch_wins_from": torch_from}
+    emit("dispatch", power=POWER, dtype="float32", rows=rows,
+         crossover=crossover,
+         thresholds=list(autotune.DEFAULT_DISPATCH_THRESHOLDS))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device: torch.cuda.is_available() "
@@ -1063,6 +1381,13 @@ def main() -> int:
         counts, _ = phase_matpow()
         phase_entry_points()
         phase_batched()
+        t_serve = time.perf_counter()
+        pool, capacity = phase_serve()
+        phase_serve_daemon(pool, capacity)
+        phase_matserve()
+        phase_dispatch()
+        emit("serving_phases", seconds=round(time.perf_counter() - t_serve,
+                                             1))
         attn_counts, attn_timed = phase_attention()
         phase_tuning()
         torch.cuda.synchronize()

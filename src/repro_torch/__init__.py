@@ -1,8 +1,12 @@
 """repro_torch — the PyTorch/CUDA port of ``repro`` for one NVIDIA Hopper GPU.
 
-Same sub-packages and module names as the JAX reference (``kernels``,
-``core``), so the counterpart of a reference file is found by name. The port
-imports ``torch`` only — never ``jax`` and nothing of ``repro``.
+Same sub-packages and module names as the JAX reference, so the
+counterpart of a reference file is found by name: ``kernels`` (the
+hand-written CUDA kernels, their wrappers, the tuning cache), ``core`` (the
+matrix-power chains and ``expm``), ``serve`` (the matrix-function serving
+engine and its admission, scheduling and stream layers), ``runtime``
+(telemetry and fault handling) and ``launch`` (the ``matserve`` driver). The
+port imports ``torch`` only — never ``jax`` and nothing of ``repro``.
 
 Device rule. A function that takes tensors computes on the device those
 tensors lie on: on a CUDA tensor the kernel wrappers launch the hand-written

@@ -46,6 +46,7 @@ from __future__ import annotations
 
 import math
 import re
+import threading
 from pathlib import Path
 
 import torch
@@ -62,7 +63,7 @@ __all__ = ["flash_attention", "flash_attention_plain",
            "head_dim_for", "kernel_tile", "kernel_name", "tile_family",
            "kv_range", "band_tiles", "kv_splits", "sm_count", "ATTN_TILES",
            "HEAD_DIMS", "ATTN_FMA_STAGES", "KERNELS", "LAUNCHES",
-           "last_launch",
+           "last_launch", "last_launch_snapshot",
            "reset_launches", "launch_counts"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
@@ -123,21 +124,43 @@ LAUNCHES = {**{name: 0 for name in KERNELS}, "plain_flash_attention": 0,
             "plain_attn_combine": 0}
 
 #: Kernel, block, tile, splits and shape of the latest kernel launch (empty
-#: before one).
+#: before one). While other threads launch, read it through
+#: ``last_launch_snapshot()``.
 last_launch: dict = {}
+
+# Guards LAUNCHES and last_launch against launches from several threads.
+_COUNT_LOCK = threading.Lock()
 
 _SMS: dict = {}
 
 
+def _count(name: str, **launch) -> None:
+    """Count one launch of ``name``; with ``launch`` given, make it
+    ``last_launch`` under the same lock."""
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
+        if launch:
+            last_launch.clear()
+            last_launch.update(kernel=name, **launch)
+
+
 def reset_launches() -> None:
     """Set every launch counter to 0."""
-    for key in LAUNCHES:
-        LAUNCHES[key] = 0
+    with _COUNT_LOCK:
+        for key in LAUNCHES:
+            LAUNCHES[key] = 0
 
 
 def launch_counts() -> dict:
-    """A snapshot of the launch counters."""
-    return dict(LAUNCHES)
+    """A consistent snapshot of the launch counters."""
+    with _COUNT_LOCK:
+        return dict(LAUNCHES)
+
+
+def last_launch_snapshot() -> dict:
+    """A consistent copy of ``last_launch``."""
+    with _COUNT_LOCK:
+        return dict(last_launch)
 
 
 def tile_family(dtype) -> str:
@@ -301,7 +324,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     block checks, then ``ref.flash_attention_ref``."""
     sq, skv, d = _check_shapes(q, k, v)
     _blocks(q, sq, skv, d, block_q, block_k)
-    LAUNCHES["plain_flash_attention"] += 1
+    _count("plain_flash_attention")
     return _ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                     scale=scale)
 
@@ -320,7 +343,7 @@ def attn_combine_plain(part_o: torch.Tensor, part_ml: torch.Tensor,
     w = torch.where(m == -math.inf, torch.zeros_like(m), torch.exp2(m - m_max))
     den = (w * l).sum(0)[..., None]
     num = (w[..., None] * part_o).sum(0)
-    LAUNCHES["plain_attn_combine"] += 1
+    _count("plain_attn_combine")
     return torch.where(den == 0, torch.zeros_like(num), num / den).to(dtype)
 
 
@@ -350,7 +373,7 @@ def attn_combine(part_o: torch.Tensor, part_ml: torch.Tensor,
     _launch("repro_attn_combine", out,
             (part_o.data_ptr(), part_ml.data_ptr(), out.data_ptr(), splits,
              rows, width))
-    LAUNCHES["attn_combine"] += 1
+    _count("attn_combine")
     return out
 
 
@@ -482,12 +505,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
              None if part_ml is None else part_ml.data_ptr(),
              sq, skv, width, bq, bk, tile[0], tile[1], batch, splits,
              int(causal), int(window is not None), window or 0, scale))
-    LAUNCHES[name] += 1
+    _count(name, block_q=bq, block_k=bk, tile=tile, splits=splits, sq=sq,
+           skv=skv, d=d, batch=batch)
     if splits > 1:
         attn_combine(part_o, part_ml, out.view(batch * sq, width))
-    last_launch.clear()
-    last_launch.update(kernel=name, block_q=bq, block_k=bk, tile=tile,
-                       splits=splits, sq=sq, skv=skv, d=d, batch=batch)
     if width != d:
         out = out[..., :d]
     return out.reshape(*lead, sq, d)

@@ -19,10 +19,18 @@ Namespaces (the ``kernel`` key segment, ``KERNELS``):
   * ``square_panel`` — the squaring tier limits (``square_tiers``):
                        operand bytes up to which K2 (whole operand in shared
                        memory) and K3 (row panel) serve a squaring.
+  * ``dispatch``     — the serving engine's route thresholds
+                       (``dispatch_thresholds``: buckets up to ``cpu_max_n``
+                       take the ``"torch"`` route, the rest the kernel
+                       chain) and its per-traffic-class flush deadlines
+                       (``bucket_deadline_ms``); read by
+                       ``repro_torch.serve.matfn``. The defaults are the
+                       reference's; nothing here sweeps them yet.
 
 The reference's other namespaces (the Strassen route's ``fastmm``, the
-serving engine's ``dispatch`` thresholds and deadlines, the Markov route's
-``markov`` ratio) arrive with the slices that read them.
+Markov route's ``markov`` ratio) arrive with the slices that read them;
+``DEFAULT_FASTMM_CROSSOVER`` is here already, as the size above which the
+engine names (and refuses) the Strassen route.
 
 Keys are ``{kernel}/{dims}/{dtype}/{backend}``. The backend segment is the
 operand's device type (``"cuda"`` or ``"cpu"``), passed by the caller; it
@@ -78,13 +86,17 @@ __all__ = [
     "measure_us", "measure_attn_us", "sweep_attention",
     "DEFAULT_SQUARE_TIERS", "square_tiers", "record_square_tiers",
     "sweep_square_tiers", "device_times_us",
+    "DEFAULT_DISPATCH_THRESHOLDS", "DEFAULT_MAX_DELAY_MS",
+    "DEFAULT_FASTMM_CROSSOVER", "dispatch_thresholds",
+    "record_dispatch_thresholds", "bucket_deadline_ms",
+    "record_bucket_deadline",
     "cache_generation", "on_generation_bump",
 ]
 
 _ENV_VAR = "REPRO_TORCH_AUTOTUNE_CACHE"
 
 #: Kernel namespaces the cache knows about (the first segment of every key).
-KERNELS = ("matmul", "attention", "square_panel")
+KERNELS = ("matmul", "attention", "square_panel", "dispatch")
 
 #: Matmul candidates of the f32 FMA kernel: every instantiated (tile,
 #: K step) pair.
@@ -111,6 +123,25 @@ TC_ATTN_CANDIDATES: tuple = tuple(sorted(
 #: to the second, K1 above. Overridable per dtype/backend through the
 #: ``square_panel`` namespace.
 DEFAULT_SQUARE_TIERS: tuple = (SQUARE_SMEM_LIMIT, SQUARE_PANEL_LIMIT)
+
+#: Default route thresholds ``(cpu_max_n, sharded_min_n)`` of the serving
+#: engine: buckets with n <= cpu_max_n take the ``"torch"`` route (cuBLAS on
+#: the card), the rest the kernel chain; ``sharded_min_n`` is kept for the
+#: sharded route, which is not ported. The reference's values, kept until a
+#: measurement on the card re-derives them. Overridable per dtype through
+#: the ``dispatch`` namespace.
+DEFAULT_DISPATCH_THRESHOLDS: tuple = (64, 4096)
+
+#: Default continuous-batching flush deadline (milliseconds): how long a
+#: partly filled serving bucket may wait for more requests before it runs
+#: anyway; per-(op, n, dtype) ``dispatch`` entries override it
+#: (``bucket_deadline_ms``).
+DEFAULT_MAX_DELAY_MS: float = 2.0
+
+#: The reference's default Strassen crossover (matrix size n): buckets with
+#: n above it take the ``fastmm`` route, which the engine refuses until the
+#: Strassen recursion is ported.
+DEFAULT_FASTMM_CROSSOVER: int = 1024
 
 #: Samples per side of a squaring-tier probe (``sweep_square_tiers``).
 TIER_PROBE_REPS = 7
@@ -203,15 +234,36 @@ def _tiers_key(dtype=None, backend: Optional[str] = None) -> str:
     return f"square_panel/tiers/{_dtype_key(dtype)}/{_backend(backend)}"
 
 
+def _dispatch_key(dtype=None, backend: Optional[str] = None) -> str:
+    return f"dispatch/thresholds/{_dtype_key(dtype)}/{_backend(backend)}"
+
+
+def _deadline_key(op: str, n: int, dtype=None,
+                  backend: Optional[str] = None) -> str:
+    return (f"dispatch/deadline/{op}/{n}/{_dtype_key(dtype)}/"
+            f"{_backend(backend)}")
+
+
+def _ascending_pair(vals) -> bool:
+    return (len(vals) == 2
+            and all(isinstance(x, int) and x > 0 for x in vals)
+            and vals[0] <= vals[1])
+
+
 def _valid_entry(entry) -> bool:
     """A usable cache entry: a block tiling (len 2 for attention, len 3 for
-    matmul) or a ``square_panel`` tier pair (two ascending positive ints)."""
+    matmul), a ``square_panel`` tier pair or a ``dispatch`` threshold pair
+    (both two ascending positive ints), or a ``dispatch`` deadline (one
+    positive finite ``max_delay_ms``)."""
     try:
         if "tiers" in entry:
-            tiers = entry["tiers"]
-            return (len(tiers) == 2
-                    and all(isinstance(x, int) and x > 0 for x in tiers)
-                    and tiers[0] <= tiers[1])
+            return _ascending_pair(entry["tiers"])
+        if "thresholds" in entry:
+            return _ascending_pair(entry["thresholds"])
+        if "max_delay_ms" in entry:
+            v = entry["max_delay_ms"]
+            return (isinstance(v, (int, float)) and not isinstance(v, bool)
+                    and math.isfinite(v) and v > 0)
         blocks = entry["blocks"]
         return (len(blocks) in (2, 3)
                 and all(isinstance(x, int) and x > 0 for x in blocks))
@@ -390,6 +442,64 @@ def record_square_tiers(whole_limit: int, panel_limit: int, dtype=None,
         entry["probes_us"] = dict(probes_us)
     _store(_tiers_key(dtype, backend), entry,
            "record:square_panel", save)
+
+
+# ---------------------------------------------------------------------------
+# The serving engine's dispatch namespace
+# ---------------------------------------------------------------------------
+
+def dispatch_thresholds(dtype=None, backend: Optional[str] = None) -> tuple:
+    """(cpu_max_n, sharded_min_n) for the serving engine's route choice
+    (``repro_torch.serve.matfn``): the ``dispatch`` entry for this dtype,
+    then the dtype-agnostic one, then ``DEFAULT_DISPATCH_THRESHOLDS``."""
+    entry = _first((_dispatch_key(dtype, backend),
+                    _dispatch_key(None, backend)), "thresholds")
+    return tuple(entry["thresholds"]) if entry else \
+        DEFAULT_DISPATCH_THRESHOLDS
+
+
+def record_dispatch_thresholds(cpu_max_n: int, sharded_min_n: int,
+                               dtype=None, backend: Optional[str] = None,
+                               measured: bool = False,
+                               save: bool = True) -> None:
+    """Store route thresholds (matrix sizes); ``measured`` records whether a
+    sweep on the card timed them."""
+    if not (0 < cpu_max_n <= sharded_min_n):
+        raise ValueError(f"dispatch thresholds must be ascending positive "
+                         f"ints, got ({cpu_max_n}, {sharded_min_n})")
+    _store(_dispatch_key(dtype, backend),
+           {"thresholds": [int(cpu_max_n), int(sharded_min_n)],
+            "measured": bool(measured)},
+           "record:dispatch", save)
+
+
+def bucket_deadline_ms(op: str, n: int, dtype=None,
+                       backend: Optional[str] = None) -> float:
+    """Flush deadline (ms) of one serving traffic class: how long the daemon
+    lets a partly filled ``(op, n, dtype)`` bucket wait for more requests.
+    The ``dispatch`` deadline entry for this dtype, then the dtype-agnostic
+    one, then ``DEFAULT_MAX_DELAY_MS``."""
+    entry = _first((_deadline_key(op, n, dtype, backend),
+                    _deadline_key(op, n, None, backend)), "max_delay_ms")
+    return float(entry["max_delay_ms"]) if entry else DEFAULT_MAX_DELAY_MS
+
+
+def record_bucket_deadline(op: str, n: int, max_delay_ms: float, dtype=None,
+                           backend: Optional[str] = None,
+                           measured: bool = False, save: bool = True) -> None:
+    """Store a flush deadline for one serving traffic class."""
+    if not isinstance(op, str) or not op:
+        raise ValueError(f"op must be a non-empty string, got {op!r}")
+    if not isinstance(n, int) or isinstance(n, bool) or n < 1:
+        raise ValueError(f"n must be a positive int, got {n!r}")
+    if not (isinstance(max_delay_ms, (int, float))
+            and not isinstance(max_delay_ms, bool)
+            and math.isfinite(max_delay_ms) and max_delay_ms > 0):
+        raise ValueError(f"max_delay_ms must be a positive finite number, "
+                         f"got {max_delay_ms!r}")
+    _store(_deadline_key(op, n, dtype, backend),
+           {"max_delay_ms": float(max_delay_ms), "measured": bool(measured)},
+           "record:deadline", save)
 
 
 # ---------------------------------------------------------------------------

@@ -48,6 +48,7 @@ chain executors pad arbitrary shapes.
 from __future__ import annotations
 
 import functools
+import threading
 
 import torch
 
@@ -69,7 +70,8 @@ __all__ = ["matmul_cuda", "matmul_plain", "square_cuda", "square_plain",
            "DMMA_PANEL_RINGS",
            "WHOLE_TC_TILES", "WHOLE_DMMA_TILES", "WHOLE_F32", "KERNELS",
            "SQUARE_SMEM_LIMIT", "SQUARE_PANEL_LIMIT", "LAUNCHES",
-           "last_launch", "reset_launches", "launch_counts"]
+           "last_launch", "last_launch_snapshot", "reset_launches",
+           "launch_counts"]
 
 #: Dynamic shared memory one block may use on Hopper (227 KB, opt-in).
 SMEM_PER_BLOCK = 232_448
@@ -217,8 +219,13 @@ LAUNCHES = {**{name: 0 for name in KERNELS},
 
 #: The last call's kernel (its ``KERNELS`` name, or ``plain_<name>``),
 #: output ``tile``, ``blocks`` in its grid, and for the squaring kernels the
-#: ``groups`` of blocks that share each matrix.
+#: ``groups`` of blocks that share each matrix. While other threads launch,
+#: read it through ``last_launch_snapshot()``.
 last_launch: dict = {}
+
+# Guards LAUNCHES and last_launch: the serving engine's stream workers
+# launch from several threads at once.
+_COUNT_LOCK = threading.Lock()
 
 
 def kernel_name(op: str, dtype) -> str:
@@ -236,19 +243,31 @@ def kernel_name(op: str, dtype) -> str:
 
 
 def _record(kernel, tile, blocks, **extra) -> None:
-    last_launch.clear()
-    last_launch.update(kernel=kernel, tile=tile, blocks=blocks, **extra)
+    """Count one launch of ``kernel`` and make it ``last_launch``, under one
+    lock."""
+    with _COUNT_LOCK:
+        LAUNCHES[kernel] += 1
+        last_launch.clear()
+        last_launch.update(kernel=kernel, tile=tile, blocks=blocks, **extra)
 
 
 def reset_launches() -> None:
     """Set every launch counter to 0."""
-    for key in LAUNCHES:
-        LAUNCHES[key] = 0
+    with _COUNT_LOCK:
+        for key in LAUNCHES:
+            LAUNCHES[key] = 0
 
 
 def launch_counts() -> dict:
-    """A snapshot of the launch counters."""
-    return dict(LAUNCHES)
+    """A consistent snapshot of the launch counters."""
+    with _COUNT_LOCK:
+        return dict(LAUNCHES)
+
+
+def last_launch_snapshot() -> dict:
+    """A consistent copy of ``last_launch``."""
+    with _COUNT_LOCK:
+        return dict(last_launch)
 
 
 # ---------------------------------------------------------------------------
@@ -866,7 +885,6 @@ def matmul_plain(a: torch.Tensor, b: torch.Tensor, *,
     """Plain PyTorch version of :func:`matmul_cuda`: the same shape contract,
     then widen to the accumulation dtype, ``torch.matmul``, cast once."""
     batch, m, _, n = _check_matmul(a, b, block_m, block_n, block_k)
-    LAUNCHES["plain_matmul"] += 1
     _record("plain_matmul", block_m,
             (m // block_m) * (n // block_n) * (batch or 1))
     return _deliver(_ref.matmul_ref(a, b, out_dtype=out_dtype or a.dtype),
@@ -919,7 +937,6 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor, *,
             (a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k, tile, block_k,
              m * k if a.ndim == 3 else 0, k * n if b.ndim == 3 else 0,
              m * n if batch is not None else 0, batch or 1, out_acc))
-    LAUNCHES[name] += 1
     _record(name, tile, (m // tile) * (n // tile) * (batch or 1))
     return _finish(c, out, out_dtype)
 
@@ -946,7 +963,6 @@ def square_plain(a: torch.Tensor, *,
         return matmul_plain(a, a, block_m=block_m, block_n=block_n,
                             block_k=block_k, out_dtype=out_dtype, out=out)
     _check_square_blocks(p, block_m, block_n)
-    LAUNCHES["plain_square_" + tier] += 1
     _record("plain_square_" + tier,
             **_square_grid(tier, p, batch or 1, a.dtype, block_m))
     return _deliver(_ref.matmul_ref(a, a, out_dtype=out_dtype or a.dtype),
@@ -1032,7 +1048,6 @@ def square_cuda(a: torch.Tensor, *,
                 (a.data_ptr(), c.data_ptr(), p, launch["tile"],
                  launch["width"], block_k, stride, stride, batch or 1,
                  launch["groups"], out_acc))
-    LAUNCHES[name] += 1
     _record(name, **launch)
     return _finish(c, out, out_dtype)
 

@@ -167,9 +167,11 @@ class TestNamespaces:
         assert not tmp_cache.exists()
 
     def test_the_ported_namespaces(self):
-        """The reference's fastmm, dispatch and markov namespaces come with
-        the slices that read them."""
-        assert autotune.KERNELS == ("matmul", "attention", "square_panel")
+        """The serving engine's dispatch namespace came with the engine; the
+        reference's fastmm and markov namespaces come with the slices that
+        read them."""
+        assert autotune.KERNELS == ("matmul", "attention", "square_panel",
+                                    "dispatch")
 
     def test_measured_tiers_keep_their_probes(self, tmp_cache):
         autotune.record_square_tiers(4096, 1 << 20, dtype=F32, measured=True,

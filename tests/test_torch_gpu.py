@@ -968,3 +968,157 @@ def test_tc_attention_refuses_what_it_does_not_take(cuda):
         A.attn_combine(part_o, torch.zeros(2, 8, 2, device=cuda),
                        torch.empty(8, 512, device=cuda))
     assert not any(A.launch_counts().values())
+
+
+class TestServingEngine:
+    """The serving engine (``repro_torch.serve.matfn``) on the card: chain
+    buckets launch the hand-written kernels, the stream rule of the
+    module's docstring holds (the caller's stream, the engine's copy), the
+    stream count does not change a bit, and a failing bucket reaches its
+    futures as ``BucketExecutionError``."""
+
+    #: (dtype, n) of chain buckets and the squaring kernel each must launch
+    #: (the combines of p = 7 launch K1 of the same family).
+    CHAIN_CASES = [(torch.float32, 192, "square_whole"),
+                   (torch.float32, 512, "square_panel"),
+                   (torch.bfloat16, 256, "square_whole_tc"),
+                   (torch.bfloat16, 1024, "square_panel_tc"),
+                   (torch.float64, 128, "square_whole_dmma"),
+                   (torch.float64, 256, "square_panel_dmma")]
+
+    @staticmethod
+    def _engine(**kw):
+        from repro_torch.serve import MatFnEngine
+        return MatFnEngine(device="cuda", **kw)
+
+    @pytest.mark.parametrize("dtype,n,square", CHAIN_CASES,
+                             ids=lambda v: str(v).removeprefix("torch."))
+    def test_chain_buckets_launch_the_kernels(self, cuda, dtype, n, square):
+        eng = self._engine()
+        mats = [_power_operand(n, cuda, seed).to(dtype) for seed in range(3)]
+        for m in mats:
+            eng.submit("matpow", m, power=7)
+        K.reset_launches()
+        res = eng.flush()
+        counts = K.launch_counts()
+        assert eng.stats["routes"]["chain"] == 1
+        assert counts[square] == 2                   # p = 7: two squarings
+        assert counts[K.kernel_name("matmul", dtype)] == 2   # two combines
+        assert not any(v for k, v in counts.items() if k.startswith("plain"))
+        rtol, atol = error_budget(dtype, n=n, mults=4)
+        for m, r in zip(mats, res):
+            want = torch.linalg.matrix_power(m.double(), 7)
+            assert torch.allclose(r.double(), want, rtol=rtol, atol=atol)
+
+    def test_caller_stream_is_waited_for(self, cuda):
+        """The operand is written on the caller's stream behind a long
+        kernel; the engine's worker must wait for it, and a result read on
+        another stream must be complete."""
+        a = _power_operand(256, cuda, 3)
+        want = torch.linalg.matrix_power(a.double(), 7)
+        side, reader = torch.cuda.Stream(), torch.cuda.Stream()
+        with self._engine() as eng:
+            with torch.cuda.stream(side):
+                x = torch.zeros_like(a)
+                torch.cuda._sleep(200_000_000)       # ~0.1 s on the card
+                x.copy_(a)
+                fut = eng.submit("matpow", x, power=7)
+            eng.kick()
+            got = fut.result(timeout=60)
+        with torch.cuda.stream(reader):
+            copy = got.clone()
+        reader.synchronize()
+        rtol, atol = error_budget(torch.float32, n=256, mults=4)
+        assert torch.allclose(copy.double(), want, rtol=rtol, atol=atol)
+
+    @pytest.mark.parametrize("daemon", [False, True])
+    def test_writes_after_submit_do_not_change_the_answer(self, cuda,
+                                                          daemon):
+        a = _power_operand(192, cuda, 4)
+        want = torch.linalg.matrix_power(a.double(), 7)
+        eng = self._engine()
+        if daemon:
+            eng.start()
+        fut = eng.submit("matpow", a, power=7)
+        a.zero_()
+        if daemon:
+            eng.kick()
+            got = fut.result(timeout=60)
+            eng.close()
+        else:
+            (got,) = eng.flush()
+        rtol, atol = error_budget(torch.float32, n=192, mults=4)
+        assert torch.allclose(got.double(), want, rtol=rtol, atol=atol)
+
+    def test_stream_count_does_not_change_a_bit_on_the_chain(self, cuda):
+        from repro_torch.serve import ExecutionStreams, ManualClock
+        mats = [(_power_operand(n, cuda, 10 + i).to(dt), p)
+                for i, (dt, n, p) in enumerate(
+                    [(torch.float32, 192, 7), (torch.float32, 512, 96),
+                     (torch.bfloat16, 256, 7), (torch.float64, 128, 96)] * 4)]
+        outs = []
+        for streams in (ExecutionStreams(streams=1), None):
+            with self._engine(streams=streams, clock=ManualClock(),
+                              max_delay_ms=1e6) as eng:
+                futs = [eng.submit("matpow", m, power=p) for m, p in mats]
+                eng.kick()
+                outs.append([f.result(timeout=120) for f in futs])
+                assert eng.stats["routes"]["chain"] == 4
+        assert all(torch.equal(x, y) for x, y in zip(*outs))
+
+    def test_torch_route_same_bits_with_a_fixed_cublas_workspace(self, cuda):
+        """cuBLAS is deterministic across streams only with a fixed
+        workspace, so this runs in a subprocess that sets
+        CUBLAS_WORKSPACE_CONFIG before CUDA starts."""
+        import os
+        import subprocess
+        import sys
+        from pathlib import Path
+        code = (
+            "import torch\n"
+            "from repro_torch.serve import (ExecutionStreams, ManualClock,\n"
+            "                               MatFnEngine)\n"
+            "g = torch.Generator().manual_seed(0)\n"
+            "mats = [(torch.randn(n, n, generator=g) / n ** 0.5).cuda()\n"
+            "        for n in (16, 32, 64) * 6]\n"
+            "outs = []\n"
+            "for streams in (ExecutionStreams(streams=1), None):\n"
+            "    with MatFnEngine(device='cuda', streams=streams,\n"
+            "                     clock=ManualClock(), max_delay_ms=1e6) as e:\n"
+            "        futs = [e.submit('matpow', m, power=96) for m in mats]\n"
+            "        futs += [e.submit('expm', m) for m in mats]\n"
+            "        e.kick()\n"
+            "        outs.append([f.result(timeout=120) for f in futs])\n"
+            "        assert e.stats['routes']['torch'] == 6, e.stats\n"
+            "assert all(torch.equal(x, y) for x, y in zip(*outs))\n"
+            "print('same bits')\n")
+        src = Path(__file__).resolve().parent.parent / "src"
+        env = {**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8",
+               "PYTHONPATH": str(src)}
+        done = subprocess.run([sys.executable, "-c", code], env=env,
+                              capture_output=True, text=True, timeout=600)
+        assert done.returncode == 0, done.stderr[-2000:]
+        assert "same bits" in done.stdout
+
+    def test_a_failing_bucket_reaches_its_futures(self, cuda):
+        from repro_torch.serve import BucketExecutionError, ManualClock
+        # One bucket, flushed by the kick alone: on the system clock a
+        # deadline could split the three requests into two buckets, each
+        # retried once.
+        eng = self._engine(retries=1, clock=ManualClock(), max_delay_ms=1e6)
+
+        def failing(op, n, dtype, power, operands):
+            raise RuntimeError("CUDA error: an illegal memory access was "
+                               "encountered")
+
+        eng._run_chunk = failing
+        with eng:
+            futs = [eng.submit("matpow", _power_operand(192, cuda, s),
+                               power=7) for s in range(3)]
+            eng.kick()
+            for f in futs:
+                exc = f.exception(timeout=60)
+                assert isinstance(exc, BucketExecutionError)
+                assert "illegal memory access" in str(exc)
+            assert eng.stats()["retries"] == 1
+            assert eng.stats()["lanes"]["bulk"]["flushed"] == 0

@@ -318,3 +318,27 @@ class TestContracts:
             assert mm.allow_fp16_reduced_precision_reduction is False
         finally:
             torch.backends.cuda.matmul.allow_tf32 = False
+
+
+class TestBoolPower:
+    """A deliberate difference from the reference: its check
+    ``isinstance(n, int)`` lets ``matpow_binary(a, True)`` run as p = 1;
+    every entry point of the port refuses a bool power with ``TypeError``
+    (a bool is an int in Python, and never a power anyone meant)."""
+
+    @pytest.mark.parametrize("power", [True, False])
+    def test_every_entry_point_refuses_a_bool(self, power):
+        from repro_torch.core import batched_matpow
+        a = torch.eye(4)
+        for fn in (matpow_naive, matpow_binary):
+            with pytest.raises(TypeError):
+                fn(a, power)
+        with pytest.raises(TypeError):
+            matpow_binary_traced(a, power)
+        with pytest.raises(TypeError):
+            batched_matpow(a[None], power, backend="cuda_chain")
+
+    def test_the_reference_runs_a_bool_as_a_power(self):
+        a = 2.0 * np.eye(3, dtype=np.float32)
+        got = np.asarray(jmatpow.matpow_binary(jnp.asarray(a), True))
+        np.testing.assert_array_equal(got, a)

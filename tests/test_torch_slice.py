@@ -152,7 +152,18 @@ class TestNoJax:
                 "kernels/ref.py", "kernels/fastmm.py",
                 "kernels/attention.py", "kernels/autotune.py",
                 "core/__init__.py", "core/matpow.py", "core/batched.py",
-                "core/expm.py"} <= names
+                "core/expm.py", "runtime/__init__.py", "runtime/fault.py",
+                "runtime/telemetry.py", "serve/__init__.py",
+                "serve/admission.py", "serve/scheduler.py",
+                "serve/streams.py", "serve/matfn.py", "launch/__init__.py",
+                "launch/matserve.py"} <= names
+
+    @pytest.mark.parametrize("sub", ["serve", "runtime", "launch"])
+    def test_the_guards_cover_the_serving_packages(self, sub):
+        """The AST walk above and the fresh-interpreter import below reach
+        the serving sub-packages: every module of them is in FILES."""
+        mods = sorted((PKG / sub).rglob("*.py"))
+        assert mods and set(mods) <= set(self.FILES)
 
     def test_importing_everything_loads_neither(self):
         """A fresh interpreter imports the package and every sub-module —
