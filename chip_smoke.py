@@ -21,7 +21,14 @@ Mixtral-8x7B against its plain version, with
 ``scaled_dot_product_attention`` timed beside it; and the tuning cache:
 measured sweeps recorded and then used by ``ops.attention`` and by an A^96
 chain, and the f64 squaring tiers measured and then used by an f64 A^96
-chain. Each phase prints one JSON line; any
+chain; the Strassen route (``kernels.fastmm``: every leaf a K1 launch,
+7^L a multiply, against the dense squaring, ``torch.matmul`` and float64;
+A^96 on ``"cuda_fastmm"``; the crossover ``sweep_fastmm`` measures) and the
+Markov workloads (``steady_state`` with the bits of the chain,
+``evolve_distributions`` on K1 against one dense power and one apply); the
+serving engine with matpow, expm, markov and evolve traffic on its
+``torch``, ``chain``, ``fastmm`` and ``evolve`` routes, and its driver.
+Each phase prints one JSON line; any
 failure raises and the script exits non-zero without the final
 ``"ok": true`` line. It needs a CUDA device and ``nvcc``; it imports
 ``repro_torch`` only (never ``jax`` or the reference package). The tuning
@@ -63,11 +70,12 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 import repro_torch  # noqa: E402
 from repro_torch import convert  # noqa: E402
-from repro_torch.core import (batched_expm, batched_matpow, expm,  # noqa: E402
+from repro_torch.core import (batched_expm, batched_matpow,  # noqa: E402
+                              evolve_distributions, expm, markov_power,
                               matpow_binary, matpow_binary_traced,
-                              matpow_naive)
-from repro_torch.kernels import (_build, autotune, error_budget, ops,  # noqa: E402
-                                 ref)
+                              matpow_naive, steady_state)
+from repro_torch.kernels import (_build, autotune, error_budget,  # noqa: E402
+                                 fastmm, ops, ref)
 from repro_torch.kernels import attention_kernels as A  # noqa: E402
 from repro_torch.kernels import matmul_kernels as K  # noqa: E402
 from repro_torch.launch import matserve  # noqa: E402
@@ -191,11 +199,12 @@ def errors(got, want) -> tuple:
     return diff, diff / max(peak, 1e-300)
 
 
-def check_close(got, want, dtype, *, n, mults=1, what) -> tuple:
-    """Hold ``got`` to ``want`` under ``error_budget(dtype, n, mults)``,
-    elementwise, and — because the budget's absolute floor is loose for
-    small-valued results — also hold the peak-relative error to its rtol."""
-    rtol, atol = error_budget(dtype, n=n, mults=mults)
+def check_close(got, want, dtype, *, n, mults=1, levels=0, what) -> tuple:
+    """Hold ``got`` to ``want`` under ``error_budget(dtype, levels, n,
+    mults)``, elementwise, and — because the budget's absolute floor is
+    loose for small-valued results — also hold the peak-relative error to
+    its rtol (``levels`` Strassen levels widen both)."""
+    rtol, atol = error_budget(dtype, levels=levels, n=n, mults=mults)
     if not torch.isfinite(got).all():
         raise AssertionError(f"{what}: non-finite values in the result")
     if got.shape != want.shape:
@@ -203,7 +212,7 @@ def check_close(got, want, dtype, *, n, mults=1, what) -> tuple:
                              f"{tuple(want.shape)}")
     abs_err, rel_peak = errors(got, want)
     ok = torch.allclose(got.double(), want.double(), rtol=rtol, atol=atol)
-    floor_rtol = error_budget(dtype)[0]
+    floor_rtol = error_budget(dtype, levels=levels)[0]
     if not ok or rel_peak > floor_rtol:
         raise AssertionError(
             f"{what}: max_abs_err={abs_err:.3e} rel_to_peak={rel_peak:.3e} "
@@ -1061,20 +1070,276 @@ def f64_tuned_chain(tiers) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# The Strassen route (kernels.fastmm) and the Markov workloads (core.markov)
+# ---------------------------------------------------------------------------
+
+#: strassen_square's cases: (n, dtype) at levels 1 and 2, on a crossover low
+#: enough that the depth cap alone stops the recursion. n = 2049 pads one
+#: row and column at the top level (and at the second).
+STRASSEN_CASES = ([(n, dt) for n in (2048, 4096)
+                   for dt in (torch.float32, torch.bfloat16, torch.float64)]
+                  + [(2049, torch.float32)])
+STRASSEN_CROSSOVER = 256
+#: A^96 on "cuda_fastmm" beside "cuda_chain" and "torch": n, in f32 and f64.
+STRASSEN_MATPOW_N = 4096
+#: The candidate crossovers ``sweep_fastmm`` probes (at twice each).
+SWEEP_CANDIDATES = (256, 512, 1024, 2048)
+
+
+def launch_delta(fn):
+    """(result, launches added by ``fn()``, peak bytes allocated above what
+    was allocated before it)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    before = K.launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    after = K.launch_counts()
+    delta = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    return out, delta, torch.cuda.max_memory_allocated() - base
+
+
+def strassen_case(n, dtype, levels, seed) -> dict:
+    """One strassen_square: exactly 7^L launches of the dtype's K1 and
+    nothing else, within ``error_budget(levels=L)`` of the float64 square;
+    its device ms beside the dense squaring (``ops.square``, K1 at these
+    sizes) and ``torch.matmul``."""
+    what = f"strassen_square(n={n}, {dtype}, levels={levels})"
+    a = randn((n, n), dtype, seed)
+    used = fastmm.plan_levels(n, levels, STRASSEN_CROSSOVER)
+    if used != levels:
+        raise AssertionError(f"{what}: recursion plans {used} levels")
+    fn = (lambda: fastmm.strassen_square(a, levels=levels,
+                                         crossover=STRASSEN_CROSSOVER))
+    got, delta, peak = launch_delta(fn)
+    k1 = K.kernel_name("matmul", dtype)
+    if delta != {k1: 7 ** levels}:
+        raise AssertionError(f"{what}: launches {delta}, expected "
+                             f"{{{k1!r}: {7 ** levels}}}")
+    a64 = a.double()
+    want = a64 @ a64
+    err = check_close(got, want, dtype, n=n, levels=levels,
+                      what=what + " vs float64")
+    dense = ops.square(a)
+    repro_torch.exact_matmul_settings()
+    library = torch.matmul(a, a)
+    row = {"n": n, "dtype": str(dtype).removeprefix("torch."),
+           "levels": levels, "launches": delta, "peak_mb": peak / 2 ** 20,
+           "max_abs_err_vs_f64": err[0], "rel_to_peak_vs_f64": err[1],
+           "rtol": err[2], "atol": err[3],
+           "max_abs_err_vs_dense": errors(got, dense)[0],
+           "max_abs_err_vs_torch_matmul": errors(got, library)[0]}
+    del got, want, a64, dense, library
+    row["strassen_ms"] = time_ms(fn)
+    row["dense_ms"] = time_ms(lambda: ops.square(a))
+    row["torch_matmul_ms"] = time_ms(lambda: torch.matmul(a, a))
+    return row
+
+
+def phase_strassen() -> None:
+    """The Strassen route: ``strassen_square`` at levels 1 and 2
+    (STRASSEN_CASES); A^96 on ``"cuda_fastmm"`` at n = 4096 f32 and f64
+    beside ``"cuda_chain"`` and ``"torch"``; then ``sweep_fastmm`` into a
+    tuning cache of its own (measurement only: the default crossover is not
+    changed)."""
+    rows = [strassen_case(n, dt, levels, 800 + i)
+            for i, (n, dt) in enumerate(STRASSEN_CASES)
+            for levels in (1, 2)]
+    chains = []
+    for dtype, seed in ((torch.float32, 820), (torch.float64, 821)):
+        n = STRASSEN_MATPOW_N
+        what = f"matpow_binary(n={n}, {dtype}, p={POWER}, cuda_fastmm)"
+        a = power_operand(n, dtype, seed)
+        chain = ops.MatmulChain(n, dtype, device="cuda", fast=True)
+        levels = chain.fast_levels
+        got, delta, peak = launch_delta(
+            lambda: matpow_binary(a, POWER, backend="cuda_fastmm"))
+        k1 = K.kernel_name("matmul", dtype)
+        if delta != {k1: MULTS * 7 ** levels}:
+            raise AssertionError(f"{what}: launches {delta}")
+        want = f64_power(a, POWER, what=what)
+        err = check_close(got, want, dtype, n=n, mults=MULTS, levels=levels,
+                          what=what + " vs float64")
+        del got, want
+        chains.append({
+            "n": n, "dtype": str(dtype).removeprefix("torch."),
+            "levels": levels, "launches": delta, "peak_mb": peak / 2 ** 20,
+            "max_abs_err_vs_f64": err[0], "rel_to_peak_vs_f64": err[1],
+            "rtol": err[2],
+            "cuda_fastmm_ms": wall_ms(
+                lambda: matpow_binary(a, POWER, backend="cuda_fastmm")),
+            "cuda_chain_ms": wall_ms(
+                lambda: matpow_binary(a, POWER, backend="cuda_chain")),
+            "torch_ms": wall_ms(
+                lambda: matpow_binary(a, POWER, backend="torch"))})
+    # The sweep records into a cache of its own, so the later phases keep
+    # the default crossover.
+    main_cache = os.environ["REPRO_TORCH_AUTOTUNE_CACHE"]
+    sweep_dir = tempfile.mkdtemp(prefix="chip-smoke-fastmm-")
+    os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = str(
+        Path(sweep_dir) / "autotune_torch.json")
+    autotune.clear_memory_cache()
+    try:
+        crossover, levels = autotune.sweep_fastmm(
+            torch.float32, measure=True, candidates=SWEEP_CANDIDATES)
+        entry = autotune.load_cache()[autotune._fastmm_key(torch.float32)]
+    finally:
+        os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = main_cache
+        autotune.clear_memory_cache()
+        shutil.rmtree(sweep_dir, ignore_errors=True)
+    if autotune.fastmm_config(torch.float32)[0] != \
+            autotune.DEFAULT_FASTMM_CROSSOVER:
+        raise AssertionError("the sweep's entry leaked into the main cache")
+    emit("strassen", crossover=STRASSEN_CROSSOVER, rows=rows, matpow=chains,
+         sweep={"crossover": crossover, "levels": levels,
+                "measured": entry["measured"],
+                "probes_us": entry.get("probes_us"),
+                "default": autotune.DEFAULT_FASTMM_CROSSOVER})
+
+
+def stochastic(n, dtype, seed):
+    """A well-mixed random chain: rows of uniform(0.05, 1.05) entries, each
+    divided by its sum, from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    m = rng.random((n, n)) + 0.05
+    return convert.from_reference(m / m.sum(axis=-1, keepdims=True),
+                                  dtype=dtype)
+
+
+MARKOV_TOL = 1e-6
+#: steady_state's (n, dtype) cases; n = 1000 pads to 1024 on the chain.
+STEADY_CASES = ((2048, torch.float64), (1000, torch.float32))
+#: evolve_distributions at n = EVOLVE_N over EVOLVE_STEPS steps for each B:
+#: B <= n runs the evolve loop, B > n the dense fallback.
+EVOLVE_N = 1024
+EVOLVE_BS = (1, 256, 2048)
+EVOLVE_STEPS = 10_000
+
+
+def steady_case(n, dtype, seed) -> dict:
+    """``steady_state`` on ``"cuda_chain"``: converges in under 20
+    squarings to a residual within ``MARKOV_TOL``; its pi is a fixed point
+    (‖π·P − π‖₁ in float64 within the loop's tol plus the dtype's rtol);
+    its matrix has the bits of ``matpow_binary(p, 2**k)`` on the same
+    route; timed beside the fixed p = 2^20 policy."""
+    what = f"steady_state(n={n}, {dtype}, cuda_chain)"
+    p = stochastic(n, dtype, seed)
+    res, delta, peak = launch_delta(
+        lambda: steady_state(p, tol=MARKOV_TOL, backend="cuda_chain",
+                             validate=False))
+    k = int(res.squarings)
+    if not 0 < k < 20 or float(res.residual) > MARKOV_TOL:
+        raise AssertionError(f"{what}: {k} squarings, residual "
+                             f"{float(res.residual):.3e}")
+    if any(key.startswith("plain") for key in delta):
+        raise AssertionError(f"{what}: plain route {delta}")
+    drift = float((res.pi.double() @ p.double() - res.pi.double())
+                  .abs().sum())
+    limit = MARKOV_TOL + error_budget(dtype, n=n, mults=k)[0]
+    if not drift <= limit:
+        raise AssertionError(f"{what}: |pi P - pi|_1 = {drift:.3e} > "
+                             f"{limit:.3e}")
+    same = torch.equal(res.matrix,
+                       matpow_binary(p, 1 << k, backend="cuda_chain"))
+    if not same:
+        raise AssertionError(f"{what}: matrix differs from "
+                             f"matpow_binary(p, 2**{k}) on cuda_chain")
+    return {"n": n, "dtype": str(dtype).removeprefix("torch."),
+            "squarings": k, "residual": float(res.residual),
+            "pi_drift_l1": drift, "drift_limit": limit,
+            "bits_of_matpow": same, "launches": delta,
+            "peak_mb": peak / 2 ** 20,
+            "steady_ms": wall_ms(lambda: steady_state(
+                p, tol=MARKOV_TOL, backend="cuda_chain", validate=False)),
+            "fixed_2_20_ms": wall_ms(lambda: matpow_binary(
+                p, 1 << 20, backend="cuda_chain"))}
+
+
+def evolve_case(n, b, seed) -> dict:
+    """``evolve_distributions`` of B distributions over EVOLVE_STEPS
+    steps (the evolve loop while B <= n, the dense fallback above) against
+    float64 P^steps applied once; K1 launches of its vector–matrix
+    products, the rows K1 padded B to, and its ms beside ``markov_power``
+    and one apply."""
+    dtype = torch.float32
+    what = f"evolve_distributions(n={n}, B={b}, steps={EVOLVE_STEPS})"
+    p = stochastic(n, dtype, seed)
+    rng = np.random.default_rng(seed + 1)
+    d = rng.random((b, n))
+    d = convert.from_reference(d / d.sum(axis=1, keepdims=True), dtype=dtype)
+    route = "evolve" if b <= autotune.markov_evolve_threshold(dtype) * n \
+        else "dense"
+    got, delta, peak = launch_delta(lambda: evolve_distributions(
+        d, p, EVOLVE_STEPS, backend="cuda_chain", validate=False))
+    bits = EVOLVE_STEPS.bit_length() - 1
+    ones = bin(EVOLVE_STEPS).count("1")
+    # A squaring per remaining bit (K2 / K3, or K1 where the tier policy
+    # sends the size to it) and popcount K1 launches: a product per set bit
+    # (evolve), or the power's combines and one apply (dense).
+    if sum(delta.values()) != bits + ones or \
+            delta.get("matmul", 0) < ones or \
+            any(key.startswith("plain") for key in delta):
+        raise AssertionError(f"{what}: launches {delta}")
+    # The product itself is one K1 launch, never a plain version.
+    _, one, _ = launch_delta(lambda: ops.dense_matmul(d, p))
+    if one != {"matmul": 1}:
+        raise AssertionError(f"{what}: dense_matmul launched {one}")
+    want = d.double() @ torch.linalg.matrix_power(p.double(), EVOLVE_STEPS)
+    err = check_close(got, want, dtype, n=n, mults=bits + ones,
+                      what=what + " vs float64")
+    bm = ops.pick_blocks(b, n, n, dtype=dtype, backend="cuda")[0]
+
+    def dense():
+        m = markov_power(p, EVOLVE_STEPS, backend="cuda_chain",
+                         validate=False)
+        return ops.dense_matmul(d, m)
+
+    return {"n": n, "B": b, "steps": EVOLVE_STEPS, "route": route,
+            "launches": delta, "k1_rows": -(-b // bm) * bm,
+            "peak_mb": peak / 2 ** 20, "max_abs_err_vs_f64": err[0],
+            "rel_to_peak_vs_f64": err[1],
+            "evolve_ms": wall_ms(lambda: evolve_distributions(
+                d, p, EVOLVE_STEPS, backend="cuda_chain", validate=False)),
+            "markov_power_and_apply_ms": wall_ms(dense)}
+
+
+def phase_markov() -> None:
+    """The Markov workloads on the card: steady states at n = 2048 f64 and
+    n = 1000 f32 (padded to 1024 by the chain), and distribution evolution
+    at n = 1024 f32 for B = 1 and 256 (the evolve loop) and 2048 (the dense
+    fallback)."""
+    steady = [steady_case(n, dt, 830 + i)
+              for i, (n, dt) in enumerate(STEADY_CASES)]
+    evolve = [evolve_case(EVOLVE_N, b, 840 + b) for b in EVOLVE_BS]
+    emit("markov", tol=MARKOV_TOL, steady=steady, evolve=evolve)
+
+
+# ---------------------------------------------------------------------------
 # The serving engine (repro_torch.serve.matfn) and its driver
 # ---------------------------------------------------------------------------
 
 #: The serving mix: (op, dtype, n) classes, each matpow class at every power
 #: of SERVE_POWERS. With the default thresholds (64, 4096) n = 64 takes the
-#: "torch" route (cuBLAS) and the rest the kernel chain, through K2 / K3 / K1
-#: in every dtype: f32 192 (K2), 512 and 1024 (K3), bf16 256 (K2) and 1024
-#: (K3), f64 128 (K2) and 256 (K3), the combines on K1.
-SERVE_CLASSES = ([("matpow", torch.float32, n) for n in (64, 192, 512, 1024)]
+#: "torch" route (cuBLAS) and the rest up to 1024 the kernel chain, through
+#: K2 / K3 / K1 in every dtype: f32 192 (K2), 512 and 1024 (K3), bf16 256
+#: (K2) and 1024 (K3), f64 128 (K2) and 256 (K3), the combines on K1. n =
+#: 2048 (matpow, expm) is above the default Strassen crossover: the
+#: "fastmm" route, K1 leaves. "markov" is a steady-state query on the chain,
+#: "evolve" a markov request with EVOLVE_B distributions over EVOLVE_HORIZON
+#: steps, on the evolve route.
+SERVE_CLASSES = ([("matpow", torch.float32, n)
+                  for n in (64, 192, 512, 1024, 2048)]
                  + [("matpow", torch.bfloat16, n) for n in (256, 1024)]
                  + [("matpow", torch.float64, n) for n in (128, 256)]
                  + [("expm", dt, n) for dt in (torch.float32, torch.float64)
-                    for n in (64, 192)])
+                    for n in (64, 192)]
+                 + [("expm", torch.float32, 2048),
+                    ("markov", torch.float32, 256),
+                    ("evolve", torch.float32, 256)])
 SERVE_POWERS = (7, 96)
+EVOLVE_B = 16
+EVOLVE_HORIZON = 100
 SERVE_REQUESTS = 192
 DAEMON_REQUESTS = 1024
 DAEMON_PRODUCERS = 4
@@ -1082,58 +1347,113 @@ DAEMON_PRODUCERS = 4
 #: a fraction of the rate its overload run served.
 SUSTAINED_REQUESTS = 512
 SUSTAINED_LOADS = (0.5, 0.8)
-ROUTE_BACKEND = {"torch": "torch", "chain": "cuda_chain"}
+ROUTE_BACKEND = {"torch": "torch", "chain": "cuda_chain",
+                 "fastmm": "cuda_fastmm"}
 THETA13 = 5.371920351148152   # the Pade-13 1-norm threshold of core.expm
+
+
+def route_levels(n, dtype) -> int:
+    """Strassen levels of an n-sized request's bucket on the default
+    config: those of a ``fast=None`` chain (0 at or below the crossover)."""
+    return ops.MatmulChain(n, dtype, device="cuda", fast=None).fast_levels
 
 
 def serve_requests(count, seed):
     """``count`` requests cycling over the mix's classes, as (op, operand,
-    power, float64 answer, multiplies): matpow operands are row-stochastic
-    with distinct powers (``power_operand``), expm operands zero-mean
-    normal with entries of size n^-1/2. The answer is the port's
-    ``"torch"`` route in float64; ``mults`` counts the binary chain's
-    multiplies, or expm's Pade-13 and solve (8) and its squarings."""
+    power, float64 answer, multiplies, Strassen levels, dists): matpow
+    operands are row-stochastic with distinct powers (``power_operand``),
+    expm operands zero-mean normal with entries of size n^-1/2, markov
+    operands well-mixed random chains (``stochastic``). The answer is the
+    port's ``"torch"`` route in float64 (a steady state's pi, an evolved
+    stack); ``mults`` counts the binary chain's multiplies, expm's Pade-13
+    and solve (8) and its squarings, an evolve request's squarings and
+    products (a steady state's are read from its answer); ``levels`` is the
+    fastmm route's depth at n (0 on the other routes)."""
     classes = [(op, dt, n, p) for op, dt, n in SERVE_CLASSES
-               for p in (SERVE_POWERS if op == "matpow" else (1,))]
+               for p in (SERVE_POWERS if op == "matpow"
+                         else (EVOLVE_HORIZON,) if op == "evolve" else (1,))]
     out = []
     for i in range(count):
         op, dt, n, p = classes[i % len(classes)]
+        dists, levels = None, route_levels(n, dt)
         if op == "matpow":
             a = power_operand(n, dt, seed + i)
             want = matpow_binary(a.double(), p, backend="torch")
             mults = (p.bit_length() - 1) + (bin(p).count("1") - 1)
-        else:
+        elif op == "expm":
             a = randn((n, n), dt, seed + i, scale=n ** -0.5)
             want = expm(a.double(), backend="torch")
             norm = float(torch.linalg.matrix_norm(a.double(), ord=1))
             mults = 8 + max(0, math.ceil(math.log2(norm / THETA13)))
-        out.append((op, a, p, want, mults))
+        elif op == "markov":
+            a = stochastic(n, dt, seed + i)
+            want = steady_state(a.double(), validate=False).pi
+            mults = None
+        else:
+            op, levels = "markov", 0
+            a = stochastic(n, dt, seed + i)
+            rng = np.random.default_rng(seed + i)
+            d = rng.random((EVOLVE_B, n))
+            dists = convert.from_reference(d / d.sum(axis=1, keepdims=True),
+                                           dtype=dt)
+            want = evolve_distributions(dists.double(), a.double(), p,
+                                        validate=False)
+            mults = (p.bit_length() - 1) + bin(p).count("1")
+        out.append((op, a, p, want, mults, levels, dists))
     torch.cuda.synchronize()
     return out
 
 
+def submit(eng, req, **kw):
+    """Submit one request of ``serve_requests`` to ``eng``."""
+    op, a, p, *_, dists = req
+    return eng.submit(op, a, power=p, dists=dists, **kw)
+
+
+
+
+def same_bits(x, y) -> bool:
+    """Bit equality of two served answers (a steady state field by
+    field)."""
+    if isinstance(x, tuple):
+        return all(torch.equal(u, v) for u, v in zip(x, y))
+    return torch.equal(x, y)
+
+
 def check_served(req, got, what):
-    op, a, p, want, mults = req
-    return check_close(got, want, a.dtype, n=a.shape[0], mults=mults,
-                       what=f"{what} {op} n={a.shape[0]} {a.dtype} p={p}")[0]
+    """Hold one served answer to its float64 answer; a steady state by its
+    pi, with the squarings it paid as its multiplies."""
+    op, a, p, want, mults, levels, dists = req
+    kind = "evolve" if dists is not None else op
+    if isinstance(got, tuple):
+        mults = max(int(got.squarings), 1)
+        got = got.pi
+    return check_close(got, want, a.dtype, n=a.shape[0],
+                       mults=mults, levels=levels,
+                       what=f"{what} {kind} n={a.shape[0]} {a.dtype} "
+                            f"p={p}")[0]
 
 
 def warm_classes(eng, reqs, batches) -> int:
-    """Warm every class of ``reqs``; returns the chunks warmed (they count
-    into the engine's ``buckets``)."""
+    """Warm every class of ``reqs`` (evolve classes have no warm); returns
+    the chunks warmed (they count into the engine's ``buckets``)."""
     return sum(eng.warm(op, n, dtype=dtype, power=p,
                         batches=batches(op, n, dtype, p))
-               for op, n, dtype, p in sorted({(op, a.shape[0], a.dtype, p)
-                                              for op, a, p, *_ in reqs},
-                                             key=str))
+               for op, n, dtype, p in sorted(
+                   {(op, a.shape[0], a.dtype, p)
+                    for op, a, p, *_, dists in reqs if dists is None},
+                   key=str))
 
 
 def phase_serve() -> tuple:
     """One engine on the card, warmed for every bucket of the mix, answers
     SERVE_REQUESTS requests in one synchronous flush. Every answer is held
-    to float64; the chain buckets must launch every K1–K3 kernel (and no
-    plain version); the flush's wall time stands beside a serial loop of
-    per-request calls on the same routes."""
+    to float64 (fastmm answers under their levels' budget); the chain
+    buckets must launch every K1–K3 kernel (and no plain version), the
+    flush must have buckets on the torch, chain, fastmm and evolve routes,
+    and a flush of the fastmm requests alone must launch K1 only; the
+    flush's wall time stands beside a serial loop of per-request calls on
+    the same routes."""
     reqs = serve_requests(SERVE_REQUESTS, 500)
     per_class = collections.Counter(
         (op, a.shape[0], a.dtype, p) for op, a, p, *_ in reqs)
@@ -1142,9 +1462,9 @@ def phase_serve() -> tuple:
     torch.cuda.synchronize()
     warm_stats = {k: eng.stats[k] for k in ("compiles", "cache_hits")}
 
-    def flush():
-        for op, a, p, *_ in reqs:
-            eng.submit(op, a, power=p)
+    def flush(batch=reqs):
+        for req in batch:
+            submit(eng, req)
         return eng.flush()
 
     K.reset_launches()
@@ -1159,14 +1479,36 @@ def phase_serve() -> tuple:
     if missing or plain:
         raise AssertionError(f"serve: chain buckets never launched {missing}"
                              f" or took the plain route {plain}: {counts}")
+    served_routes = {r for r, c in eng.stats["routes"].items() if c}
+    if not {"torch", "chain", "fastmm", "evolve"} <= served_routes:
+        raise AssertionError(f"serve: buckets on routes {served_routes}")
+    fast = [r for r in reqs if r[6] is None
+            and eng.route_for(r[1].shape[0], 1, r[1].dtype) == "fastmm"]
+    K.reset_launches()
+    fast_results = flush(fast)
+    fast_counts = {k: v for k, v in K.launch_counts().items() if v}
+    if set(fast_counts) != {"matmul"} or fast_counts["matmul"] < 7:
+        raise AssertionError(f"serve: the fastmm buckets launched "
+                             f"{fast_counts}, not K1 alone")
+    errs += [check_served(r, g, "serve fastmm")
+             for r, g in zip(fast, fast_results)]
 
     def serial():
-        for op, a, p, *_ in reqs:
-            backend = ROUTE_BACKEND[eng.route_for(a.shape[0], 1, a.dtype)]
+        for op, a, p, *_, dists in reqs:
+            n = a.shape[0]
+            if dists is not None:
+                backend = "torch" if n <= eng.thresholds_for(a.dtype)[0] \
+                    else "cuda_chain"
+                evolve_distributions(dists, a, p, backend=backend,
+                                     validate=False)
+                continue
+            backend = ROUTE_BACKEND[eng.route_for(n, 1, a.dtype)]
             if op == "matpow":
                 matpow_binary(a, p, backend=backend)
-            else:
+            elif op == "expm":
                 expm(a, backend=backend)
+            else:
+                steady_state(a, backend=backend, validate=False)
         torch.cuda.synchronize()
 
     serial()                                   # first calls out of the way
@@ -1178,6 +1520,7 @@ def phase_serve() -> tuple:
          buckets_by_route=routes, warm=warm_stats,
          compiles=eng.stats["compiles"], cache_hits=eng.stats["cache_hits"],
          launches={k: v for k, v in counts.items() if v},
+         fastmm_requests=len(fast), fastmm_launches=fast_counts,
          flush_ms=flush_ms, serial_ms=serial_ms,
          flush_req_per_s=len(reqs) / flush_ms * 1e3,
          serial_req_per_s=len(reqs) / serial_ms * 1e3,
@@ -1186,19 +1529,20 @@ def phase_serve() -> tuple:
 
 
 def serve_same_bits(reqs) -> dict:
-    """The same 64 requests through one stream and through the default
-    streams: every answer must have the same bits (same callables, same
-    inputs, same buckets: a ManualClock and one kick)."""
+    """The same 64 requests (every class of the mix) through one stream
+    and through the default streams: every answer must have the same bits
+    (same callables, same inputs, same buckets: a ManualClock and one
+    kick), on all four served routes."""
     outs = []
     for streams in (ExecutionStreams(streams=1), None):
         with MatFnEngine(device="cuda", streams=streams, clock=ManualClock(),
                          max_delay_ms=1e6) as eng:
-            futs = [eng.submit(op, a, power=p) for op, a, p, *_ in reqs]
+            futs = [submit(eng, req) for req in reqs]
             eng.kick()
             outs.append([f.result(timeout=120) for f in futs])
             routes = {r: c for r, c in eng.stats["routes"].items() if c}
-    diff = [i for i, (x, y) in enumerate(zip(*outs)) if not torch.equal(x, y)]
-    if diff or set(routes) != {"torch", "chain"}:
+    diff = [i for i, (x, y) in enumerate(zip(*outs)) if not same_bits(x, y)]
+    if diff or set(routes) != {"torch", "chain", "fastmm", "evolve"}:
         raise AssertionError(f"streams=1 and the default streams differ at "
                              f"requests {diff} (routes {routes})")
     return routes
@@ -1219,8 +1563,12 @@ def daemon_run(pool, count, rate, seed, *, trace):
     eng = MatFnEngine(device="cuda", trace=trace)
     futs = [None] * count
     with eng:
-        warmed = warm_classes(eng, pool,
-                              lambda *key: (1, 2, 4, 8, 16, 32, 64))
+        # Above the Strassen crossover a 64-deep warm stack would take
+        # seconds; the mix's few requests there fill small buckets.
+        warmed = warm_classes(
+            eng, pool, lambda op, n, dtype, p: (1, 2, 4, 8)
+            if n > autotune.DEFAULT_FASTMM_CROSSOVER
+            else (1, 2, 4, 8, 16, 32, 64))
         torch.cuda.synchronize()
         t_start = time.perf_counter()
 
@@ -1229,8 +1577,8 @@ def daemon_run(pool, count, rate, seed, *, trace):
                 delay = t_start + i / rate - time.perf_counter()
                 if delay > 0:
                     time.sleep(delay)
-                op, a, p, *_ = pool[order[i]]
-                futs[i] = eng.submit(op, a, power=p, priority=str(lanes[i]))
+                futs[i] = submit(eng, pool[order[i]],
+                                 priority=str(lanes[i]))
 
         threads = [threading.Thread(target=producer, args=(k,))
                    for k in range(DAEMON_PRODUCERS)]
@@ -1285,7 +1633,10 @@ def phase_serve_daemon(pool, capacity) -> None:
     stages = {stage: {"count": h["count"], "mean_ms": h["mean"] * 1e3,
                       "p50_ms": h["p50"] * 1e3, "p95_ms": h["p95"] * 1e3}
               for stage, h in snap["stages"].items()}
-    for route in ("torch", "chain"):
+    routes = {r: c for r, c in snap["routes"].items() if c}
+    if not {"torch", "chain", "fastmm", "evolve"} <= set(routes):
+        raise AssertionError(f"serve_daemon: buckets on routes {routes}")
+    for route in ("torch", "chain", "fastmm", "evolve"):
         h = eng.metrics.merged("stage", stage="execute", route=route)
         stages[f"execute_{route}"] = {"count": h.count,
                                       "mean_ms": None if h.mean is None
@@ -1309,6 +1660,7 @@ def phase_serve_daemon(pool, capacity) -> None:
          streams={row["label"]: row["executed"] for row in served},
          trace_events=len(doc["traceEvents"]),
          launches={k: v for k, v in counts.items() if v},
+         buckets_by_route=routes,
          stages=stages, same_bits_routes=same_bits_routes)
     for k, factor in enumerate(SUSTAINED_LOADS):
         rate = factor * overload["served_req_per_s"]
@@ -1318,11 +1670,16 @@ def phase_serve_daemon(pool, capacity) -> None:
              **report)
 
 
+MATSERVE_ARGV = ["--daemon", "--rate", "1000", "--requests", "256",
+                 "--sizes", "64,192,512,2048", "--powers", "7,96",
+                 "--dtypes", "float32,float64", "--markov-frac", "0.25",
+                 "--verify"]
+
+
 def phase_matserve() -> None:
-    """The port's serving driver as a user starts it, on the card."""
-    argv = ["--daemon", "--rate", "2000", "--requests", "256", "--sizes",
-            "64,192,512", "--powers", "7,96", "--dtypes", "float32,float64",
-            "--verify"]
+    """The port's serving driver as a user starts it, on the card, with a
+    quarter of markov traffic and n = 2048 on the fastmm route."""
+    argv = MATSERVE_ARGV
     t0 = time.perf_counter()
     rc = matserve.main(argv)
     if rc != 0:
@@ -1343,7 +1700,8 @@ def phase_dispatch() -> None:
         for n in (32, 64, 128, 256, 512, 1024):
             a = power_operand(n, torch.float32, 600 + n, batch=batch)
             row = {"batch": batch, "n": n}
-            for route, backend in ROUTE_BACKEND.items():
+            for route in ("torch", "chain"):
+                backend = ROUTE_BACKEND[route]
                 fn = (lambda b=backend: batched_matpow(a, POWER, backend=b))
                 row[f"{route}_device_ms"] = time_ms(fn)
                 row[f"{route}_host_ms"] = wall_ms(fn)
@@ -1381,6 +1739,11 @@ def main() -> int:
         counts, _ = phase_matpow()
         phase_entry_points()
         phase_batched()
+        t_new = time.perf_counter()
+        phase_strassen()
+        phase_markov()
+        emit("strassen_markov_phases",
+             seconds=round(time.perf_counter() - t_new, 1))
         t_serve = time.perf_counter()
         pool, capacity = phase_serve()
         phase_serve_daemon(pool, capacity)

@@ -2,9 +2,11 @@
 
 Same sub-packages and module names as the JAX reference, so the
 counterpart of a reference file is found by name: ``kernels`` (the
-hand-written CUDA kernels, their wrappers, the tuning cache), ``core`` (the
-matrix-power chains and ``expm``), ``serve`` (the matrix-function serving
-engine and its admission, scheduling and stream layers), ``runtime``
+hand-written CUDA kernels, their wrappers, the Strassen recursion over
+them, the tuning cache), ``core`` (the matrix-power chains, ``expm`` and the
+Markov-chain workloads), ``serve`` (the matrix-function serving engine, its
+``torch`` / ``chain`` / ``fastmm`` / ``evolve`` routes and its admission,
+scheduling and stream layers), ``runtime``
 (telemetry and fault handling) and ``launch`` (the ``matserve`` driver). The
 port imports ``torch`` only — never ``jax`` and nothing of ``repro``.
 

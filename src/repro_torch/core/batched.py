@@ -39,12 +39,12 @@ class BatchedMatmulChain(_kops.MatmulChain):
     """
 
     def __init__(self, batch: int, n: int, dtype, *, blocks=None,
-                 donate: bool = True, device=None):
+                 donate: bool = True, device=None, fast=False):
         if not isinstance(batch, int) or isinstance(batch, bool) or batch < 1:
             raise ValueError(f"batched chains need a static batch >= 1, "
                              f"got {batch!r}")
         super().__init__(n, dtype, blocks=blocks, donate=donate,
-                         device=device)
+                         device=device, fast=fast)
         self.batch = batch
 
     # -- chain boundary ----------------------------------------------------
@@ -65,8 +65,11 @@ def batched_matpow(a: torch.Tensor, p: int, *, backend: str = "torch") -> torch.
     floor(log2 p) stacked squarings plus popcount(p)-1 stacked combines,
     each ONE launch for all B matrices. ``backend`` follows
     :func:`repro_torch.core.matpow.matmul_backend` names; ``"cuda_chain"``
-    runs through :class:`BatchedMatmulChain`, everything else falls through
-    to the already stack-capable :func:`matpow_binary`.
+    runs through :class:`BatchedMatmulChain`, ``"cuda_fastmm"`` runs the
+    same chain with Strassen recursion per stacked squaring (each leaf one
+    K1 launch for the whole stack; held to ``fastmm.error_budget``), and
+    everything else falls through to the already stack-capable
+    :func:`matpow_binary`.
 
     ``p`` must be a python int >= 0; ``p == 0`` returns a stack of
     identities (the same contract as every other matpow entry point).
@@ -86,7 +89,8 @@ def batched_matpow(a: torch.Tensor, p: int, *, backend: str = "torch") -> torch.
     if p == 0:
         return _matpow._eye_like(a)
     chain = BatchedMatmulChain(a.shape[0], a.shape[-1], a.dtype,
-                               device=a.device)
+                               device=a.device,
+                               fast=backend in _matpow._FAST_BACKENDS)
     return chain.unpad(_matpow._binary_chain_body(chain.pad(a), p, chain))
 
 

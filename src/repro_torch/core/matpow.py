@@ -22,6 +22,10 @@ Backends (``matmul_backend``):
     (squarings through the tiered squaring kernels, ping-ponging between two
     buffers the chain owns), and the result is un-padded once at exit (the
     reference's ``"pallas_chain"``).
+  * ``"cuda_fastmm"`` — the same fused chain with every multiply by
+    Strassen recursion over K1 leaves (``kernels.fastmm``; the reference's
+    ``"pallas_fastmm"``): held to ``fastmm.error_budget``, not to the bits
+    of the dense routes.
 
 There is no interpret-mode twin: the same backend name computes where the
 operand lies. On a CUDA tensor ``"cuda"`` / ``"cuda_chain"`` launch the
@@ -47,7 +51,10 @@ __all__ = [
 ]
 
 #: Backends that take the fused chain-execution route.
-_CHAIN_BACKENDS = frozenset({"cuda_chain"})
+_CHAIN_BACKENDS = frozenset({"cuda_chain", "cuda_fastmm"})
+
+#: Chain backends whose multiplies take the Strassen route.
+_FAST_BACKENDS = frozenset({"cuda_fastmm"})
 
 
 def matmul_backend(backend: str = "torch", precision=None) -> Callable:
@@ -64,9 +71,11 @@ def matmul_backend(backend: str = "torch", precision=None) -> Callable:
         points recognise it and hoist padding to the chain boundary via
         :func:`chain_for`; as a bare (a, b) callable it behaves like
         ``"cuda"``.
+      * ``"cuda_fastmm"`` — the fused chain with Strassen recursion per
+        multiply (above the tuned crossover); as a bare callable it is
+        ``kernels.fastmm.strassen_matmul``.
 
-    Any other name — the Strassen (``fastmm``) routes included, until they
-    are ported — raises ``ValueError``.
+    Any other name raises ``ValueError``.
 
     precision: the reference's ``precision`` argument. Every route computes
     exact products with fp32 (f64) accumulation and no TF32, which is the
@@ -77,6 +86,9 @@ def matmul_backend(backend: str = "torch", precision=None) -> Callable:
     """
     if backend == "torch":
         route = torch.matmul
+    elif backend in _FAST_BACKENDS:
+        from repro_torch.kernels import fastmm
+        route = fastmm.strassen_matmul
     elif backend == "cuda" or backend in _CHAIN_BACKENDS:
         from repro_torch.kernels import ops as kops
         route = kops.matmul
@@ -99,14 +111,15 @@ def chain_for(a: torch.Tensor, backend: str, donate: bool = True):
 
     Pass ``donate=False`` when the caller needs a squaring's operand after
     the squaring (``expm``'s masked loop does): a donating chain reuses the
-    operand's buffer two squarings later.
+    operand's buffer two squarings later. ``"cuda_fastmm"`` builds the
+    chain with ``fast=True``.
     """
     if backend not in _CHAIN_BACKENDS:
         matmul_backend(backend)  # raises on an unknown name
         return None
     from repro_torch.kernels import ops as kops
     return kops.MatmulChain(a.shape[-1], a.dtype, donate=donate,
-                            device=a.device)
+                            device=a.device, fast=backend in _FAST_BACKENDS)
 
 
 def _check_square(a: torch.Tensor) -> int:

@@ -13,14 +13,17 @@ matmul.py    : the tiled matmul kernel (K1) and the tiered squaring kernels
                versions and the launch counters.
 attention.py : flash attention (K5), its plain version, its tile tables,
                the split-KV rule and combine, and the launch counters.
-autotune.py  : the persistent tuning cache (matmul, attention and
-               square_panel namespaces) and the sweeps that fill it,
-               measured on the card as device time of CUDA-graph replays.
-ops.py       : public wrappers (padding, stacking, attention), the fused
-               chain executor (MatmulChain) and the tile pickers
-               (pick_blocks, pick_attn_blocks), which consult the cache.
-fastmm.py    : the routes' error budgets (error_budget, DENSE_BUDGET); the
-               Strassen recursion is ported into it later.
+autotune.py  : the persistent tuning cache (matmul, attention,
+               square_panel, dispatch, fastmm and markov namespaces) and
+               the sweeps that fill it, measured on the card as device time
+               of CUDA-graph replays.
+ops.py       : public wrappers (padding, stacking, attention, dense_matmul),
+               the fused chain executor (MatmulChain, dense or Strassen)
+               and the tile pickers (pick_blocks, pick_attn_blocks), which
+               consult the cache.
+fastmm.py    : Strassen recursion over K1 leaves (strassen_matmul,
+               strassen_square, plan_levels) and the routes' error budgets
+               (error_budget, DENSE_BUDGET).
 ref.py       : plain PyTorch oracles the kernels are held against.
 """
 
@@ -28,14 +31,15 @@ from repro_torch.kernels import (attention as attention_kernels, autotune,
                                  fastmm, matmul as matmul_kernels, ops, ref)
 from repro_torch.kernels.attention import (flash_attention,
                                            flash_attention_plain)
-from repro_torch.kernels.fastmm import DENSE_BUDGET, error_budget
+from repro_torch.kernels.fastmm import (DENSE_BUDGET, error_budget,
+                                        strassen_matmul, strassen_square)
 from repro_torch.kernels.matmul import (LAUNCHES, launch_counts, matmul_cuda,
                                         matmul_plain, reset_launches,
                                         square_cuda, square_plain,
                                         square_tier)
 from repro_torch.kernels.ops import (MatmulChain, PaddedChain, attention,
-                                     matmul, pad_to_blocks, pick_attn_blocks,
-                                     pick_blocks, square)
+                                     dense_matmul, matmul, pad_to_blocks,
+                                     pick_attn_blocks, pick_blocks, square)
 
 __all__ = ["fastmm", "matmul_kernels", "attention_kernels", "autotune", "ops",
            "ref", "matmul", "square", "attention", "MatmulChain",
@@ -43,4 +47,5 @@ __all__ = ["fastmm", "matmul_kernels", "attention_kernels", "autotune", "ops",
            "matmul_cuda", "matmul_plain", "square_cuda", "square_plain",
            "square_tier", "flash_attention", "flash_attention_plain",
            "LAUNCHES", "launch_counts", "reset_launches",
-           "error_budget", "DENSE_BUDGET"]
+           "error_budget", "DENSE_BUDGET", "strassen_matmul",
+           "strassen_square", "dense_matmul"]

@@ -26,11 +26,16 @@ Namespaces (the ``kernel`` key segment, ``KERNELS``):
                        (``bucket_deadline_ms``); read by
                        ``repro_torch.serve.matfn``. The defaults are the
                        reference's; nothing here sweeps them yet.
-
-The reference's other namespaces (the Strassen route's ``fastmm``, the
-Markov route's ``markov`` ratio) arrive with the slices that read them;
-``DEFAULT_FASTMM_CROSSOVER`` is here already, as the size above which the
-engine names (and refuses) the Strassen route.
+  * ``fastmm``       — the Strassen route's ``(crossover_n, max_levels)``
+                       and optional leaf tiles (``fastmm_config``); read by
+                       ``kernels.fastmm`` and ``ops.MatmulChain(fast=...)``,
+                       and by the engine, whose buckets above the crossover
+                       take the ``fastmm`` route. ``sweep_fastmm`` measures
+                       the crossover on the card.
+  * ``markov``       — the B/n ratio above which ``core.markov.
+                       evolve_distributions`` leaves its vector–matrix loop
+                       for one dense power and one apply
+                       (``markov_evolve_threshold``).
 
 Keys are ``{kernel}/{dims}/{dtype}/{backend}``. The backend segment is the
 operand's device type (``"cuda"`` or ``"cpu"``), passed by the caller; it
@@ -87,16 +92,20 @@ __all__ = [
     "DEFAULT_SQUARE_TIERS", "square_tiers", "record_square_tiers",
     "sweep_square_tiers", "device_times_us",
     "DEFAULT_DISPATCH_THRESHOLDS", "DEFAULT_MAX_DELAY_MS",
-    "DEFAULT_FASTMM_CROSSOVER", "dispatch_thresholds",
+    "DEFAULT_FASTMM_CROSSOVER", "DEFAULT_FASTMM_LEVELS",
+    "dispatch_thresholds",
     "record_dispatch_thresholds", "bucket_deadline_ms",
-    "record_bucket_deadline",
+    "record_bucket_deadline", "fastmm_config", "record_fastmm",
+    "sweep_fastmm", "DEFAULT_MARKOV_EVOLVE_THRESHOLD",
+    "markov_evolve_threshold", "record_markov_evolve_threshold",
     "cache_generation", "on_generation_bump",
 ]
 
 _ENV_VAR = "REPRO_TORCH_AUTOTUNE_CACHE"
 
 #: Kernel namespaces the cache knows about (the first segment of every key).
-KERNELS = ("matmul", "attention", "square_panel", "dispatch")
+KERNELS = ("matmul", "attention", "square_panel", "dispatch", "fastmm",
+           "markov")
 
 #: Matmul candidates of the f32 FMA kernel: every instantiated (tile,
 #: K step) pair.
@@ -138,10 +147,21 @@ DEFAULT_DISPATCH_THRESHOLDS: tuple = (64, 4096)
 #: (``bucket_deadline_ms``).
 DEFAULT_MAX_DELAY_MS: float = 2.0
 
-#: The reference's default Strassen crossover (matrix size n): buckets with
-#: n above it take the ``fastmm`` route, which the engine refuses until the
-#: Strassen recursion is ported.
+#: Default Strassen crossover (matrix size n), the reference's: multiplies
+#: with n above it recurse one Strassen level (7 half-size products, about
+#: one bit of accuracy a level) until a sub-problem reaches the crossover or
+#: the level cap; serving buckets with n above it take the ``fastmm`` route.
+#: ``sweep_fastmm`` measures it per dtype and backend.
 DEFAULT_FASTMM_CROSSOVER: int = 1024
+
+#: Default Strassen depth cap: every level costs about a bit of accuracy
+#: and more operand sums, so depth is capped apart from the crossover.
+DEFAULT_FASTMM_LEVELS: int = 2
+
+#: Default evolve-versus-dense ratio of ``core.markov.evolve_distributions``:
+#: the evolve loop's extra O(B n^2) vector–matrix products beat the dense
+#: route's saved O(n^3) combines roughly while B <= n.
+DEFAULT_MARKOV_EVOLVE_THRESHOLD: float = 1.0
 
 #: Samples per side of a squaring-tier probe (``sweep_square_tiers``).
 TIER_PROBE_REPS = 7
@@ -238,6 +258,14 @@ def _dispatch_key(dtype=None, backend: Optional[str] = None) -> str:
     return f"dispatch/thresholds/{_dtype_key(dtype)}/{_backend(backend)}"
 
 
+def _fastmm_key(dtype=None, backend: Optional[str] = None) -> str:
+    return f"fastmm/config/{_dtype_key(dtype)}/{_backend(backend)}"
+
+
+def _markov_key(dtype=None, backend: Optional[str] = None) -> str:
+    return f"markov/evolve/{_dtype_key(dtype)}/{_backend(backend)}"
+
+
 def _deadline_key(op: str, n: int, dtype=None,
                   backend: Optional[str] = None) -> str:
     return (f"dispatch/deadline/{op}/{n}/{_dtype_key(dtype)}/"
@@ -250,20 +278,56 @@ def _ascending_pair(vals) -> bool:
             and vals[0] <= vals[1])
 
 
-def _valid_entry(entry) -> bool:
+def _positive_number(v) -> bool:
+    return (isinstance(v, (int, float)) and not isinstance(v, bool)
+            and math.isfinite(v) and v > 0)
+
+
+def _is_int(v) -> bool:
+    return isinstance(v, int) and not isinstance(v, bool)
+
+
+def _leaf_ok(leaf, dtype) -> bool:
+    """A Strassen leaf tiling: None, or three positive ints that K1 runs
+    for ``dtype`` (``valid_blocks``; float32 when None or unknown)."""
+    if leaf is None:
+        return True
+    if len(leaf) != 3 or not all(_is_int(x) and x > 0 for x in leaf):
+        return False
+    try:
+        itemsize = _itemsize(getattr(torch, dtype) if isinstance(dtype, str)
+                             else dtype)
+    except (AttributeError, TypeError):
+        itemsize = 4
+    return valid_blocks(tuple(leaf), itemsize)
+
+
+def _valid_entry(entry, key: Optional[str] = None) -> bool:
     """A usable cache entry: a block tiling (len 2 for attention, len 3 for
     matmul), a ``square_panel`` tier pair or a ``dispatch`` threshold pair
-    (both two ascending positive ints), or a ``dispatch`` deadline (one
-    positive finite ``max_delay_ms``)."""
+    (both two ascending positive ints), a ``dispatch`` deadline (one
+    positive finite ``max_delay_ms``), a ``fastmm`` config
+    (``[crossover_n, max_levels]``, a positive and a non-negative int, and
+    ``leaf_blocks`` None or a tiling K1 runs for the dtype the ``key``
+    names), or a ``markov`` entry (one positive finite
+    ``evolve_threshold``)."""
     try:
         if "tiers" in entry:
             return _ascending_pair(entry["tiers"])
         if "thresholds" in entry:
             return _ascending_pair(entry["thresholds"])
         if "max_delay_ms" in entry:
-            v = entry["max_delay_ms"]
-            return (isinstance(v, (int, float)) and not isinstance(v, bool)
-                    and math.isfinite(v) and v > 0)
+            return _positive_number(entry["max_delay_ms"])
+        if "evolve_threshold" in entry:
+            return _positive_number(entry["evolve_threshold"])
+        if "fastmm" in entry:
+            cfg = entry["fastmm"]
+            parts = (key or "").split("/")
+            dtype = parts[2] if len(parts) == 4 and parts[2] != "any" \
+                else None
+            return (len(cfg) == 2 and _is_int(cfg[0]) and cfg[0] > 0
+                    and _is_int(cfg[1]) and cfg[1] >= 0
+                    and _leaf_ok(entry.get("leaf_blocks"), dtype))
         blocks = entry["blocks"]
         return (len(blocks) in (2, 3)
                 and all(isinstance(x, int) and x > 0 for x in blocks))
@@ -320,7 +384,7 @@ def load_cache(path: Optional[os.PathLike] = None) -> dict:
             raw = json.loads(path.read_text())
             if not isinstance(raw, dict):
                 raise ValueError("cache root must be a JSON object")
-            data = {k: v for k, v in raw.items() if _valid_entry(v)}
+            data = {k: v for k, v in raw.items() if _valid_entry(v, k)}
         except (ValueError, OSError) as exc:
             warnings.warn(f"ignoring corrupted autotune cache {path}: {exc}")
             data = {}
@@ -367,7 +431,7 @@ def _first(keys, field: str):
     cache = load_cache()
     for key in keys:
         entry = cache.get(key)
-        if entry is not None and _valid_entry(entry) and field in entry:
+        if entry is not None and _valid_entry(entry, key) and field in entry:
             return entry
     return None
 
@@ -500,6 +564,85 @@ def record_bucket_deadline(op: str, n: int, max_delay_ms: float, dtype=None,
     _store(_deadline_key(op, n, dtype, backend),
            {"max_delay_ms": float(max_delay_ms), "measured": bool(measured)},
            "record:deadline", save)
+
+
+# ---------------------------------------------------------------------------
+# The Strassen route's fastmm namespace, the Markov route's markov namespace
+# ---------------------------------------------------------------------------
+
+def fastmm_config(dtype=None, backend: Optional[str] = None) -> tuple:
+    """(crossover_n, max_levels, leaf_blocks) of the Strassen route.
+
+    The ``fastmm`` entry for this dtype, then the dtype-agnostic one, then
+    the defaults (``DEFAULT_FASTMM_CROSSOVER``, ``DEFAULT_FASTMM_LEVELS``,
+    no leaf tiles). ``leaf_blocks`` is None unless an entry recorded a
+    tiling, which is used only if K1 runs it for ``dtype``
+    (``valid_blocks``): None lets every leaf pick its own tiles through
+    ``ops.pick_blocks``. Consumers memoize the result per cache generation,
+    so a retuned crossover reroutes a live engine.
+    """
+    for key in (_fastmm_key(dtype, backend), _fastmm_key(None, backend)):
+        entry = _first([key], "fastmm")
+        if entry is None:
+            continue
+        leaf = entry.get("leaf_blocks")
+        if not _leaf_ok(leaf, dtype):
+            continue
+        return (int(entry["fastmm"][0]), int(entry["fastmm"][1]),
+                None if leaf is None else tuple(int(x) for x in leaf))
+    return DEFAULT_FASTMM_CROSSOVER, DEFAULT_FASTMM_LEVELS, None
+
+
+def record_fastmm(crossover_n: int, max_levels: int, leaf_blocks=None,
+                  dtype=None, backend: Optional[str] = None,
+                  measured: bool = False, save: bool = True,
+                  probes_us: Optional[dict] = None) -> None:
+    """Store a Strassen config for one dtype and backend; ``measured``
+    records whether a sweep on the card timed it, ``probes_us`` (the
+    sweep's median times) is kept beside it. ``leaf_blocks`` must be a
+    tiling K1 runs for ``dtype`` (float32 when None)."""
+    if not _is_int(crossover_n) or crossover_n < 1:
+        raise ValueError(f"fastmm crossover must be a positive int, "
+                         f"got {crossover_n!r}")
+    if not _is_int(max_levels) or max_levels < 0:
+        raise ValueError(f"fastmm max_levels must be a non-negative int, "
+                         f"got {max_levels!r}")
+    if leaf_blocks is not None:
+        leaf_blocks = [int(x) for x in leaf_blocks]
+        if not _leaf_ok(leaf_blocks, dtype):
+            raise ValueError(f"fastmm leaf_blocks must be three positive "
+                             f"ints that K1 runs for {_dtype_key(dtype)} "
+                             f"(valid_blocks), got {leaf_blocks!r}")
+    entry = {"fastmm": [int(crossover_n), int(max_levels)],
+             "leaf_blocks": leaf_blocks, "measured": bool(measured)}
+    if probes_us is not None:
+        entry["probes_us"] = dict(probes_us)
+    _store(_fastmm_key(dtype, backend), entry, "record:fastmm", save)
+
+
+def markov_evolve_threshold(dtype=None,
+                            backend: Optional[str] = None) -> float:
+    """The largest B/n ratio at which ``core.markov.evolve_distributions``
+    evolves a (B, n) stack through its vector–matrix loop; above it, one
+    dense power and one apply. The ``markov`` entry for this dtype, then
+    the dtype-agnostic one, then ``DEFAULT_MARKOV_EVOLVE_THRESHOLD``."""
+    entry = _first((_markov_key(dtype, backend), _markov_key(None, backend)),
+                   "evolve_threshold")
+    return float(entry["evolve_threshold"]) if entry else \
+        DEFAULT_MARKOV_EVOLVE_THRESHOLD
+
+
+def record_markov_evolve_threshold(threshold: float, dtype=None,
+                                   backend: Optional[str] = None,
+                                   measured: bool = False,
+                                   save: bool = True) -> None:
+    """Store an evolve-versus-dense B/n ratio (positive and finite)."""
+    if not _positive_number(threshold):
+        raise ValueError(f"markov evolve threshold must be a positive "
+                         f"finite number, got {threshold!r}")
+    _store(_markov_key(dtype, backend),
+           {"evolve_threshold": float(threshold), "measured": bool(measured)},
+           "record:markov", save)
 
 
 # ---------------------------------------------------------------------------
@@ -796,3 +939,48 @@ def sweep_square_tiers(dtype=torch.float32, *, backend: Optional[str] = None,
         record_square_tiers(whole, panel, dtype=dtype, backend=backend,
                             measured=bool(measure), probes_us=probes)
     return whole, panel
+
+
+def sweep_fastmm(dtype=torch.float32, *, backend: Optional[str] = None,
+                 measure: Optional[bool] = None,
+                 candidates: Sequence[int] = (256, 512, 1024),
+                 reps: int = 3, save: bool = True) -> tuple:
+    """Record the Strassen crossover for this dtype and backend; returns
+    ``(crossover_n, max_levels)``.
+
+    Measured (``measure=None`` measures on ``"cuda"``): each candidate c is
+    probed at n = 2c, the smallest size that recurses exactly one level:
+    the dense squaring (``ops.square``) against one Strassen level
+    (``fastmm.strassen_square(levels=1, crossover=c)``), each the median of
+    ``reps`` device timings (``device_times_us``); the smallest candidate
+    at which Strassen wins is recorded, ``DEFAULT_FASTMM_CROSSOVER`` when
+    none does. The probes' median µs are kept in the entry. Modeled: the
+    defaults are recorded as a ``measured: false`` entry, so the cache
+    documents the policy in force.
+    """
+    backend = _backend(backend)
+    if measure is None:
+        measure = backend == "cuda"
+    crossover, levels = DEFAULT_FASTMM_CROSSOVER, DEFAULT_FASTMM_LEVELS
+    probes = None
+    if measure:
+        from repro_torch import default_device
+        from repro_torch.kernels import fastmm, ops
+        device = default_device("cuda")
+        probes = {}
+        for cand in sorted(int(c) for c in candidates):
+            n = 2 * cand
+            a = _randn((n, n), dtype, device, 0) * n ** -0.25
+            dense_us = _median_us(lambda: ops.square(a), reps)
+            fast_us = _median_us(
+                lambda c=cand: fastmm.strassen_square(a, levels=1,
+                                                      crossover=c), reps)
+            probes[f"{n}:dense"] = dense_us
+            probes[f"{n}:strassen"] = fast_us
+            if fast_us < dense_us:
+                crossover = cand
+                break
+    if save:
+        record_fastmm(crossover, levels, dtype=dtype, backend=backend,
+                      measured=bool(measure), probes_us=probes)
+    return crossover, levels

@@ -12,7 +12,12 @@ The port of the dense half of the reference's ``repro/kernels/ops.py``.
                   squaring on the tile-divisible padded buffer (no per-call
                   pad/unpad/tile-pick), un-pads once at exit, and squares
                   between two buffers it owns instead of allocating one per
-                  step.
+                  step; ``fast=True`` runs every multiply by Strassen
+                  recursion over K1 leaves (``kernels.fastmm``).
+``dense_matmul`` — ``(..., K) @ (K, N)`` through K1 with the tuning cache's
+                  tiles for the flattened problem (the Markov route's
+                  vector–matrix products; the model layers' projections
+                  later).
 ``attention``   — flash attention (K5) with the same device rule: the plain
                   version on a CPU tensor, the kernel on a CUDA tensor.
 ``pick_blocks`` — matmul tile selection: the persistent tuning cache first
@@ -39,7 +44,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch import dtype_name
+from repro_torch import default_device, dtype_name
 from repro_torch.kernels import autotune
 from repro_torch.kernels.attention import (HEAD_DIMS, attn_tiles,
                                            flash_attention, head_dim_for)
@@ -50,7 +55,8 @@ from repro_torch.kernels.matmul import (DMMA_BLOCKS, DMMA_TILES,
                                         smem_footprint, square_cuda)
 
 __all__ = ["matmul", "square", "attention", "pick_blocks", "pick_attn_blocks",
-           "pad_to_blocks", "PaddedChain", "MatmulChain", "SMEM_BUDGET"]
+           "pad_to_blocks", "PaddedChain", "MatmulChain", "SMEM_BUDGET",
+           "dense_matmul", "dense_routing_active"]
 
 #: Shared memory ``pick_blocks`` lets one block's staged tiles take: half of
 #: a block's maximum, so at least two blocks share an SM and one computes
@@ -356,10 +362,20 @@ class MatmulChain(PaddedChain):
 
     Works on ``(..., P, P)`` stacks as well: the stack is a grid axis of the
     kernels, one launch per multiply for all of it.
+
+    ``fast`` selects the Strassen route (``kernels.fastmm``): every ``mm``
+    and ``square`` recurses by the tuning cache's ``fastmm`` config
+    (crossover, depth cap, leaf tiles; resolved once per chain), with K1 as
+    the leaves. ``fast=None`` turns it on exactly when the padded size
+    exceeds the crossover; the default ``False`` keeps the dense routes'
+    bit-exact contract — Strassen results are held to ``fastmm.
+    error_budget(levels=chain.fast_levels)``, not to the bit. A fast
+    ``square`` returns a fresh tensor and never writes into the spare
+    buffer, so the donation contract holds trivially.
     """
 
     def __init__(self, n: int, dtype, *, blocks=None, donate: bool = True,
-                 device=None):
+                 device=None, fast=False):
         super().__init__(n, dtype, donate=donate)
         backend = None if device is None else torch.device(device).type
         self.blocks, self.padded_n = _square_blocks(self.n, self.dtype, blocks,
@@ -368,11 +384,42 @@ class MatmulChain(PaddedChain):
         # chain uses the same kernel tier.
         self.tiers = autotune.square_tiers(self.dtype, backend)
         self._spare = None
+        # The Strassen config, resolved once per chain like the tiles: the
+        # whole chain recurses alike, so its error budget is a function of
+        # one (crossover, levels) pair.
+        self.fast_config = None
+        if fast is not False:
+            self.fast_config = autotune.fastmm_config(self.dtype, backend)
+            if fast is None:          # auto: only where recursion can win
+                fast = self.padded_n > self.fast_config[0]
+            if not fast:
+                self.fast_config = None
+        self.fast = bool(fast)
+
+    @property
+    def fast_levels(self) -> int:
+        """Strassen levels each multiply of this chain recurses (0 for a
+        dense chain): the ``levels`` of ``fastmm.error_budget``."""
+        if not self.fast:
+            return 0
+        from repro_torch.kernels import fastmm
+        crossover, levels, _ = self.fast_config
+        return fastmm.plan_levels(self.padded_n, levels, crossover)
+
+    def _strassen_mm(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        from repro_torch.kernels import fastmm
+        crossover, levels, leaf_blocks = self.fast_config
+        return fastmm.strassen_matmul(x, y, levels=levels,
+                                      crossover=crossover,
+                                      leaf_blocks=leaf_blocks,
+                                      out_dtype=self.dtype)
 
     # -- chain body (operands already padded) ------------------------------
     def mm(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         """x @ y on padded buffers — no pad/unpad, tiles fixed per chain.
         Always a fresh result; neither operand is written."""
+        if self.fast:
+            return self._strassen_mm(x, y)
         bm, bn, bk = self.blocks
         xs, lead = _as_stack(x)
         ys, _ = _as_stack(y)
@@ -382,7 +429,10 @@ class MatmulChain(PaddedChain):
 
     def square(self, x: torch.Tensor) -> torch.Tensor:
         """x @ x via the tiered squaring kernels; CONSUMES x when the chain
-        donates (see the class docstring)."""
+        donates (see the class docstring). On the Strassen route a fresh
+        result, ``x`` untouched."""
+        if self.fast:
+            return self._strassen_mm(x, x)
         bm, bn, bk = self.blocks
         smem_limit, panel_limit = self.tiers
         xs, lead = _as_stack(x)
@@ -413,3 +463,51 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """
     return flash_attention(q, k, v, causal=causal, window=window, scale=scale,
                            block_q=block_q, block_k=block_k)
+
+
+# ---------------------------------------------------------------------------
+# Dense products: the Markov route's vector–matrix steps
+# ---------------------------------------------------------------------------
+
+def dense_routing_active(device=None) -> bool:
+    """Whether ``dense_matmul`` on ``device`` (default: the package's
+    default device, ``cuda``, which raises without a GPU) runs K1: always on
+    a CUDA device, never on the CPU, where it runs K1's plain version.
+
+    Unlike the reference there is no ``REPRO_DENSE_PALLAS`` switch: an
+    ``off`` mode that sent CUDA tensors to ``einsum`` would be a fallback
+    that hides the kernel.
+    """
+    return default_device(device).type == "cuda"
+
+
+def dense_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """y = x @ w for ``(..., K)`` activations against a ``(K, N)`` weight.
+
+    Flattens ``x`` to ``(M, K)``, takes ``pick_blocks(M, N, K)`` (the tuning
+    cache first, the heuristic else) and runs ``matmul``: K1 on a CUDA
+    tensor, its plain version on a CPU tensor, padded to the tiles and
+    stripped. ``x`` and ``w`` share one dtype.
+
+    Forward only: the reference's custom VJP (``_dense_2d``) is ported with
+    the model layers (ROADMAP queue 1 item 8). Until then a call under grad
+    mode with an input that requires a gradient raises
+    ``NotImplementedError`` rather than return an output with no gradient
+    path.
+    """
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        raise NotImplementedError(
+            "dense_matmul has no backward in repro_torch yet (ROADMAP "
+            "queue 1 item 8, the LM substrate); call it under "
+            "torch.no_grad() or on tensors that do not require grad")
+    if w.ndim != 2 or x.ndim < 1 or x.shape[-1] != w.shape[0]:
+        raise ValueError(f"dense_matmul needs (..., K) @ (K, N), got "
+                         f"{tuple(x.shape)} @ {tuple(w.shape)}")
+    m = math.prod(x.shape[:-1])
+    k, n = w.shape
+    if m == 0:
+        return torch.zeros((*x.shape[:-1], n), dtype=x.dtype,
+                           device=x.device)
+    blocks = pick_blocks(m, n, k, dtype=x.dtype, backend=x.device.type)
+    y = matmul(x.reshape(m, k), w, blocks=blocks)
+    return y.reshape(*x.shape[:-1], n)

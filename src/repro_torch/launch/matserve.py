@@ -4,7 +4,8 @@ bucketing engine (the port of the reference's ``repro.launch.matserve``).
 Batch (library) mode — submit everything, flush once::
 
     PYTHONPATH=src python -m repro_torch.launch.matserve \
-        --requests 64 --sizes 8,16,32 --powers 2,7,12 --expm-frac 0.25
+        --requests 64 --sizes 8,16,32 --powers 2,7,12 --expm-frac 0.25 \
+        --markov-frac 0.25
 
 Daemon (continuous-batching) mode — an OPEN-LOOP synthetic traffic
 generator submits at a fixed offered rate (arrivals independent of
@@ -18,19 +19,22 @@ next to throughput::
 The engine runs on the GPU (``--device cuda``, the default; it raises
 without one) or, with ``--device cpu`` (or the reference's
 ``--interpret``), on the plain PyTorch versions of the kernels.
-``--verify`` replays every request as a per-matrix call of the port's
-``matpow_binary`` / ``expm`` in float64 and holds each answer to it under
-``error_budget``; a miss makes matserve exit with 1.
-
-Differences from the reference, on purpose: the Markov route is not ported,
-so ``--markov-frac`` and ``--evolve-frac`` above 0 and any
-``--evolve-batch`` are refused, and ``--evolve-frac`` defaults to 0 (the
-reference's default is 0.5).
+``--markov-frac`` makes that share of the requests Markov traffic: of
+those, ``--evolve-frac`` evolve ``--evolve-batch`` start distributions, the
+rest ask for the steady state. ``--verify`` replays every request as a
+per-matrix call of the port's ``"torch"`` route in float64
+(``matpow_binary`` / ``expm``; ``steady_state``, held by its ``pi``;
+``evolve_distributions``, held by the evolved stack) and holds each answer
+to it under ``error_budget`` — with the route's Strassen levels where the
+engine served it on the ``fastmm`` route; a miss makes matserve exit
+with 1. The reference's ``--verify`` prints the largest difference and
+exits 0.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import queue
 import threading
 import time
@@ -45,29 +49,54 @@ from repro_torch.serve.matfn import ROUTES, MatFnEngine
 
 
 def make_workload(n_requests: int, sizes, powers, expm_frac: float,
-                  seed: int, dtypes=("float32",), device="cpu"):
-    """A reproducible mixed request list of ``(op, operand, power)`` tuples,
-    the operands made on ``device`` from a numpy seed (the reference's
-    markov arguments wait for the Markov route)."""
+                  seed: int, dtypes=("float32",), device="cpu",
+                  markov_frac: float = 0.0, evolve_frac: float = 0.5,
+                  evolve_batch: int = 4):
+    """A reproducible mixed request list, the operands made on ``device``
+    from a numpy seed (the reference's draws, in its order).
+
+    Entries are ``(op, operand, power)`` tuples; markov evolve entries (a
+    ``markov_frac * evolve_frac`` share) carry a fourth element, the
+    ``(evolve_batch, n)`` stack of start distributions. A markov operand is
+    row-stochastic: the drawn gaussian's absolute values plus 0.05, each row
+    divided by its sum (strictly positive, so the chain converges)."""
     rng = np.random.default_rng(seed)
     work = []
     for _ in range(n_requests):
         n = int(rng.choice(sizes))
         dtype = DTYPES[str(rng.choice(dtypes))]
         raw = rng.standard_normal((n, n))
+        draw = rng.random()
+        if draw < markov_frac:
+            m = np.abs(raw) + 0.05
+            p = torch.tensor(m / m.sum(axis=1, keepdims=True), dtype=dtype,
+                             device=device)
+            if rng.random() < evolve_frac:
+                d = rng.random((evolve_batch, n))
+                d = torch.tensor(d / d.sum(axis=1, keepdims=True),
+                                 dtype=dtype, device=device)
+                work.append(("markov", p, int(rng.choice(powers)), d))
+            else:
+                work.append(("markov", p, 1))
+            continue
         a = torch.tensor(raw * 0.4 / np.sqrt(n), dtype=dtype, device=device)
-        if rng.random() < expm_frac:
+        if draw < markov_frac + expm_frac:
             work.append(("expm", a, 1))
         else:
             work.append(("matpow", a, int(rng.choice(powers))))
     return work
 
 
+def _dists(rest):
+    """The evolve stack of a workload entry's tail, or None."""
+    return rest[0] if rest else None
+
+
 def run_workload(engine: MatFnEngine, workload):
     """Submit everything, flush once; returns (results, seconds)."""
     t0 = time.perf_counter()
-    for op, a, power, *_ in workload:
-        engine.submit(op, a, power=power)
+    for op, a, power, *rest in workload:
+        engine.submit(op, a, power=power, dists=_dists(rest))
     results = engine.flush()
     return results, time.perf_counter() - t0
 
@@ -128,7 +157,7 @@ def run_open_loop(engine: MatFnEngine, workload, rate: float, *,
     t_start = time.perf_counter()
     submit_wall = 0.0
     try:
-        for i, (op, a, power, *_) in enumerate(workload):
+        for i, (op, a, power, *rest) in enumerate(workload):
             target = t_start + (arrivals[i] if arrivals is not None
                                 else i / rate)
             while True:
@@ -137,7 +166,8 @@ def run_open_loop(engine: MatFnEngine, workload, rate: float, *,
                     break
                 time.sleep(min(remaining, 5e-4))
             try:
-                fut = engine.submit(op, a, power=power, priority=lanes[i],
+                fut = engine.submit(op, a, power=power, dists=_dists(rest),
+                                    priority=lanes[i],
                                     tenant=None if tenants is None
                                     else tenants[i])
             except ShedError as exc:       # reject-newest: shed at the door
@@ -158,46 +188,82 @@ def run_open_loop(engine: MatFnEngine, workload, rate: float, *,
     return results, lats, time.perf_counter() - t_start, info
 
 
-def _mults(op: str, power: int) -> int:
-    """Multiplies behind one answer, for ``error_budget``: the binary
-    chain's for matpow, the Pade-13 polynomial's six and the solve's for
-    expm (the workload's operands need no squaring)."""
-    if op == "expm":
-        return 8
+def _chain_mults(power: int) -> int:
+    """Multiplies of the binary chain for ``power`` (at least 1)."""
     if power <= 1:
         return 1
     return (power.bit_length() - 1) + (bin(power).count("1") - 1)
 
 
-def verify(workload, results) -> tuple:
-    """Hold every served answer to the port's per-matrix ``matpow_binary``
-    / ``expm`` in float64 (``backend="torch"``) under ``error_budget(dtype,
-    n, mults)``, elementwise and against the peak-relative floor. Returns
-    (worst max |answer - float64|, number of misses)."""
-    from repro_torch.core import expm, matpow_binary
+def _mults(op: str, power: int, got=None) -> int:
+    """Multiplies behind one answer, for ``error_budget``: the binary
+    chain's for matpow and for an evolve request (its squarings and
+    vector–matrix products); the Pade-13 polynomial's six and the solve's
+    for expm (the workload's operands need no squaring); the squarings a
+    steady-state answer paid."""
+    if op == "expm":
+        return 8
+    if op == "markov" and got is not None and not isinstance(got,
+                                                             torch.Tensor):
+        return max(int(got.squarings), 1)
+    return _chain_mults(power)
+
+
+def verify(workload, results, levels_for=None) -> tuple:
+    """Hold every served answer to the port's per-matrix call in float64
+    (``backend="torch"``: ``matpow_binary``, ``expm``, ``steady_state`` —
+    by its ``pi`` — and ``evolve_distributions``) under ``error_budget(dtype,
+    levels, n, mults)``, elementwise and against the peak-relative floor.
+    ``levels_for(n, dtype)`` gives the Strassen levels of the route that
+    served a request (0 without it). Returns (worst max |answer - float64|,
+    number of misses)."""
+    from repro_torch.core import (evolve_distributions, expm, matpow_binary,
+                                  steady_state)
 
     worst, misses = 0.0, 0
-    for (op, a, power, *_), got in zip(workload, results):
+    for (op, a, power, *rest), got in zip(workload, results):
         if isinstance(got, ShedError):     # shed requests have no answer
             continue
         a64 = a.double()
-        want = expm(a64) if op == "expm" else matpow_binary(a64, power)
         n = a.shape[0]
-        rtol, atol = error_budget(a.dtype, n=n, mults=_mults(op, power))
+        mults = _mults(op, power, got)
+        levels = 0
+        if op == "markov" and rest:
+            want = evolve_distributions(rest[0].double(), a64, power,
+                                        validate=False)
+        elif op == "markov":
+            want = steady_state(a64, validate=False).pi
+            got = got.pi
+        else:
+            want = expm(a64) if op == "expm" else matpow_binary(a64, power)
+        if levels_for is not None and not (op == "markov" and rest):
+            levels = levels_for(n, a.dtype)
+        rtol, atol = error_budget(a.dtype, levels=levels, n=n, mults=mults)
         got64 = got.double()
         diff = (got64 - want).abs()
         err = float(diff.max())
         peak = float(want.abs().max())
+        floor = error_budget(a.dtype, levels=levels)[0]
         ok = (bool(torch.isfinite(got64).all())
               and bool((diff <= atol + rtol * want.abs()).all())
-              and err <= error_budget(a.dtype)[0] * max(peak, 1e-300))
+              and err <= floor * max(peak, 1e-300))
         worst = max(worst, err)
         misses += not ok
     return worst, misses
 
 
-def _report_verify(workload, results) -> int:
-    worst, misses = verify(workload, results)
+def _engine_levels(engine: MatFnEngine):
+    """``levels_for`` of ``verify`` for one engine: the Strassen levels of a
+    request's bucket where ``route_for`` sends it to ``fastmm``, else 0."""
+    def levels_for(n, dtype):
+        if engine.route_for(n, 1, dtype) != "fastmm":
+            return 0
+        return engine.fastmm_levels_for(n, dtype)
+    return levels_for
+
+
+def _report_verify(workload, results, engine) -> int:
+    worst, misses = verify(workload, results, _engine_levels(engine))
     print(f"[matserve] verify: max |served - float64 per-matrix| = "
           f"{worst:.2e}; {misses} outside error_budget")
     return 1 if misses else 0
@@ -236,11 +302,17 @@ def _daemon_main(args, workload, device):
                          admission=admission,
                          trace=bool(args.trace))
     engine.start()
-    # Prewarm every bucket shape the workload can produce so the timed run
-    # never pays a first call on the latency path.
-    for op, n, dtype, power in {(op, a.shape[0], a.dtype, p)
-                                for op, a, p, *_ in workload}:
-        engine.warm(op, n, dtype=dtype, power=power)
+    # Prewarm every bucket shape the workload can produce — a class of c
+    # requests fills buckets of at most min(c, max_batch) — so the timed run
+    # never pays a first call on the latency path. Evolve requests are
+    # skipped: their classes are keyed on (steps, B), which warm() has no
+    # argument for.
+    classes = collections.Counter((op, a.shape[0], a.dtype, p)
+                                  for op, a, p, *rest in workload
+                                  if not rest)
+    for (op, n, dtype, power), count in classes.items():
+        engine.warm(op, n, dtype=dtype, power=power,
+                    batches=range(1, min(count, args.max_batch) + 1))
     rng = np.random.default_rng(args.seed + 1)
     lanes = ["latency" if rng.random() < args.priority_frac else "bulk"
              for _ in workload]
@@ -294,7 +366,7 @@ def _daemon_main(args, workload, device):
               f"duration={ev['duration_s']*1e3:.2f} ms "
               f"median={ev['median_s']*1e3:.2f} ms")
     if args.verify:
-        return _report_verify(workload, results)
+        return _report_verify(workload, results, engine)
     return 0
 
 
@@ -329,7 +401,7 @@ def _batch_main(args, workload, device):
         print(f"[matserve] trace: {len(engine.tracer)} spans -> "
               f"{args.trace}")
     if args.verify:
-        return _report_verify(workload, results)
+        return _report_verify(workload, results, engine)
     return 0
 
 
@@ -344,15 +416,14 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--expm-frac", type=float, default=0.25,
                     help="fraction of requests that are expm")
     ap.add_argument("--markov-frac", type=float, default=0.0,
-                    help="fraction of markov traffic (refused above 0: not "
-                         "ported yet)")
-    ap.add_argument("--evolve-frac", type=float, default=0.0,
+                    help="fraction of requests that are stochastic-matrix "
+                         "(markov) traffic")
+    ap.add_argument("--evolve-frac", type=float, default=0.5,
                     help="fraction of markov requests that evolve a "
-                         "distribution stack (refused above 0: not ported "
-                         "yet)")
-    ap.add_argument("--evolve-batch", type=int, default=None,
-                    help="distributions per evolve request (refused: not "
-                         "ported yet)")
+                         "distribution stack (the rest query the steady "
+                         "state)")
+    ap.add_argument("--evolve-batch", type=int, default=4,
+                    help="distributions per evolve request (B)")
     ap.add_argument("--dtypes", default="float32",
                     help="comma-separated operand dtypes (e.g. "
                          "float32,bfloat16,float64)")
@@ -405,11 +476,8 @@ def main(argv=None):
     if not 0.0 <= args.markov_frac <= 1.0 or \
             not 0.0 <= args.evolve_frac <= 1.0:
         ap.error("--markov-frac and --evolve-frac must be in [0, 1]")
-    if args.markov_frac > 0.0 or args.evolve_frac > 0.0 \
-            or args.evolve_batch is not None:
-        ap.error("--markov-frac > 0, --evolve-frac > 0 and --evolve-batch: "
-                 "the Markov route is not ported to repro_torch yet "
-                 "(ROADMAP queue 1 item 5)")
+    if args.evolve_batch < 1:
+        ap.error("--evolve-batch must be >= 1")
     if args.expm_frac > 1.0:
         ap.error("--expm-frac must not exceed 1")
     device = default_device("cpu" if args.interpret else args.device)
@@ -421,7 +489,10 @@ def main(argv=None):
         ap.error(f"unknown dtypes {unknown}; expected some of "
                  f"{sorted(DTYPES)}")
     workload = make_workload(args.requests, sizes, powers, args.expm_frac,
-                             args.seed, dtypes=dtypes, device=device)
+                             args.seed, dtypes=dtypes, device=device,
+                             markov_frac=args.markov_frac,
+                             evolve_frac=args.evolve_frac,
+                             evolve_batch=args.evolve_batch)
     if args.daemon:
         return _daemon_main(args, workload, device)
     return _batch_main(args, workload, device)

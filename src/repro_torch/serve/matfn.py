@@ -6,9 +6,13 @@ pipeline keeps the accelerator saturated across matrices "of different
 sizes and with different powers". This module is that pipeline as a
 service layer over the port's chain executors:
 
-  * **Requests** (:class:`MatFnRequest`) name an op (``matpow`` / ``expm``;
-    ``markov`` is named and refused, see below), an (n, n) operand, and —
-    for matpow — a static power.
+  * **Requests** (:class:`MatFnRequest`) name an op (``matpow`` / ``expm``
+    / ``markov``), an (n, n) operand, and — for matpow — a static power.
+    ``markov`` is the stochastic op (:mod:`repro_torch.core.markov`): with
+    no ``dists`` a request is a steady-state query (resolves with a
+    :class:`~repro_torch.core.markov.SteadyStateResult`), with a (B, n)
+    ``dists`` stack a distribution-evolution query over ``power``
+    transitions (resolves with the evolved (B, n) stack).
   * **Bucketing**: pending requests group by ``(op, n, dtype, power)``; each
     group is stacked into a (B, n, n) operand whose batch dim is padded up
     to the next power of two (zero matrices in the filler slots), so a
@@ -25,8 +29,13 @@ service layer over the port's chain executors:
     (``torch.matmul``, cuBLAS on the card: launch overhead dominates), the
     rest the ``"chain"`` route, the stacked chain of the hand-written
     kernels (:class:`repro_torch.core.batched.BatchedMatmulChain`: K1–K3,
-    the stack on the grid's z axis). On a CPU engine both routes run the
-    plain PyTorch versions.
+    the stack on the grid's z axis); n above the ``fastmm`` crossover
+    (:func:`repro_torch.kernels.autotune.fastmm_config`) takes the
+    ``"fastmm"`` route, the same chain with Strassen recursion over K1
+    leaves (held to ``error_budget(levels=...)``, not to per-matrix bits),
+    and markov evolve buckets the ``"evolve"`` route (vector–matrix products
+    through K1). On a CPU engine every route runs the plain PyTorch
+    versions.
   * **Continuous batching** (:meth:`MatFnEngine.start`): in daemon mode
     ``submit`` returns a :class:`MatFnFuture` immediately and a scheduler
     thread flushes each bucket when it FILLS to ``max_batch`` or when its
@@ -48,24 +57,23 @@ service layer over the port's chain executors:
     ``engine.stats()``, ``engine.metrics`` and ``trace=True`` with a
     Chrome-trace export) are the reference's, unchanged.
 
-Routes not ported yet. ``ROUTES`` keeps the reference's five names, with
-``"torch"`` for its ``"xla"``. ``fastmm`` (the Strassen route, for n above
-``autotune.DEFAULT_FASTMM_CROSSOVER``), the ``markov`` op with its
-``evolve`` route, and ``sharded`` (which needs a mesh; the engine takes
-none) are refused at :meth:`MatFnEngine.submit` with ``ValueError("unknown
-matmul backend ...")`` naming the ROADMAP item that brings them. The
-route of a request depends only on (op, n, dtype), so the refusal is exact:
-no future is made and nothing is admitted.
+The route not ported yet. ``ROUTES`` keeps the reference's five names,
+with ``"torch"`` for its ``"xla"``. ``sharded`` needs a mesh, which the
+engine does not take (ROADMAP queue 1 item 7): no bucket routes there, and
+a request that did would be refused at :meth:`MatFnEngine.submit` with
+``ValueError("unknown matmul backend ...")`` before anything is admitted.
 
 Device and streams — the rule. The engine computes on ONE device
 (``device=``, resolved by :func:`repro_torch.default_device`: ``cuda``
 unless the caller names the CPU, raising when there is no GPU). A tensor
-operand must already lie there (``ValueError`` otherwise: nothing is moved
-quietly); a numpy operand is copied there.
+operand (and a markov request's ``dists``) must already lie there
+(``ValueError`` otherwise: nothing is moved quietly); a numpy one is copied
+there.
 
-  1. ``submit`` takes the engine's own copy of the operand, on the caller's
-     current stream, and on CUDA records an event after it. A caller that
-     writes into its tensor after ``submit`` does not change the answer.
+  1. ``submit`` takes the engine's own copy of the operand (and of
+     ``dists``), on the caller's current stream, and on CUDA records an
+     event after them. A caller that writes into its tensors after
+     ``submit`` does not change the answer.
   2. Before a bucket is stacked, the executing stream waits on every
      member's event and the copy is marked used there
      (``Tensor.record_stream``), so the caching allocator does not hand
@@ -80,7 +88,8 @@ quietly); a numpy operand is copied there.
      stream and synchronizes once, at its end.
 
 Bit-identity. The reference's ``xla`` / ``chain`` bucket answers are
-bit-identical to per-matrix calls. On the card the squaring kernels pick
+bit-identical to per-matrix calls (``fastmm`` answers are held to
+``error_budget`` there too). On the card the squaring kernels pick
 their tile, grid and K slices per operand and stack size, and K slices add
 partial sums in their own order, so a bucket padded to B = 16 may differ
 in the last place from the same matrix alone: bucket answers are held to
@@ -111,7 +120,9 @@ import torch
 from repro_torch import DTYPES, default_device, dtype_name
 from repro_torch.core.batched import batched_matpow
 from repro_torch.core.expm import expm as _expm
+from repro_torch.core.markov import evolve_distributions, steady_state
 from repro_torch.kernels import _build, autotune
+from repro_torch.kernels.ops import MatmulChain
 from repro_torch.runtime.fault import Watchdog, retry_step
 from repro_torch.runtime.telemetry import NULL_TRACER, MetricsRegistry, Tracer
 from repro_torch.serve.admission import (LANES, AdmissionControl, PendingView,
@@ -125,24 +136,34 @@ __all__ = ["MatFnRequest", "MatFnEngine", "MatFnFuture",
            "BucketExecutionError", "ShedError", "bucket_batch",
            "ExecutionStreams", "OPS", "ROUTES", "TRIGGERS", "NOT_PORTED"]
 
-#: Ops the engine names (``markov`` is refused until its slice lands).
+#: Ops the engine serves.
 OPS = ("matpow", "expm", "markov")
 
 #: Dispatch routes a bucket can take (see :meth:`MatFnEngine.route_for`):
-#: the reference's five, ``"torch"`` standing for its ``"xla"``.
+#: the reference's five, ``"torch"`` standing for its ``"xla"``. ``torch``
+#: and ``chain`` answers are held to per-matrix calls under the dense
+#: ``error_budget``; ``fastmm`` (Strassen above the tuned crossover) under
+#: ``error_budget(levels=...)``; ``evolve`` serves markov distribution
+#: evolution — (B, n) vector–matrix chains, a kernel shape of its own.
 ROUTES = ("torch", "chain", "sharded", "fastmm", "evolve")
 
-#: Routes and ops the port does not serve yet, with the ROADMAP queue 1
-#: item that brings each; ``submit`` refuses them.
+#: Routes the port does not serve yet, with the ROADMAP queue 1 item that
+#: brings each; ``submit`` refuses them.
 NOT_PORTED = {
-    "fastmm": "ROADMAP queue 1 item 4 (Strassen)",
-    "markov": "ROADMAP queue 1 item 5 (Markov)",
-    "evolve": "ROADMAP queue 1 item 5 (Markov)",
     "sharded": "ROADMAP queue 1 item 7 (the sharded chain)",
 }
 
-#: The concrete backend of each served route (``core.matpow`` names).
-_BACKENDS = {"torch": "torch", "chain": "cuda_chain"}
+#: The concrete backend of each dense-square route (``core.matpow`` names).
+_BACKENDS = {"torch": "torch", "chain": "cuda_chain",
+             "fastmm": "cuda_fastmm"}
+
+
+def _is_evolve(power) -> bool:
+    """True for the evolve bucket power slot ``("evolve", steps, B)`` — the
+    markov distribution-evolution traffic class (steady-state markov
+    buckets use the scalar -1 slot like expm)."""
+    return isinstance(power, tuple) and len(power) == 3 \
+        and power[0] == "evolve"
 
 
 def _not_ported(what: str) -> ValueError:
@@ -191,10 +212,11 @@ class MatFnFuture:
     ``set_exception`` may ever fire — a second resolution attempt raises
     ``concurrent.futures.InvalidStateError``. A resolved tensor is complete
     on the device (the worker synchronized its stream first);
-    ``result()`` marks a CUDA result used on the reader's current stream
-    (``Tensor.record_stream``), so dropping it there cannot free memory a
-    queued read still needs. ``resolved_at`` shares ``submitted_at``'s
-    epoch: the ENGINE pre-stamps its own clock's now into
+    ``result()`` marks a CUDA result (each tensor of a steady-state answer)
+    used on the reader's current stream (``Tensor.record_stream``), so
+    dropping it there cannot free memory a queued read still needs.
+    ``resolved_at`` shares ``submitted_at``'s epoch: the ENGINE pre-stamps
+    its own clock's now into
     ``_resolve_at_hint`` before resolving (a bare ``set_result`` without a
     hint falls back to ``time.perf_counter()``). ``tenant`` carries the
     optional caller-supplied tenant tag and ``rid`` the engine's
@@ -249,8 +271,10 @@ class MatFnFuture:
         if self._exception is not None:
             raise self._exception
         value = self._result
-        if isinstance(value, torch.Tensor) and value.is_cuda:
-            value.record_stream(torch.cuda.current_stream(value.device))
+        # A steady-state answer is a tuple of tensors; each is marked.
+        for t in value if isinstance(value, tuple) else (value,):
+            if isinstance(t, torch.Tensor) and t.is_cuda:
+                t.record_stream(torch.cuda.current_stream(t.device))
         return value
 
     def exception(self,
@@ -268,18 +292,25 @@ class MatFnFuture:
 
 @dataclasses.dataclass(frozen=True)
 class MatFnRequest:
-    """One matrix-function request: ``op(operand[, power])``.
+    """One matrix-function request: ``op(operand[, power][, dists])``.
 
     ``operand`` must be one (n, n) square tensor with n >= 1 in one of the
     port's dtypes (``repro_torch.DTYPES``); ``power`` is a static python
     int, meaningful for ``op="matpow"`` (>= 0; ``power == 0`` answers the
-    identity). ``ready`` is the CUDA event recorded after the engine's copy
-    of the operand (``None`` on the CPU and for requests built by hand).
-    The reference's markov ``dists`` wait for the Markov slice.
+    identity) and for markov evolve requests (the horizon, >= 0).
+    ``dists`` (markov only) is a (B, n) stack of start distributions
+    sharing ``operand`` as their transition matrix — its presence selects
+    the evolve traffic class; without it a markov request is a
+    steady-state query. ``dists`` must have the operand's dtype and device.
+    The engine does not validate stochasticity: gate inputs with
+    :func:`repro_torch.core.markov.validate_stochastic` first. ``ready`` is
+    the CUDA event recorded after the engine's copies (``None`` on the CPU
+    and for requests built by hand).
     """
     op: str
     operand: torch.Tensor
     power: int = 1
+    dists: Optional[torch.Tensor] = None
     ready: Optional[object] = dataclasses.field(default=None, compare=False,
                                                 repr=False)
 
@@ -291,23 +322,51 @@ class MatFnRequest:
             raise ValueError(f"{self.op} requests need one (n, n) matrix "
                              f"with n >= 1, got shape {tuple(a.shape)}")
         dtype_name(a.dtype)          # TypeError outside the port's dtypes
-        if self.op == "matpow":
+        if self.dists is not None and self.op != "markov":
+            raise ValueError(f"dists is only meaningful for op='markov', "
+                             f"got op={self.op!r}")
+        if self.op == "matpow" or self.dists is not None:
             if not isinstance(self.power, int) \
                     or isinstance(self.power, bool):
                 raise TypeError(f"{self.op} requests need a static python "
                                 f"int power (one callable per power)")
             if self.power < 0:
                 raise ValueError("negative powers not supported")
+        if self.dists is not None:
+            d = self.dists
+            if d.ndim != 2 or d.shape[0] < 1 or d.shape[1] != a.shape[0]:
+                raise ValueError(f"dists must be a (B, n) stack matching "
+                                 f"the (n, n) operand, got dists shape "
+                                 f"{tuple(d.shape)} for n = {a.shape[0]}")
+            if d.dtype != a.dtype or d.device != a.device:
+                raise ValueError(f"dists ({d.dtype} on {d.device}) must "
+                                 f"match the operand ({a.dtype} on "
+                                 f"{a.device})")
 
     @property
     def n(self) -> int:
         return self.operand.shape[0]
 
+    @property
+    def payload(self):
+        """What the bucket assembler stacks for this request: the operand,
+        or the (operand, dists) pair of an evolve request."""
+        return self.operand if self.dists is None \
+            else (self.operand, self.dists)
+
     def bucket_key(self) -> tuple:
         """(op, n, dtype, power) — the group this request batches with.
-        expm has no power, so every expm request of one (n, dtype) shares
-        a bucket (power slot -1)."""
-        power = self.power if self.op == "matpow" else -1
+        expm and markov steady-state have no power, so every such request
+        of one (n, dtype) shares a bucket (power slot -1); markov evolve
+        requests carry ``("evolve", steps, B)`` in the power slot — the
+        horizon and the distribution count shape the work, so they key the
+        traffic class like a matpow power does."""
+        if self.op == "matpow":
+            power = self.power
+        elif self.dists is not None:
+            power = ("evolve", self.power, self.dists.shape[0])
+        else:
+            power = -1
         return (self.op, self.n, dtype_name(self.operand.dtype), power)
 
 
@@ -343,11 +402,11 @@ class _Stats(dict):
 
 
 def _assemble(operands, bpad: int) -> torch.Tensor:
-    """Stack B (n, n) operands into a (bpad, n, n) buffer on their device:
-    one ``torch.stack`` into the head, zero matrices in the filler slots."""
+    """Stack B same-shape operands into a (bpad, ...) buffer on their
+    device: one ``torch.stack`` into the head, zeros in the filler slots."""
     first = operands[0]
-    n = first.shape[-1]
-    stack = torch.empty((bpad, n, n), dtype=first.dtype, device=first.device)
+    stack = torch.empty((bpad, *first.shape), dtype=first.dtype,
+                        device=first.device)
     b = len(operands)
     torch.stack(operands, out=stack[:b])
     if bpad > b:
@@ -355,16 +414,36 @@ def _assemble(operands, bpad: int) -> torch.Tensor:
     return stack
 
 
-def _split_rows(out: torch.Tensor, b: int) -> tuple:
-    """The B per-request answers of a bucket result (views of it); the
-    filler slots are dropped."""
-    return out.unbind(0)[:b]
+def _split_rows(out, b: int) -> tuple:
+    """The B per-request answers of a bucket result (views of a stacked
+    tensor, or the members of a per-member sequence); the filler slots are
+    dropped."""
+    if isinstance(out, torch.Tensor):
+        return out.unbind(0)[:b]
+    return tuple(out[:b])
 
 
 def _expm_members(x: torch.Tensor, backend: str) -> torch.Tensor:
     """e^A for every matrix of a stack, one matrix at a time, so each keeps
     its own data-dependent squaring count (the reference's ``lax.map``)."""
     return torch.stack([_expm(m, backend=backend) for m in x.unbind(0)])
+
+
+def _steady_members(x: torch.Tensor, backend: str) -> list:
+    """A :class:`~repro_torch.core.markov.SteadyStateResult` for every matrix
+    of a stack, one matrix at a time, so each keeps its own squaring count
+    (a stacked loop would square every member to the slowest mixer)."""
+    return [steady_state(m, validate=False, backend=backend)
+            for m in x.unbind(0)]
+
+
+def _evolve_members(pair, steps: int, backend: str) -> torch.Tensor:
+    """The evolved (B, n) stack of every (matrix, dists) member of an evolve
+    bucket, one member at a time."""
+    mats, dists = pair
+    return torch.stack([evolve_distributions(d, m, steps, backend=backend,
+                                             validate=False)
+                        for m, d in zip(mats.unbind(0), dists.unbind(0))])
 
 
 def bucket_batch(b: int, max_batch: int = 64) -> int:
@@ -378,7 +457,8 @@ def bucket_batch(b: int, max_batch: int = 64) -> int:
 
 
 class MatFnEngine:
-    """Buckets pending matpow/expm requests and answers them batch-at-once.
+    """Buckets pending matpow/expm/markov requests and answers them
+    batch-at-once.
 
     Synchronous (library) mode::
 
@@ -501,6 +581,7 @@ class MatFnEngine:
         # generation it was resolved under and validated on read.
         self._thresholds_cache: dict = {}
         self._deadline_cache: dict = {}
+        self._fastmm_cache: dict = {}
         self._pending: List[MatFnRequest] = []
         self._executables: dict = {}
         # Daemon state (inert until start()).
@@ -576,10 +657,16 @@ class MatFnEngine:
         event.record(torch.cuda.current_stream(self.device))
         return event
 
-    def submit(self, op: str, operand, *, power: int = 1,
+    def submit(self, op: str, operand, *, power: int = 1, dists=None,
                priority: str = "bulk",
                tenant: Optional[str] = None):
         """Queue one request.
+
+        ``dists`` (``op="markov"`` only) selects the evolve traffic class: a
+        (B, n) stack of start distributions evolved ``power`` transitions
+        under ``operand``; without it a markov request answers the
+        steady-state query (a :class:`~repro_torch.core.markov.
+        SteadyStateResult`).
 
         Synchronous mode returns the request's int index into the next
         ``flush()``; daemon mode (after :meth:`start`) returns a
@@ -589,10 +676,10 @@ class MatFnEngine:
         ``operand`` is a tensor on the engine's device or anything numpy
         accepts (copied to the device); the engine keeps its own copy, so
         writing into the caller's tensor afterwards does not change the
-        answer. A request whose route is not ported (the ``markov`` op; a
-        bucket whose ``route_for`` is ``fastmm``) raises
-        ``ValueError("unknown matmul backend ...")`` here, before anything
-        is admitted.
+        answer; so is ``dists``, under the same device rule. A request whose
+        route is not ported (``sharded``, which no bucket of this engine
+        takes) would raise ``ValueError("unknown matmul backend ...")`` here,
+        before anything is admitted.
 
         ``priority`` names the admission lane: ``"bulk"`` (default) or
         ``"latency"`` — latency-lane buckets flush under the lane's SLO
@@ -615,12 +702,13 @@ class MatFnEngine:
                              f"expected one of {LANES}")
         if op not in OPS:
             raise ValueError(f"unknown op {op!r}; expected one of {OPS}")
-        if op in NOT_PORTED:
-            raise _not_ported(op)
         operand = self._own(operand)
-        req = MatFnRequest(op, operand, power, ready=self._ready_event())
-        _, n, dtype, _ = req.bucket_key()
-        route = self.route_for(n, 1, dtype)
+        if dists is not None:
+            dists = self._own(dists)
+        req = MatFnRequest(op, operand, power, dists,
+                           ready=self._ready_event())
+        _, n, dtype, key_power = req.bucket_key()
+        route = self.route_for(n, 1, dtype, key_power)
         if route in NOT_PORTED:
             raise _not_ported(route)
         # Mode check under the lock: a concurrent start() must never see
@@ -808,20 +896,43 @@ class MatFnEngine:
         return delay_s if slo_s is None else min(delay_s, slo_s)
 
     def fastmm_crossover_for(self, dtype=None) -> int:
-        """The Strassen crossover n: buckets with n STRICTLY above it take
-        the ``fastmm`` route, which ``submit`` refuses until the Strassen
-        slice lands (``autotune.DEFAULT_FASTMM_CROSSOVER`` for every
-        dtype until then)."""
-        del dtype
-        return autotune.DEFAULT_FASTMM_CROSSOVER
+        """The Strassen crossover n for an operand dtype (a name or a
+        ``torch.dtype``): buckets with n STRICTLY above it take the
+        ``fastmm`` route. Resolved from the tuning cache's ``fastmm``
+        namespace for this engine's device type and memoized per cache
+        generation like the thresholds — a mid-process retune reroutes the
+        next bucket."""
+        key = "any" if dtype is None else (
+            dtype_name(dtype) if isinstance(dtype, torch.dtype) else dtype)
+        return self._memoized(
+            self._fastmm_cache, key,
+            lambda: autotune.fastmm_config(
+                dtype=None if key == "any" else key,
+                backend=self.device.type)[0])
 
-    def route_for(self, n: int, batch: int, dtype=None) -> str:
+    def fastmm_levels_for(self, n: int, dtype=None) -> int:
+        """Strassen levels a ``fastmm`` bucket of size n recurses (the
+        chain's ``fast_levels``: ``plan_levels`` of the padded size under
+        the same config): the ``levels`` of its ``error_budget``."""
+        if isinstance(dtype, str):
+            dtype = DTYPES[dtype]
+        chain = MatmulChain(n, dtype or torch.float32, device=self.device,
+                            fast=True)
+        return chain.fast_levels
+
+    def route_for(self, n: int, batch: int, dtype=None, power=None) -> str:
         """Heterogeneous dispatch: which executor serves an (n, batch)
-        bucket. n <= ``cpu_max_n`` takes ``"torch"``; n above the Strassen
-        crossover ``"fastmm"`` (refused); everything else the kernel
-        ``"chain"``. The engine owns no mesh, so ``"sharded"`` never arises
-        and the route does not depend on ``batch``."""
+        bucket. Markov evolve buckets (power slot ``("evolve", steps, B)``)
+        always take ``"evolve"``: vector–matrix work has its own stream, so
+        a distribution sweep never queues behind dense-square buckets
+        (whether a member falls back to the dense power inside is the
+        ``markov`` threshold's call). Otherwise n <= ``cpu_max_n`` takes
+        ``"torch"``, n above the Strassen crossover ``"fastmm"``, the rest
+        the kernel ``"chain"``. The engine owns no mesh, so ``"sharded"``
+        never arises and the route does not depend on ``batch``."""
         del batch
+        if _is_evolve(power):
+            return "evolve"
         cpu_max_n, _sharded_min_n = self.thresholds_for(dtype)
         if n <= cpu_max_n:
             return "torch"
@@ -840,16 +951,26 @@ class MatFnEngine:
             if exe is not None:
                 self.stats["cache_hits"] += 1
                 return key, exe, False
-            if op in NOT_PORTED:
-                raise _not_ported(op)
-            if route not in _BACKENDS:
+            if op == "markov" and _is_evolve(power):
+                # Each member through the binary-decomposition vector–matrix
+                # loop; its squarings on the torch route up to cpu_max_n,
+                # the kernel chain above (never Strassen: the reference's
+                # choice).
+                cpu_max_n, _ = self.thresholds_for(dtype)
+                exe = functools.partial(
+                    _evolve_members, steps=power[1],
+                    backend="torch" if n <= cpu_max_n else "cuda_chain")
+            elif route not in _BACKENDS:
                 raise _not_ported(route)
-            backend = _BACKENDS[route]
-            if op == "matpow":
+            elif op == "markov":
+                exe = functools.partial(_steady_members,
+                                        backend=_BACKENDS[route])
+            elif op == "matpow":
                 exe = functools.partial(batched_matpow, p=power,
-                                        backend=backend)
+                                        backend=_BACKENDS[route])
             else:
-                exe = functools.partial(_expm_members, backend=backend)
+                exe = functools.partial(_expm_members,
+                                        backend=_BACKENDS[route])
             self._executables[key] = exe
             self.stats["compiles"] += 1
             return key, exe, True
@@ -866,6 +987,11 @@ class MatFnEngine:
         warm chunk runs ON its route's execution stream; synchronous
         engines warm on the calling thread. Returns the number of chunks
         warmed (they count into the engine stats like any bucket).
+
+        ``op="markov"`` warms the steady-state class (a zero matrix stops
+        after one squaring). Evolve classes are keyed on (steps, B), which
+        ``warm`` has no argument for; their first bucket prepares its own
+        callable.
         """
         if isinstance(dtype, str):
             dtype = DTYPES[dtype]
@@ -873,12 +999,10 @@ class MatFnEngine:
         if batches is None:
             batches = range(1, self.max_batch + 1)
         power = power if op == "matpow" else -1
-        if op in NOT_PORTED:
-            raise _not_ported(op)
         route = self.route_for(n, 1, name)
         if route in NOT_PORTED:
             raise _not_ported(route)
-        if self._cuda and route == "chain":
+        if self._cuda and route in ("chain", "fastmm"):
             _build.load()
         with self._cv:
             pool = self._pool
@@ -911,15 +1035,17 @@ class MatFnEngine:
 
     def _stage(self, reqs) -> list:
         """The payloads of ``reqs``, made safe to read on the current
-        stream (rule 2): wait for each copy's event, and mark the copy used
-        on this stream."""
+        stream (rule 2): wait for each copy's event, and mark the copies
+        used on this stream."""
         if self._cuda:
             stream = torch.cuda.current_stream(self.device)
             for req in reqs:
                 if req.ready is not None:
                     stream.wait_event(req.ready)
                 req.operand.record_stream(stream)
-        return [req.operand for req in reqs]
+                if req.dists is not None:
+                    req.dists.record_stream(stream)
+        return [req.payload for req in reqs]
 
     def _run_chunk(self, op: str, n: int, dtype: str, power: int,
                    operands) -> tuple:
@@ -937,15 +1063,25 @@ class MatFnEngine:
         executing thread's track.
         """
         b = len(operands)
-        route = self.route_for(n, b, dtype)
+        route = self.route_for(n, b, dtype, power)
         bpad = bucket_batch(b, self.max_batch)
         clk = self._clock.now
         t0 = clk()
-        stack = _assemble(list(operands), bpad)
+        if _is_evolve(power):
+            # Evolve payloads are (operand, dists) pairs; both stack.
+            stack = (_assemble([m for m, _ in operands], bpad),
+                     _assemble([d for _, d in operands], bpad))
+        else:
+            stack = _assemble(list(operands), bpad)
         key, exe, fresh = self._executable(op, route, bpad, n, dtype, power)
-        # expm answers each member alone (``_expm_members``), so the filler
-        # slots, whose answers are dropped, are not computed.
-        operand = stack if op == "matpow" else stack[:b]
+        # expm and markov answer each member alone, so the filler slots,
+        # whose answers are dropped, are not computed.
+        if op == "matpow":
+            operand = stack
+        elif _is_evolve(power):
+            operand = (stack[0][:b], stack[1][:b])
+        else:
+            operand = stack[:b]
         t1 = clk()
         if self.profile:
             # perf_counter, not the engine clock: this dt is honest device
@@ -1283,7 +1419,7 @@ class MatFnEngine:
         attributable) instead of sinking the scheduler."""
         op, n, dtype, power = bucket.key
         route = self.route_for(n, min(len(bucket.members), self.max_batch),
-                               dtype)
+                               dtype, power)
         if self.tracer.enabled:
             self.tracer.add_span(
                 "bucket.batch", bucket.first_ts, self._clock.now(),
@@ -1557,3 +1693,18 @@ class MatFnEngine:
         """Synchronous e^A through the engine (flushes the queue; in daemon
         mode kicks the scheduler and waits on the future)."""
         return self._one("expm", a)
+
+    def steady_state(self, p):
+        """Synchronous stationary distribution through the engine: a
+        :class:`~repro_torch.core.markov.SteadyStateResult` (flushes the
+        queue; in daemon mode kicks the scheduler and waits on the future).
+        The engine does not validate stochasticity; gate with
+        :func:`repro_torch.core.markov.validate_stochastic` first."""
+        return self._one("markov", p)
+
+    def evolve(self, dists, p, steps: int) -> torch.Tensor:
+        """Synchronously evolve a (B, n) distribution stack ``steps``
+        transitions under ``p`` through the engine's evolve route (flushes
+        the queue; in daemon mode kicks the scheduler and waits on the
+        future)."""
+        return self._one("markov", p, power=steps, dists=dists)

@@ -1122,3 +1122,100 @@ class TestServingEngine:
                 assert "illegal memory access" in str(exc)
             assert eng.stats()["retries"] == 1
             assert eng.stats()["lanes"]["bulk"]["flushed"] == 0
+
+
+class TestStrassenAndMarkov:
+    """The Strassen route (``kernels.fastmm``) and the Markov workloads
+    (``core.markov``) on the card: every Strassen leaf is one K1 launch and
+    nothing runs the plain versions, the answers hold their budgets, the
+    steady state keeps the bits of the chain, and the engine's ``fastmm``
+    and ``evolve`` buckets answer."""
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                       torch.float64],
+                             ids=lambda d: str(d).removeprefix("torch."))
+    @pytest.mark.parametrize("levels", [1, 2])
+    def test_strassen_adds_7_to_the_l_k1_launches(self, cuda, dtype,
+                                                  levels):
+        from repro_torch.kernels import fastmm
+        n = 512
+        a = _randn((n, n), dtype, cuda, 30)
+        K.reset_launches()
+        got = fastmm.strassen_square(a, levels=levels, crossover=64)
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+        assert counts[K.kernel_name("matmul", dtype)] == 7 ** levels
+        assert sum(counts.values()) == 7 ** levels
+        rtol, atol = error_budget(dtype, levels=levels, n=n)
+        want = a.double() @ a.double()
+        assert torch.allclose(got.double(), want, rtol=rtol, atol=atol)
+
+    def test_fastmm_chain_within_budget_at_2049(self, cuda):
+        from repro_torch.kernels import fastmm
+        n, p = 2049, 7
+        a = _power_operand(n, cuda, 31)
+        chain = ops.MatmulChain(n, torch.float32, device=cuda, fast=True)
+        levels = chain.fast_levels
+        assert levels == fastmm.plan_levels(chain.padded_n, 2, 1024) >= 1
+        got = matpow_binary(a, p, backend="cuda_fastmm")
+        counts = K.launch_counts()
+        assert counts["matmul"] == 4 * 7 ** levels      # 2 squarings + 2
+        assert not any(v for k, v in counts.items() if k.startswith("plain"))
+        rtol, atol = error_budget(torch.float32, levels=levels, n=n, mults=4)
+        want = torch.linalg.matrix_power(a.double(), p)
+        assert torch.allclose(got.double(), want, rtol=rtol, atol=atol)
+
+    def test_steady_state_has_the_bits_of_the_chain(self, cuda):
+        from repro_torch.core import steady_state
+        rng = np.random.default_rng(32)
+        m = rng.random((1000, 1000)) + 0.05
+        p = torch.tensor(m / m.sum(axis=1, keepdims=True),
+                         dtype=torch.float32, device=cuda)
+        res = steady_state(p, backend="cuda_chain")
+        k = int(res.squarings)
+        assert 0 < k < 20 and float(res.residual) <= 1e-6
+        assert res.pi.shape == (1000,)
+        assert torch.equal(res.matrix,
+                           matpow_binary(p, 1 << k, backend="cuda_chain"))
+        assert not any(v for key, v in K.launch_counts().items()
+                       if key.startswith("plain"))
+
+    def test_dense_matmul_launches_k1(self, cuda):
+        x = _randn((16, 1024), torch.float32, cuda, 33)
+        w = _randn((1024, 1024), torch.float32, cuda, 34)
+        got = ops.dense_matmul(x, w)
+        assert K.launch_counts()["matmul"] == 1
+        assert K.launch_counts()["plain_matmul"] == 0
+        _close(got, (x.double() @ w.double()).float(), torch.float32)
+        assert ops.dense_routing_active() is True
+
+    def test_engine_fastmm_and_evolve_buckets(self, cuda):
+        from repro_torch.core import evolve_distributions
+        from repro_torch.serve import MatFnEngine
+        eng = MatFnEngine(device="cuda")
+        a = _power_operand(1536, cuda, 35)
+        rng = np.random.default_rng(36)
+        m = rng.random((256, 256)) + 0.05
+        p = torch.tensor(m / m.sum(axis=1, keepdims=True),
+                         dtype=torch.float32, device=cuda)
+        d = torch.full((16, 256), 1.0 / 256, device=cuda)
+        K.reset_launches()
+        t_fast = eng.submit("matpow", a, power=7)
+        t_evolve = eng.submit("markov", p, power=100, dists=d)
+        got_fast, got_evolve = eng.flush()
+        routes = eng.stats["routes"]
+        assert routes["fastmm"] == 1 and routes["evolve"] == 1
+        assert t_fast == 0 and t_evolve == 1
+        counts = K.launch_counts()
+        assert counts["matmul"] >= 4 * 7
+        assert not any(v for k, v in counts.items() if k.startswith("plain"))
+        levels = eng.fastmm_levels_for(1536, torch.float32)
+        rtol, atol = error_budget(torch.float32, levels=levels, n=1536,
+                                  mults=4)
+        want = torch.linalg.matrix_power(a.double(), 7)
+        assert torch.allclose(got_fast.double(), want, rtol=rtol, atol=atol)
+        rtol, atol = error_budget(torch.float32, n=256, mults=9)
+        want = evolve_distributions(d.double(), p.double(), 100,
+                                    validate=False)
+        assert torch.allclose(got_evolve.double(), want, rtol=rtol,
+                              atol=atol)

@@ -15,9 +15,9 @@ contracts:
   * bucket policy (power-of-two batch padding, max_batch chunking) and the
     callable cache (one build per bucket shape, hits afterwards);
   * dispatch thresholds from the tuning cache's ``dispatch`` namespace
-    (tiny -> torch, mid -> chain), and the routes not ported yet —
-    ``fastmm`` above the Strassen crossover, the ``markov`` op, ``sharded``
-    — refused at ``submit`` with nothing admitted;
+    (tiny -> torch, mid -> chain, above the Strassen crossover -> fastmm),
+    the ``markov`` op on its steady-state and ``evolve`` routes, and
+    ``sharded`` (no mesh) never taken;
   * the device rule (cuda by default, no quiet moves) and the engine's own
     copy of each operand.
 """
@@ -32,7 +32,7 @@ from _torch_parity import assert_bucket_answer, matpow_mults, per_matrix
 
 from repro_torch.core import (BatchedMatmulChain, batched_expm,
                               batched_matpow, expm, matpow_binary)
-from repro_torch.kernels import autotune, ops
+from repro_torch.kernels import autotune, error_budget, ops
 from repro_torch.serve.matfn import (NOT_PORTED, ROUTES, MatFnEngine,
                                      MatFnRequest, bucket_batch)
 from repro_torch.serve.scheduler import ManualClock
@@ -454,40 +454,58 @@ class TestHeterogeneousDispatch:
         assert eng2.stats["routes"]["chain"] == 1
 
 
-class TestRefusedRoutes:
-    """Routes whose slice has not landed are refused at ``submit`` —
-    exactly, since a request's route depends only on (op, n, dtype): no
-    ticket or future is made and nothing is admitted."""
+class TestOpenedRoutes:
+    """The ``fastmm`` route and the ``markov`` op with its ``evolve`` route
+    are served (they were refused at ``submit`` until their slices landed);
+    ``sharded`` alone stays refused (``test_sharded_route_end_to_end``).
+    Operands stay small: the fastmm route at n <= 64 on a cache whose
+    crossover is 16."""
 
     FAST_N = autotune.DEFAULT_FASTMM_CROSSOVER + 1
 
     @staticmethod
-    def _nothing_admitted(eng):
-        snap = eng.stats()
-        assert snap["requests"] == 0 and snap["open_buckets"] == 0
-        assert all(row["submitted"] == 0 and row["queue_depth"] == 0
-                   for row in snap["lanes"].values())
+    def _stochastic(n, seed):
+        p = np.random.default_rng(seed).random((n, n)) + 0.05
+        return torch.tensor(p / p.sum(axis=1, keepdims=True),
+                            dtype=torch.float32)
 
     @pytest.mark.parametrize("daemon", [False, True])
-    def test_fastmm_refused_at_submit(self, daemon):
+    def test_fastmm_served_at_submit(self, tmp_cache, daemon):
+        autotune.record_fastmm(16, 2, backend="cpu")
         eng = MatFnEngine(device="cpu", clock=ManualClock(),
-                          max_delay_ms=10.0)
-        big = torch.zeros((self.FAST_N, self.FAST_N))
+                          max_delay_ms=10.0, thresholds=(8, 1 << 30))
+        a = _stack(1, 48, seed=3)[0]
+        assert eng.route_for(48, 1, "float32") == "fastmm"
+        assert eng.fastmm_levels_for(48, "float32") == 2
         if daemon:
             eng.start()
-        with pytest.raises(ValueError, match="unknown matmul backend for "
-                           "'fastmm'.*ROADMAP queue 1 item 4"):
-            eng.submit("matpow", big, power=3)
-        with pytest.raises(ValueError, match="item 4"):
-            eng.submit("expm", big)
-        self._nothing_admitted(eng)
-        if not daemon:
-            assert eng.flush() == []
+        t_pow = eng.submit("matpow", a, power=5)
+        t_exp = eng.submit("expm", a)
+        if daemon:
+            eng.kick()
+            got_pow, got_exp = (t.result(timeout=TIMEOUT)
+                                for t in (t_pow, t_exp))
+        else:
+            got_pow, got_exp = eng.flush()
         eng.close()
+        assert eng.stats()["routes"]["fastmm"] == 2
+        assert_bucket_answer(got_pow,
+                             matpow_binary(a, 5, backend="cuda_fastmm"),
+                             mults=matpow_mults(5))
+        rtol, atol = error_budget(torch.float32, levels=2, n=48,
+                                  mults=matpow_mults(5))
+        np.testing.assert_allclose(got_pow.numpy(), _ref_pow(a, 5),
+                                   rtol=rtol, atol=atol)
+        np.testing.assert_allclose(
+            got_exp.numpy(), torch.linalg.matrix_exp(a.double()).numpy(),
+            **dict(zip(("rtol", "atol"),
+                       error_budget(torch.float32, levels=2, n=48,
+                                    mults=8))))
 
     def test_fastmm_follows_the_thresholds(self):
-        """Below cpu_max_n every size takes the torch route, so the refusal
-        moves with the thresholds: it is decided by the route, not n."""
+        """Below cpu_max_n every size takes the torch route, so the fastmm
+        route moves with the thresholds: it is decided by the route, not
+        n."""
         eng = MatFnEngine(device="cpu", thresholds=(2048, 4096))
         (got,) = [eng.submit("matpow", torch.eye(self.FAST_N), power=2)]
         assert got == 0
@@ -495,22 +513,62 @@ class TestRefusedRoutes:
         assert eng.stats["routes"]["torch"] == 1
 
     @pytest.mark.parametrize("daemon", [False, True])
-    def test_markov_refused_at_submit(self, daemon):
+    def test_markov_served_at_submit(self, tmp_cache, daemon):
+        from repro_torch.core import evolve_distributions, steady_state
         eng = MatFnEngine(device="cpu", clock=ManualClock(),
-                          max_delay_ms=10.0)
-        p = torch.full((8, 8), 1.0 / 8)
+                          max_delay_ms=10.0, thresholds=(8, 1 << 30))
+        p8, p24 = self._stochastic(8, 1), self._stochastic(24, 2)
+        d = torch.rand((3, 24), generator=torch.Generator().manual_seed(4))
         if daemon:
             eng.start()
-        with pytest.raises(ValueError, match="unknown matmul backend for "
-                           "'markov'.*ROADMAP queue 1 item 5"):
-            eng.submit("markov", p)
-        with pytest.raises(ValueError, match="item 5"):
-            eng.warm("markov", 8)
-        self._nothing_admitted(eng)
+        tickets = [eng.submit("markov", p8), eng.submit("markov", p24),
+                   eng.submit("markov", p24, power=13, dists=d)]
+        if daemon:
+            eng.kick()
+            got = [t.result(timeout=TIMEOUT) for t in tickets]
+        else:
+            got = eng.flush()
         eng.close()
+        routes = eng.stats()["routes"]
+        assert (routes["torch"], routes["chain"], routes["evolve"]) == \
+            (1, 1, 1)
+        for res, p, backend in ((got[0], p8, "torch"),
+                                (got[1], p24, CHAIN)):
+            want = steady_state(p, validate=False, backend=backend)
+            assert torch.equal(res.matrix, want.matrix)
+            assert torch.equal(res.pi, want.pi)
+            assert int(res.squarings) == int(want.squarings) < 20
+        assert torch.equal(got[2], evolve_distributions(
+            d, p24, 13, backend=CHAIN, validate=False))
 
-    def test_warm_refuses_fastmm(self):
+    def test_warm_prepares_fastmm(self, tmp_cache):
+        autotune.record_fastmm(16, 2, backend="cpu")
+        eng = MatFnEngine(device="cpu", thresholds=(8, 1 << 30))
+        assert eng.warm("matpow", 40, power=2, batches=(1, 2)) == 2
+        assert eng.stats["routes"]["fastmm"] == 2
+        compiles = eng.stats["compiles"]
+        eng.matpow(_stack(1, 40, seed=5)[0], 2)
+        assert eng.stats["compiles"] == compiles
+
+    def test_dists_contract(self, tmp_cache):
+        """``dists`` belongs to markov evolve requests only, must match the
+        operand's n, dtype and device, and is the engine's own copy."""
         eng = MatFnEngine(device="cpu")
-        with pytest.raises(ValueError, match="item 4"):
-            eng.warm("matpow", self.FAST_N, power=2, batches=(1,))
-        assert eng.stats["buckets"] == 0
+        p = self._stochastic(8, 6)
+        with pytest.raises(ValueError, match="only meaningful"):
+            eng.submit("matpow", p, power=2, dists=torch.ones((2, 8)) / 8)
+        with pytest.raises(ValueError, match="dists must be"):
+            eng.submit("markov", p, power=2, dists=torch.ones((2, 5)) / 5)
+        with pytest.raises(ValueError, match="must match"):
+            eng.submit("markov", p, power=2,
+                       dists=torch.ones((2, 8), dtype=torch.float64) / 8)
+        with pytest.raises(ValueError, match="lies on meta"):
+            eng.submit("markov", p, power=2,
+                       dists=torch.empty((2, 8), device="meta"))
+        assert eng.stats["requests"] == 0
+        d = torch.full((2, 8), 1.0 / 8)
+        eng.submit("markov", p, power=3, dists=d)
+        d.fill_(0.0)                       # after submit: not seen
+        (out,) = eng.flush()
+        np.testing.assert_allclose(out.sum(dim=1).numpy(), 1.0, rtol=1e-5)
+        assert eng.stats["routes"]["evolve"] == 1

@@ -12,18 +12,24 @@ padded batches, the routes (the reference's ``xla`` is the port's
 (``submitted`` / ``flushed`` per lane, ``compiles``, ``cache_hits``,
 ``buckets``, ``padded_slots``). Each answer is held to the reference's
 under ``error_budget(dtype, n, mults)`` (``_torch_parity.assert_close``):
-the two frameworks sum in different orders, so bits are not claimed.
+the two frameworks sum in different orders, so bits are not claimed. A
+second script sends Markov steady-state and evolve traffic and Strassen
+(``fastmm``) buckets through both engines the same way: steady states are
+held by their squaring counts, ``pi`` and matrix, Strassen answers under
+``error_budget(levels=2)``.
 """
 
 import numpy as np
 import pytest
+import torch
 
 from repro.serve.matfn import MatFnEngine as RefEngine
 from repro.serve.scheduler import ManualClock as RefClock
 from repro_torch.serve.matfn import MatFnEngine
 from repro_torch.serve.scheduler import ManualClock
 
-from _torch_parity import assert_close, matpow_mults, pair
+from _torch_parity import as_f64, assert_close, matpow_mults, pair
+from repro_torch.kernels import error_budget
 
 pytestmark = pytest.mark.timeout(300)
 
@@ -161,13 +167,161 @@ class TestSyncParity:
                          err_msg=f"{op} n={n} {dtype} p={power}")
 
 
+#: The Markov and Strassen traffic of both engines, on thresholds (8, ...)
+#: and a fastmm crossover of 16 (two levels) recorded in both caches: n = 8
+#: takes torch / xla, n = 16 the chain, n = 40 fastmm, and evolve requests
+#: the evolve route. (op, n, power, seed, lane, B): B is the
+#: distribution count of an evolve request, None otherwise.
+MARKOV_STEPS = (
+    [("markov", 8, 1, 21, "bulk", None),
+     ("markov", 8, 1, 22, "bulk", None),
+     ("markov", 16, 1, 23, "bulk", None),
+     ("markov", 16, 13, 24, "bulk", 3),
+     ("matpow", 40, 3, 25, "bulk", None)],
+    [("expm", 40, 1, 26, "bulk", None),
+     ("markov", 40, 1, 27, "bulk", None),
+     ("markov", 16, 13, 28, "bulk", 3),
+     ("matpow", 8, 3, 29, "bulk", None)],
+)
+MARKOV_THRESHOLDS = (8, 1 << 30)
+
+
+def _markov_inputs(op, n, power, seed, b):
+    """(jax, torch) operand and dists (or None) of one scripted request:
+    stochastic matrices for markov, scaled normals otherwise."""
+    rng = np.random.default_rng(seed)
+    if op == "markov":
+        m = rng.random((n, n)) + 0.05
+        a = pair(m / m.sum(axis=1, keepdims=True), "float32")
+    else:
+        a = pair(rng.standard_normal((n, n)) * 0.4 / np.sqrt(n), "float32")
+    if b is None:
+        return a, (None, None)
+    d = rng.random((b, n))
+    return a, pair(d / d.sum(axis=1, keepdims=True), "float32")
+
+
+def _check_markov_answer(req, got, want):
+    """One answer of the Markov / Strassen script against the reference's:
+    steady states by squarings, pi and matrix; the rest elementwise;
+    fastmm-route answers (n = 40) under the two-level budget."""
+    op, n, power, _seed, _lane, b = req
+    levels = 2 if n > 16 and b is None else 0
+    what = f"{op} n={n} p={power} B={b}"
+    if op == "markov" and b is None:
+        assert int(got.squarings) == int(want.squarings), what
+        for g, w in ((got.pi, want.pi), (got.matrix, want.matrix)):
+            rtol, atol = error_budget(torch.float32, levels=levels, n=n,
+                                      mults=int(got.squarings))
+            np.testing.assert_allclose(as_f64(g), as_f64(w), rtol=rtol,
+                                       atol=atol, err_msg=what)
+        return
+    mults = (power.bit_length() - 1 + bin(power).count("1")
+             if op == "markov" else _mults(op, power))
+    rtol, atol = error_budget(torch.float32, levels=levels, n=n, mults=mults)
+    np.testing.assert_allclose(as_f64(got), as_f64(want), rtol=rtol,
+                               atol=atol, err_msg=what)
+
+
+@pytest.fixture
+def both_caches(tmp_path, monkeypatch):
+    """A temporary tuning cache for each package, each holding a fastmm
+    crossover of 16 at two levels."""
+    from repro.kernels import autotune as jautotune
+    from repro_torch.kernels import autotune
+    monkeypatch.setenv("REPRO_AUTOTUNE_CACHE", str(tmp_path / "ref.json"))
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE",
+                       str(tmp_path / "port.json"))
+    jautotune.clear_memory_cache()
+    autotune.clear_memory_cache()
+    jautotune.record_fastmm(16, 2)
+    autotune.record_fastmm(16, 2, backend="cpu")
+    yield
+    jautotune.clear_memory_cache()
+    autotune.clear_memory_cache()
+
+
+class TestMarkovAndFastmmParity:
+    """Markov steady-state, evolve and Strassen (``fastmm``) traffic through
+    both engines: the same buckets, routes, triggers and counters, and
+    every answer within the stated budget of the reference's."""
+
+    @staticmethod
+    def _inputs():
+        ref_in, port_in = {}, {}
+        for step in MARKOV_STEPS:
+            for (op, n, power, seed, lane, b) in step:
+                (ja, ta), (jd, td) = _markov_inputs(op, n, power, seed, b)
+                ref_in[seed], port_in[seed] = (ja, jd), (ta, td)
+        return ref_in, port_in
+
+    @staticmethod
+    def _serve(engine, clock, inputs):
+        futs, steps = [], []
+        with engine:
+            for step in MARKOV_STEPS:
+                for (op, n, power, seed, lane, b) in step:
+                    a, d = inputs[seed]
+                    futs.append(engine.submit(op, a, power=power, dists=d,
+                                              priority=lane))
+                engine.settle(TIMEOUT)
+                clock.advance(0.020)      # every deadline of the step fires
+                engine.settle(TIMEOUT)
+                steps.append(_triggers(engine.tracer))
+            answers = [f.result(timeout=TIMEOUT) for f in futs]
+            snap = engine.stats()
+        return answers, steps, snap
+
+    def test_daemon_buckets_routes_triggers_counters_and_answers(
+            self, both_caches):
+        ref_in, port_in = self._inputs()
+        ref_clock, port_clock = RefClock(), ManualClock()
+        ref = RefEngine(interpret=True, max_batch=MAX_BATCH, clock=ref_clock,
+                        thresholds=MARKOV_THRESHOLDS, trace=True)
+        port = MatFnEngine(device="cpu", max_batch=MAX_BATCH,
+                           clock=port_clock, thresholds=MARKOV_THRESHOLDS,
+                           trace=True)
+        want, ref_steps, ref_snap = self._serve(ref, ref_clock, ref_in)
+        got, port_steps, port_snap = self._serve(port, port_clock, port_in)
+
+        assert port_steps == ref_steps
+        assert _counters(port_snap) == _counters(ref_snap)
+        routes = port_snap["routes"]
+        assert routes["fastmm"] == 3 and routes["evolve"] == 2
+        assert routes["chain"] == 1 and routes["torch"] == 2
+        assert port_snap["flush_triggers"]["deadline"] >= 1
+        script = [req for step in MARKOV_STEPS for req in step]
+        for req, g, w in zip(script, got, want):
+            _check_markov_answer(req, g, w)
+
+    def test_sync_bucket_rows_and_answers(self, both_caches):
+        ref_in, port_in = self._inputs()
+        ref = RefEngine(interpret=True, max_batch=MAX_BATCH,
+                        thresholds=MARKOV_THRESHOLDS)
+        port = MatFnEngine(device="cpu", max_batch=MAX_BATCH,
+                           thresholds=MARKOV_THRESHOLDS)
+        script = [req for step in MARKOV_STEPS for req in step]
+        for (op, n, power, seed, _lane, _b) in script:
+            (ja, jd), (ta, td) = ref_in[seed], port_in[seed]
+            assert ref.submit(op, ja, power=power, dists=jd) == \
+                port.submit(op, ta, power=power, dists=td)
+        want, got = ref.flush(), port.flush()
+        assert _bucket_rows(port.stats["last_flush"]) == \
+            _bucket_rows(ref.stats["last_flush"])
+        for key in ("requests", "buckets", "compiles", "cache_hits",
+                    "padded_slots"):
+            assert port.stats[key] == ref.stats[key], key
+        for req, g, w in zip(script, got, want):
+            _check_markov_answer(req, g, w)
+
+
 @pytest.mark.parametrize("module", [
     "serve", "serve.matfn", "serve.admission", "serve.scheduler",
     "serve.streams", "runtime", "runtime.telemetry", "runtime.fault",
-    "launch.matserve"])
+    "launch.matserve", "core.markov", "kernels.fastmm"])
 def test_the_port_has_the_reference_public_names(module):
-    """Every public name of the reference's serving modules is in the
-    port's module of the same name (``__all__``, or the public functions
+    """Every public name of the reference's serving modules (and of the
+    Markov and Strassen modules) is in the port's module of the same name (``__all__``, or the public functions
     where the reference has none)."""
     import importlib
     import inspect

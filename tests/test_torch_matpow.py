@@ -248,17 +248,27 @@ class TestContracts:
             got.numpy(), np.broadcast_to(np.eye(7, dtype=np.float32), shape))
 
     @pytest.mark.parametrize("backend", ["pallas", "xla", "triton", "",
-                                         "pallas_fastmm", "cuda_fastmm",
-                                         "fastmm", "cuda_chain_interpret"])
+                                         "pallas_fastmm", "fastmm",
+                                         "cuda_fastmm_interpret",
+                                         "cuda_chain_interpret"])
     def test_unknown_and_unported_backends_raise(self, backend):
-        """The Strassen routes are not ported yet: their names must raise,
-        not quietly run dense."""
+        """Only the port's own names are backends: the reference's names
+        and interpret-mode twins must raise, not quietly run something."""
         with pytest.raises(ValueError, match="unknown matmul backend"):
             matmul_backend(backend)
         with pytest.raises(ValueError, match="unknown matmul backend"):
             matpow_binary(torch.eye(4), 3, backend=backend)
         with pytest.raises(ValueError, match="unknown matmul backend"):
             chain_for(torch.eye(4), backend)
+
+    def test_cuda_fastmm_is_the_strassen_chain(self):
+        """``"cuda_fastmm"`` builds the fused chain with ``fast=True``; as a
+        bare callable it is ``strassen_matmul``."""
+        from repro_torch.kernels import fastmm
+        assert matmul_backend("cuda_fastmm") is fastmm.strassen_matmul
+        chain = chain_for(torch.eye(4), "cuda_fastmm")
+        assert chain.fast is True
+        assert chain_for(torch.eye(4), "cuda_chain").fast is False
 
     def test_chain_for_only_on_the_chain_backend(self):
         a = torch.eye(8)

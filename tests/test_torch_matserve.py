@@ -1,8 +1,9 @@
 """``python -m repro_torch.launch.matserve``, the port's serving driver, on
 the CPU (``--device cpu``): batch and daemon mode with ``--verify`` (every
-answer held to a float64 per-matrix call under ``error_budget``), the
-reference's flags, and the deliberate differences (the GPU by default,
-markov and evolve traffic refused, ``--evolve-frac`` 0)."""
+answer held to a float64 per-matrix call under ``error_budget``), markov
+steady-state and evolve traffic, the reference's flags and defaults, and the
+deliberate differences (the GPU by default, ``--verify`` exits 1 on a
+miss)."""
 
 import json
 
@@ -93,26 +94,47 @@ class TestDifferencesFromTheReference:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             matserve.main(["--requests", "2", "--sizes", "8"])
 
-    def test_markov_traffic_is_refused(self, capsys):
-        with pytest.raises(SystemExit) as ei:
-            matserve.main(["--device", "cpu", "--markov-frac", "0.5"])
-        assert ei.value.code == 2
-        assert "item 5" in capsys.readouterr().err
+    @pytest.mark.parametrize("daemon", [[], ["--daemon", "--rate", "2000"]],
+                             ids=["batch", "daemon"])
+    def test_markov_traffic_is_served(self, capsys, daemon):
+        """Markov traffic, steady state and evolve, through the engine's
+        torch / chain / evolve routes, every answer verified."""
+        rc, out = _run(capsys, "--device", "cpu", *daemon, "--requests",
+                       "24", "--sizes", "16,96", "--powers", "7,12",
+                       "--dtypes", "float32,float64", "--markov-frac", "0.5",
+                       "--verify")
+        assert rc == 0 and "0 outside error_budget" in out
+        routes = out.split("routes=")[1].split("}")[0]
+        assert "'evolve': 0" not in routes and "'evolve'" in routes
 
-    @pytest.mark.parametrize("flag", [["--evolve-frac", "0.5"],
-                                      ["--evolve-batch", "4"]],
+    @pytest.mark.parametrize("flag", [["--evolve-frac", "1.0"],
+                                      ["--evolve-batch", "3"]],
                              ids=["evolve-frac", "evolve-batch"])
-    def test_evolve_settings_are_refused(self, capsys, flag):
-        """Evolve traffic is markov traffic: its settings are refused too."""
-        with pytest.raises(SystemExit) as ei:
-            matserve.main(["--device", "cpu", *flag])
-        assert ei.value.code == 2
-        assert "item 5" in capsys.readouterr().err
+    def test_evolve_settings_shape_the_traffic(self, capsys, flag):
+        """``--evolve-frac`` is the evolve share of the markov requests,
+        ``--evolve-batch`` the distributions of each; served and verified."""
+        args = matserve.parser().parse_args(["--markov-frac", "1.0", *flag])
+        work = matserve.make_workload(12, [8, 16], [3, 5], 0.0, seed=3,
+                                      markov_frac=1.0,
+                                      evolve_frac=args.evolve_frac,
+                                      evolve_batch=args.evolve_batch)
+        evolve = [rest[0] for op, a, p, *rest in work if rest]
+        assert all(op == "markov" for op, *_ in work)
+        if flag[0] == "--evolve-frac":
+            assert len(evolve) == len(work)
+        assert evolve and all(d.shape == (args.evolve_batch, d.shape[1])
+                              for d in evolve)
+        rc, out = _run(capsys, "--device", "cpu", "--requests", "12",
+                       "--sizes", "8,16", "--powers", "3,5",
+                       "--markov-frac", "1.0", *flag, "--verify")
+        assert rc == 0 and "0 outside error_budget" in out
 
     def test_defaults(self):
+        """The reference's defaults, the device aside."""
         args = matserve.parser().parse_args([])
         assert args.device == "cuda"
-        assert args.evolve_frac == 0.0 and args.markov_frac == 0.0
+        assert args.markov_frac == 0.0
+        assert (args.evolve_frac, args.evolve_batch) == (0.5, 4)
         assert (args.requests, args.sizes, args.powers, args.expm_frac) == \
             (64, "8,16,32", "2,7,12", 0.25)
 

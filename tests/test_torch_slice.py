@@ -152,7 +152,8 @@ class TestNoJax:
                 "kernels/ref.py", "kernels/fastmm.py",
                 "kernels/attention.py", "kernels/autotune.py",
                 "core/__init__.py", "core/matpow.py", "core/batched.py",
-                "core/expm.py", "runtime/__init__.py", "runtime/fault.py",
+                "core/expm.py", "core/markov.py", "runtime/__init__.py",
+                "runtime/fault.py",
                 "runtime/telemetry.py", "serve/__init__.py",
                 "serve/admission.py", "serve/scheduler.py",
                 "serve/streams.py", "serve/matfn.py", "launch/__init__.py",
@@ -164,6 +165,25 @@ class TestNoJax:
         the serving sub-packages: every module of them is in FILES."""
         mods = sorted((PKG / sub).rglob("*.py"))
         assert mods and set(mods) <= set(self.FILES)
+
+    @pytest.mark.parametrize("module", [
+        "repro_torch.core.markov", "repro_torch.kernels.fastmm",
+        "repro_torch.kernels.ops", "repro_torch.kernels.autotune",
+        "repro_torch.serve.matfn", "repro_torch.launch.matserve"])
+    def test_the_guards_cover_the_strassen_and_markov_modules(self, module):
+        """The modules of the Strassen and Markov slice are walked by the
+        AST guard and imported by the fresh interpreter below, and pull in
+        neither jax nor the reference there."""
+        path = PKG.joinpath(*module.split(".")[1:]).with_suffix(".py")
+        assert path in self.FILES
+        code = (f"import sys, importlib\nimportlib.import_module({module!r})"
+                f"\nbad = sorted(m for m in sys.modules if m.split('.')[0] "
+                f"in {FORBIDDEN!r})\nassert not bad, bad\n")
+        done = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                              env={"PYTHONPATH": str(ROOT / "src"),
+                                   "PATH": "/usr/bin:/bin"},
+                              capture_output=True, text=True, timeout=120)
+        assert done.returncode == 0, done.stderr
 
     def test_importing_everything_loads_neither(self):
         """A fresh interpreter imports the package and every sub-module —

@@ -4,7 +4,7 @@
     python3 tools/profile_serve_daemon.py [--requests N] [--rate R]
 
 Serves ``chip_smoke.py``'s serving mix (``serve_requests``: matpow f32 /
-bf16 / f64 and expm f32 / f64 over 20 traffic classes) to a
+bf16 / f64, expm f32 / f64, markov steady states and evolve requests) to a
 ``MatFnEngine`` daemon on the card, open loop from four producer threads,
 under variants that each change one thing: the whole mix with tracing, the
 same without tracing, a 20 ms flush deadline, the matpow classes alone, the
@@ -64,8 +64,7 @@ def serve(reqs, *, count, rate, producers=4, closed=False, profiler=None,
         t0 = time.perf_counter()
         if closed:
             for i in range(count):
-                op, a, p, *_ = reqs[order[i]]
-                futs[i] = eng.submit(op, a, power=p)
+                futs[i] = cs.submit(eng, reqs[order[i]])
             eng.kick()
         else:
             def producer(k):
@@ -73,8 +72,7 @@ def serve(reqs, *, count, rate, producers=4, closed=False, profiler=None,
                     delay = t0 + i / rate - time.perf_counter()
                     if delay > 0:
                         time.sleep(delay)
-                    op, a, p, *_ = reqs[order[i]]
-                    futs[i] = eng.submit(op, a, power=p)
+                    futs[i] = cs.submit(eng, reqs[order[i]])
 
             threads = [threading.Thread(target=producer, args=(k,))
                        for k in range(producers)]
@@ -89,7 +87,7 @@ def serve(reqs, *, count, rate, producers=4, closed=False, profiler=None,
             profiler.__exit__(None, None, None)
         snap = eng.stats()
     execute = {}
-    for route in ("torch", "chain"):
+    for route in ("torch", "chain", "fastmm", "evolve"):
         h = eng.metrics.merged("stage", stage="execute", route=route)
         execute[route] = {"buckets": h.count,
                           "mean_ms": None if h.mean is None
