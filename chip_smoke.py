@@ -27,7 +27,11 @@ A^96 on ``"cuda_fastmm"``; the crossover ``sweep_fastmm`` measures) and the
 Markov workloads (``steady_state`` with the bits of the chain,
 ``evolve_distributions`` on K1 against one dense power and one apply); the
 serving engine with matpow, expm, markov and evolve traffic on its
-``torch``, ``chain``, ``fastmm`` and ``evolve`` routes, and its driver.
+``torch``, ``chain``, ``fastmm`` and ``evolve`` routes, and its driver;
+and the sharded chain (``core.distributed``: ``matpow_sharded`` at n = 4096
+in f32, bf16 and f64 with each schedule, ``expm_sharded``, the engine's
+``sharded`` route) on a world-1 NCCL group's 1x1 mesh, every local
+product a K1 launch.
 Each phase prints one JSON line; any
 failure raises and the script exits non-zero without the final
 ``"ok": true`` line. It needs a CUDA device and ``nvcc``; it imports
@@ -71,9 +75,10 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 import repro_torch  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.core import (batched_expm, batched_matpow,  # noqa: E402
-                              evolve_distributions, expm, markov_power,
-                              matpow_binary, matpow_binary_traced,
-                              matpow_naive, steady_state)
+                              evolve_distributions, expm, expm_sharded,
+                              markov_power, matpow_binary,
+                              matpow_binary_traced, matpow_naive,
+                              matpow_sharded, steady_state)
 from repro_torch.kernels import (_build, autotune, error_budget,  # noqa: E402
                                  fastmm, ops, ref)
 from repro_torch.kernels import attention_kernels as A  # noqa: E402
@@ -1722,6 +1727,131 @@ def phase_dispatch() -> None:
          thresholds=list(autotune.DEFAULT_DISPATCH_THRESHOLDS))
 
 
+# ---------------------------------------------------------------------------
+# The sharded chain (repro_torch.core.distributed) on a 1x1 NCCL mesh
+# ---------------------------------------------------------------------------
+
+SHARDED_N = 4096
+SHARDED_DTYPES = (torch.float32, torch.bfloat16, torch.float64)
+#: expm_sharded's operand: normal entries at this scale give |A|_1 near 65
+#: at n = 4096, so s = 4 squarings run on the mesh.
+SHARDED_EXPM_SCALE = 0.02
+
+
+def sharded_case(mesh, dtype, seed) -> list:
+    """``matpow_sharded(a, 96)`` at n = 4096 with each schedule forced:
+    exactly MULTS launches of the dtype's K1 and nothing else, within
+    ``error_budget(mults=7)`` of the float64 power; host ms beside the
+    single-device chain's."""
+    a = power_operand(SHARDED_N, dtype, seed)
+    name = str(dtype).removeprefix("torch.")
+    want = f64_power(a, POWER, what=f"matpow_sharded(n={SHARDED_N}, {name})")
+    k1 = K.kernel_name("matmul", dtype)
+    chain_ms = wall_ms(lambda: matpow_binary(a, POWER, backend="cuda_chain"))
+    rows = []
+    for alg in ("gather", "cannon"):
+        what = f"matpow_sharded(n={SHARDED_N}, {name}, {alg}, p={POWER})"
+        fn = (lambda alg=alg: matpow_sharded(a, POWER, mesh,
+                                             algorithm=alg).full_tensor())
+        got, delta, peak = launch_delta(fn)
+        if delta != {k1: MULTS}:
+            raise AssertionError(f"{what}: launches {delta}, expected "
+                                 f"{{{k1!r}: {MULTS}}}")
+        err = check_close(got, want, dtype, n=SHARDED_N, mults=MULTS,
+                          what=what + " vs float64")
+        rows.append({"n": SHARDED_N, "dtype": name, "algorithm": alg,
+                     "launches": delta, "peak_mb": peak / 2 ** 20,
+                     "max_abs_err_vs_f64": err[0],
+                     "rel_to_peak_vs_f64": err[1], "rtol": err[2],
+                     "sharded_ms": wall_ms(fn), "cuda_chain_ms": chain_ms})
+    return rows
+
+
+def sharded_engine(mesh) -> dict:
+    """``MatFnEngine(mesh=...)``, default thresholds (64, 4096): one 4096
+    f32 matpow and one markov steady state flushed together, both on the
+    ``sharded`` route; K1 launches only (7 for A^96, one a squaring for the
+    steady state); A^96 within budget of float64, the steady state's pi and
+    squarings those of ``steady_state`` on the single-device chain."""
+    a = power_operand(SHARDED_N, torch.float32, 910)
+    p = stochastic(SHARDED_N, torch.float32, 911)
+    eng = MatFnEngine(mesh=mesh)
+
+    def flush():
+        eng.submit("matpow", a, power=POWER)
+        eng.submit("markov", p)
+        return eng.flush()
+
+    (got, res), delta, peak = launch_delta(flush)
+    k = int(res.squarings)
+    routes = eng.stats()["routes"]
+    if routes["sharded"] != 2 or sum(routes.values()) != 2:
+        raise AssertionError(f"sharded engine: routes {routes}")
+    if delta != {"matmul": MULTS + k}:
+        raise AssertionError(f"sharded engine: launches {delta}, expected "
+                             f"{{'matmul': {MULTS + k}}}")
+    what = f"engine sharded matpow(n={SHARDED_N}, float32, p={POWER})"
+    err = check_close(got, f64_power(a, POWER, what=what), torch.float32,
+                      n=SHARDED_N, mults=MULTS, what=what + " vs float64")
+    want = steady_state(p, tol=MARKOV_TOL, backend="cuda_chain",
+                        validate=False)
+    if int(want.squarings) != k:
+        raise AssertionError(f"sharded engine steady state: {k} squarings, "
+                             f"the chain {int(want.squarings)}")
+    pi_err = check_close(res.pi, want.pi, torch.float32, n=SHARDED_N,
+                         mults=k, what="engine sharded steady state pi")
+    return {"routes": routes, "launches": delta, "squarings": k,
+            "residual": float(res.residual), "peak_mb": peak / 2 ** 20,
+            "matpow_max_abs_err_vs_f64": err[0],
+            "pi_max_abs_err_vs_chain": pi_err[0],
+            "flush_ms": wall_ms(flush)}
+
+
+def phase_sharded() -> None:
+    """The sharded chain on a world-1 NCCL group and its 1x1 mesh (one card
+    gives no other): A^96 at the main path's width, n = 4096, in f32, bf16
+    and f64 with each schedule forced; ``expm_sharded`` at 4096 f32 against
+    the port's ``expm``; an engine flush on the ``sharded`` route. A 1x1
+    mesh sends nothing, so this shows that every local product is K1 and
+    what the route costs on the host, not what collectives cost."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    t0 = time.perf_counter()
+    torch.cuda.set_device(0)       # before the mesh: NCCL's device
+    rdzv = tempfile.mkdtemp(prefix="chip-smoke-rdzv-")
+    dist.init_process_group("nccl", init_method=f"file://{rdzv}/rdzv",
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        rows = [row for i, dtype in enumerate(SHARDED_DTYPES)
+                for row in sharded_case(mesh, dtype, 900 + i)]
+        e = randn((SHARDED_N, SHARDED_N), torch.float32, 905,
+                  scale=SHARDED_EXPM_SCALE)
+        got, delta, _ = launch_delta(
+            lambda: expm_sharded(e, mesh).full_tensor())
+        squarings = delta.get("matmul", 0)
+        if set(delta) != {"matmul"}:
+            raise AssertionError(f"expm_sharded: launches {delta}")
+        err = check_close(got, expm(e), torch.float32, n=SHARDED_N,
+                          mults=squarings + 7,
+                          what=f"expm_sharded(n={SHARDED_N}) vs expm")
+        expm_row = {"n": SHARDED_N, "dtype": "float32",
+                    "squarings": squarings, "max_abs_err_vs_expm": err[0],
+                    "rel_to_peak_vs_expm": err[1],
+                    "expm_sharded_ms": wall_ms(
+                        lambda: expm_sharded(e, mesh).full_tensor()),
+                    "expm_ms": wall_ms(lambda: expm(e))}
+        engine = sharded_engine(mesh)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(rdzv, ignore_errors=True)
+    emit("sharded", mesh=[1, 1], power=POWER, rows=rows, expm=expm_row,
+         engine=engine, seconds=round(time.perf_counter() - t0, 1))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device: torch.cuda.is_available() "
@@ -1749,6 +1879,7 @@ def main() -> int:
         phase_serve_daemon(pool, capacity)
         phase_matserve()
         phase_dispatch()
+        phase_sharded()
         emit("serving_phases", seconds=round(time.perf_counter() - t_serve,
                                              1))
         attn_counts, attn_timed = phase_attention()

@@ -2,9 +2,10 @@
 
 Matrix exponentiation by squaring (O(N) -> O(log N) multiplies), its
 data-driven-power and stacked forms, the scaling-and-squaring matrix
-exponential built on it, and the Markov-chain workloads (steady state,
-distribution evolution). (The prefix scan and the sharded chain of the
-reference's ``repro.core`` are ported later.)
+exponential built on it, the Markov-chain workloads (steady state,
+distribution evolution), and the sharded chain over a ``torch.distributed``
+device mesh. (The prefix scan of the reference's ``repro.core`` is ported
+with the LM substrate.)
 """
 
 from repro_torch.core.matpow import (
@@ -27,6 +28,14 @@ from repro_torch.core.markov import (
     evolve_distributions,
     SteadyStateResult,
 )
+from repro_torch.core.distributed import (
+    matmul_2d_gather,
+    matmul_cannon,
+    sharded_matmul,
+    ShardedMatmulChain,
+    matpow_sharded,
+    expm_sharded,
+)
 
 __all__ = [
     "matpow_naive", "matpow_binary", "matpow_binary_traced", "matmul_backend",
@@ -34,4 +43,6 @@ __all__ = [
     "expm", "BatchedMatmulChain", "batched_matpow", "batched_expm",
     "validate_stochastic", "markov_power", "steady_state",
     "evolve_distributions", "SteadyStateResult",
+    "matmul_2d_gather", "matmul_cannon", "sharded_matmul",
+    "ShardedMatmulChain", "matpow_sharded", "expm_sharded",
 ]

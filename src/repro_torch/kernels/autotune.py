@@ -135,10 +135,11 @@ DEFAULT_SQUARE_TIERS: tuple = (SQUARE_SMEM_LIMIT, SQUARE_PANEL_LIMIT)
 
 #: Default route thresholds ``(cpu_max_n, sharded_min_n)`` of the serving
 #: engine: buckets with n <= cpu_max_n take the ``"torch"`` route (cuBLAS on
-#: the card), the rest the kernel chain; ``sharded_min_n`` is kept for the
-#: sharded route, which is not ported. The reference's values, kept until a
-#: measurement on the card re-derives them. Overridable per dtype through
-#: the ``dispatch`` namespace.
+#: the card), the rest the kernel chain; on an engine with a mesh, single
+#: matrices at n >= sharded_min_n take the ``"sharded"`` route. The
+#: reference's values, kept until a measurement on the card re-derives them
+#: (one card gives a 1x1 mesh only, which shows no collective's cost).
+#: Overridable per dtype through the ``dispatch`` namespace.
 DEFAULT_DISPATCH_THRESHOLDS: tuple = (64, 4096)
 
 #: Default continuous-batching flush deadline (milliseconds): how long a

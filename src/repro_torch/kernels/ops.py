@@ -226,12 +226,17 @@ def _as_stack(x: torch.Tensor):
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor, *, blocks=None,
-           out_dtype=None) -> torch.Tensor:
+           out_dtype=None, out=None) -> torch.Tensor:
     """C = A @ B via the tiled kernel; arbitrary shapes and stacking.
 
     a: (..., M, K), b: (..., K, N); leading dims must match exactly or be
     absent on one side (a 2-D operand is shared by the whole stack). The
     stack is one launch: a grid axis of the kernel, not a loop.
+
+    ``out`` receives the result and is returned; it must not alias an
+    operand. Where no padding is needed the kernel writes it directly (the
+    sharded chain's ping-pong buffers), else the stripped result is copied
+    in.
     """
     if a.ndim < 2 or b.ndim < 2:
         raise ValueError(f"unsupported batch ranks {tuple(a.shape)} @ "
@@ -249,14 +254,19 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, blocks=None,
 
     a_s, lead_a = _as_stack(pad_to_blocks(a, bm, bk).contiguous())
     b_s, lead_b = _as_stack(pad_to_blocks(b, bk, bn).contiguous())
-    out = matmul_cuda(a_s, b_s, block_m=bm, block_n=bn, block_k=bk,
-                      out_dtype=out_dtype or a.dtype)
-    if out.shape[-2:] != (m, n):
-        out = out[..., :m, :n]
     lead = lead_a if lead_a is not None else lead_b
+    direct = out is not None and lead is None \
+        and a_s.shape[-2] == m and b_s.shape[-1] == n
+    c = matmul_cuda(a_s, b_s, block_m=bm, block_n=bn, block_k=bk,
+                    out_dtype=out_dtype or a.dtype,
+                    **({"out": out} if direct else {}))
+    if c.shape[-2:] != (m, n):
+        c = c[..., :m, :n]
     if lead is not None:
-        out = out.reshape(*lead, m, n)
-    return out
+        c = c.reshape(*lead, m, n)
+    if out is not None and not direct:
+        return out.copy_(c)
+    return c
 
 
 def square(a: torch.Tensor, *, blocks=None, out_dtype=None) -> torch.Tensor:

@@ -49,17 +49,20 @@ from repro_torch.serve.matfn import ROUTES, MatFnEngine
 
 
 def make_workload(n_requests: int, sizes, powers, expm_frac: float,
-                  seed: int, dtypes=("float32",), device="cpu",
+                  seed: int, dtypes=("float32",), device=None,
                   markov_frac: float = 0.0, evolve_frac: float = 0.5,
                   evolve_batch: int = 4):
     """A reproducible mixed request list, the operands made on ``device``
-    from a numpy seed (the reference's draws, in its order).
+    (``repro_torch.default_device``: the card unless the caller names the
+    CPU, raising without one) from a numpy seed (the reference's draws, in
+    its order).
 
     Entries are ``(op, operand, power)`` tuples; markov evolve entries (a
     ``markov_frac * evolve_frac`` share) carry a fourth element, the
     ``(evolve_batch, n)`` stack of start distributions. A markov operand is
     row-stochastic: the drawn gaussian's absolute values plus 0.05, each row
     divided by its sum (strictly positive, so the chain converges)."""
+    device = default_device(device)
     rng = np.random.default_rng(seed)
     work = []
     for _ in range(n_requests):

@@ -17,8 +17,8 @@ single-process-testable pieces of that story:
                         preserves divisibility; paired with the
                         mesh-independent checkpoint layout this is the
                         elastic-restart path. It computes a mesh shape
-                        only (pure arithmetic); the port has no sharded
-                        route yet.
+                        only (pure arithmetic); the sharded chain
+                        (``core.distributed``) takes the mesh it names.
 """
 
 from __future__ import annotations

@@ -29,7 +29,10 @@ service layer over the port's chain executors:
     (``torch.matmul``, cuBLAS on the card: launch overhead dominates), the
     rest the ``"chain"`` route, the stacked chain of the hand-written
     kernels (:class:`repro_torch.core.batched.BatchedMatmulChain`: K1–K3,
-    the stack on the grid's z axis); n above the ``fastmm`` crossover
+    the stack on the grid's z axis); with a ``mesh``, a single matrix at
+    n >= ``sharded_min_n`` takes the ``"sharded"`` route
+    (:mod:`repro_torch.core.distributed`: the chain 2-D sharded over the
+    mesh, K1 as every local product); n above the ``fastmm`` crossover
     (:func:`repro_torch.kernels.autotune.fastmm_config`) takes the
     ``"fastmm"`` route, the same chain with Strassen recursion over K1
     leaves (held to ``error_budget(levels=...)``, not to per-matrix bits),
@@ -57,11 +60,14 @@ service layer over the port's chain executors:
     ``engine.stats()``, ``engine.metrics`` and ``trace=True`` with a
     Chrome-trace export) are the reference's, unchanged.
 
-The route not ported yet. ``ROUTES`` keeps the reference's five names,
-with ``"torch"`` for its ``"xla"``. ``sharded`` needs a mesh, which the
-engine does not take (ROADMAP queue 1 item 7): no bucket routes there, and
-a request that did would be refused at :meth:`MatFnEngine.submit` with
-``ValueError("unknown matmul backend ...")`` before anything is admitted.
+The sharded route. ``ROUTES`` keeps the reference's five names, with
+``"torch"`` for its ``"xla"``. Every rank of the mesh runs its own engine
+and Python, so every rank must issue the same collectives in the same
+order: in synchronous mode every rank submits the same requests in the
+same order and flushes, and a sharded answer is gathered on every rank
+(``DTensor.full_tensor``). A daemon's buckets depend on timing, so its
+ranks would not agree: :meth:`MatFnEngine.start` refuses a mesh of more
+than one rank (a 1x1 mesh serves in either mode).
 
 Device and streams — the rule. The engine computes on ONE device
 (``device=``, resolved by :func:`repro_torch.default_device`: ``cuda``
@@ -119,6 +125,8 @@ import torch
 
 from repro_torch import DTYPES, default_device, dtype_name
 from repro_torch.core.batched import batched_matpow
+from repro_torch.core.distributed import (ShardedMatmulChain, expm_sharded,
+                                          matpow_sharded)
 from repro_torch.core.expm import expm as _expm
 from repro_torch.core.markov import evolve_distributions, steady_state
 from repro_torch.kernels import _build, autotune
@@ -134,7 +142,7 @@ from repro_torch.serve.streams import (ExecutionStreams, StreamCrashed,
 
 __all__ = ["MatFnRequest", "MatFnEngine", "MatFnFuture",
            "BucketExecutionError", "ShedError", "bucket_batch",
-           "ExecutionStreams", "OPS", "ROUTES", "TRIGGERS", "NOT_PORTED"]
+           "ExecutionStreams", "OPS", "ROUTES", "TRIGGERS"]
 
 #: Ops the engine serves.
 OPS = ("matpow", "expm", "markov")
@@ -142,16 +150,11 @@ OPS = ("matpow", "expm", "markov")
 #: Dispatch routes a bucket can take (see :meth:`MatFnEngine.route_for`):
 #: the reference's five, ``"torch"`` standing for its ``"xla"``. ``torch``
 #: and ``chain`` answers are held to per-matrix calls under the dense
-#: ``error_budget``; ``fastmm`` (Strassen above the tuned crossover) under
-#: ``error_budget(levels=...)``; ``evolve`` serves markov distribution
+#: ``error_budget``; ``sharded`` (single matrices at n >= sharded_min_n on
+#: the engine's mesh) too; ``fastmm`` (Strassen above the tuned crossover)
+#: under ``error_budget(levels=...)``; ``evolve`` serves markov distribution
 #: evolution — (B, n) vector–matrix chains, a kernel shape of its own.
 ROUTES = ("torch", "chain", "sharded", "fastmm", "evolve")
-
-#: Routes the port does not serve yet, with the ROADMAP queue 1 item that
-#: brings each; ``submit`` refuses them.
-NOT_PORTED = {
-    "sharded": "ROADMAP queue 1 item 7 (the sharded chain)",
-}
 
 #: The concrete backend of each dense-square route (``core.matpow`` names).
 _BACKENDS = {"torch": "torch", "chain": "cuda_chain",
@@ -164,11 +167,6 @@ def _is_evolve(power) -> bool:
     buckets use the scalar -1 slot like expm)."""
     return isinstance(power, tuple) and len(power) == 3 \
         and power[0] == "evolve"
-
-
-def _not_ported(what: str) -> ValueError:
-    return ValueError(f"unknown matmul backend for {what!r}: not ported to "
-                      f"repro_torch yet ({NOT_PORTED[what]})")
 
 
 #: Flush triggers the daemon distinguishes in ``stats["flush_triggers"]``
@@ -446,6 +444,28 @@ def _evolve_members(pair, steps: int, backend: str) -> torch.Tensor:
                         for m, d in zip(mats.unbind(0), dists.unbind(0))])
 
 
+def _sharded_matpow(x: torch.Tensor, power: int, mesh) -> torch.Tensor:
+    """The one-matrix bucket of the sharded route: A^p on the mesh,
+    gathered into a plain tensor on every rank (``full_tensor`` is a
+    collective: every rank calls it)."""
+    return matpow_sharded(x[0], power, mesh).full_tensor()[None]
+
+
+def _sharded_expm(x: torch.Tensor, mesh) -> torch.Tensor:
+    return expm_sharded(x[0], mesh).full_tensor()[None]
+
+
+def _sharded_steady(x: torch.Tensor, chain) -> list:
+    """A mesh-resident steady state: the convergence loop squares on a
+    ``donate=False`` :class:`ShardedMatmulChain`, its residual a collective
+    every rank reads, so every rank stops at the same squaring. Every field
+    but the host-made ``squarings`` is a DTensor, gathered."""
+    res = steady_state(x[0], validate=False, chain=chain)
+    return [res._replace(pi=res.pi.full_tensor(),
+                         matrix=res.matrix.full_tensor(),
+                         residual=res.residual.full_tensor())]
+
+
 def bucket_batch(b: int, max_batch: int = 64) -> int:
     """Pad a batch of ``b`` requests up to the next power of two (capped at
     ``max_batch``): ceil-log2 bucketing bounds the callable cache at
@@ -490,7 +510,11 @@ class MatFnEngine:
       device: where the engine computes and its operands must lie:
         ``"cuda"`` by default (raises without a GPU), ``"cpu"`` for the
         plain PyTorch versions. It stands for the reference's
-        ``interpret=`` and ``mesh=`` (the sharded route is not ported).
+        ``interpret=``.
+      mesh: optional ``DeviceMesh`` (dims ``"data"`` and ``"model"``) over
+        ``device``'s type; with one, single matrices at ``n >=
+        sharded_min_n`` run the sharded chain (see the module docstring for
+        what a mesh of several ranks asks of the callers).
       max_batch: bucket-size cap; bigger groups split into chunks. In daemon
         mode also the fill trigger.
       profile: when True, each bucket's execution is wall-timed to device
@@ -523,7 +547,7 @@ class MatFnEngine:
         (``engine.metrics``) are always on.
     """
 
-    def __init__(self, *, device=None,
+    def __init__(self, *, device=None, mesh=None,
                  max_batch: int = 64, profile: bool = False,
                  thresholds: Optional[tuple] = None,
                  max_delay_ms: Optional[float] = None,
@@ -539,6 +563,10 @@ class MatFnEngine:
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
         self.device = device
+        if mesh is not None and mesh.device_type != device.type:
+            raise ValueError(f"the mesh is over {mesh.device_type!r} "
+                             f"devices; this engine computes on {device}")
+        self.mesh = mesh
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
         if max_delay_ms is not None and not max_delay_ms > 0:
@@ -676,10 +704,7 @@ class MatFnEngine:
         ``operand`` is a tensor on the engine's device or anything numpy
         accepts (copied to the device); the engine keeps its own copy, so
         writing into the caller's tensor afterwards does not change the
-        answer; so is ``dists``, under the same device rule. A request whose
-        route is not ported (``sharded``, which no bucket of this engine
-        takes) would raise ``ValueError("unknown matmul backend ...")`` here,
-        before anything is admitted.
+        answer; so is ``dists``, under the same device rule.
 
         ``priority`` names the admission lane: ``"bulk"`` (default) or
         ``"latency"`` — latency-lane buckets flush under the lane's SLO
@@ -707,10 +732,6 @@ class MatFnEngine:
             dists = self._own(dists)
         req = MatFnRequest(op, operand, power, dists,
                            ready=self._ready_event())
-        _, n, dtype, key_power = req.bucket_key()
-        route = self.route_for(n, 1, dtype, key_power)
-        if route in NOT_PORTED:
-            raise _not_ported(route)
         # Mode check under the lock: a concurrent start() must never see
         # _pending empty and then have a sync request appended behind its
         # back — that ticket could never resolve.
@@ -926,14 +947,16 @@ class MatFnEngine:
         always take ``"evolve"``: vector–matrix work has its own stream, so
         a distribution sweep never queues behind dense-square buckets
         (whether a member falls back to the dense power inside is the
-        ``markov`` threshold's call). Otherwise n <= ``cpu_max_n`` takes
-        ``"torch"``, n above the Strassen crossover ``"fastmm"``, the rest
-        the kernel ``"chain"``. The engine owns no mesh, so ``"sharded"``
-        never arises and the route does not depend on ``batch``."""
-        del batch
+        ``markov`` threshold's call). With a mesh, a single matrix (batch
+        1) at n >= ``sharded_min_n`` takes ``"sharded"``: the chain is 2-D
+        sharded per matrix, so batched buckets stay on the local routes.
+        Otherwise n <= ``cpu_max_n`` takes ``"torch"``, n above the
+        Strassen crossover ``"fastmm"``, the rest the kernel ``"chain"``."""
         if _is_evolve(power):
             return "evolve"
-        cpu_max_n, _sharded_min_n = self.thresholds_for(dtype)
+        cpu_max_n, sharded_min_n = self.thresholds_for(dtype)
+        if self.mesh is not None and batch == 1 and n >= sharded_min_n:
+            return "sharded"
         if n <= cpu_max_n:
             return "torch"
         if n > self.fastmm_crossover_for(dtype):
@@ -960,8 +983,19 @@ class MatFnEngine:
                 exe = functools.partial(
                     _evolve_members, steps=power[1],
                     backend="torch" if n <= cpu_max_n else "cuda_chain")
-            elif route not in _BACKENDS:
-                raise _not_ported(route)
+            elif route == "sharded":
+                # One matrix by construction; the chain drives its own
+                # collective steps and the answer is gathered on every rank.
+                if op == "markov":
+                    exe = functools.partial(
+                        _sharded_steady,
+                        chain=ShardedMatmulChain(n, DTYPES[dtype],
+                                                 self.mesh, donate=False))
+                elif op == "matpow":
+                    exe = functools.partial(_sharded_matpow, power=power,
+                                            mesh=self.mesh)
+                else:
+                    exe = functools.partial(_sharded_expm, mesh=self.mesh)
             elif op == "markov":
                 exe = functools.partial(_steady_members,
                                         backend=_BACKENDS[route])
@@ -1000,9 +1034,7 @@ class MatFnEngine:
             batches = range(1, self.max_batch + 1)
         power = power if op == "matpow" else -1
         route = self.route_for(n, 1, name)
-        if route in NOT_PORTED:
-            raise _not_ported(route)
-        if self._cuda and route in ("chain", "fastmm"):
+        if self._cuda and route in ("chain", "fastmm", "sharded"):
             _build.load()
         with self._cv:
             pool = self._pool
@@ -1064,7 +1096,7 @@ class MatFnEngine:
         """
         b = len(operands)
         route = self.route_for(n, b, dtype, power)
-        bpad = bucket_batch(b, self.max_batch)
+        bpad = 1 if route == "sharded" else bucket_batch(b, self.max_batch)
         clk = self._clock.now
         t0 = clk()
         if _is_evolve(power):
@@ -1162,8 +1194,15 @@ class MatFnEngine:
 
         Spawns the scheduler thread and the stream workers; from here
         ``submit`` returns futures and buckets flush on fill-or-deadline.
-        Idempotent while running; a closed engine cannot restart.
+        Idempotent while running; a closed engine cannot restart. A mesh of
+        more than one rank raises ``ValueError``: buckets form by timing,
+        so the ranks would not issue the same collectives.
         """
+        if self.mesh is not None and self.mesh.size() > 1:
+            raise ValueError(
+                f"daemon mode needs every rank to flush the same buckets, "
+                f"which timing does not give: a mesh of {self.mesh.size()} "
+                f"ranks serves through submit() and flush() only")
         with self._cv:
             if self._closed:
                 raise RuntimeError("engine is closed and cannot restart")

@@ -10,6 +10,7 @@ bit-identity across the two frameworks is not claimed — they sum in
 different orders and round bf16 at different places.
 """
 
+import contextlib
 import os
 import re
 import tempfile
@@ -95,6 +96,24 @@ def assert_bucket_answer(got: torch.Tensor, want: torch.Tensor,
         got.dtype, want.dtype, got.shape, want.shape)
     assert_close(got, want, str(want.dtype).removeprefix("torch."),
                  n=want.shape[-1], mults=mults)
+
+
+@contextlib.contextmanager
+def one_rank_mesh():
+    """A ``gloo`` process group of this process alone (a ``file://``
+    rendezvous in a temporary directory: no port to collide on) and its 1x1
+    ``("data", "model")`` CPU mesh; the group is destroyed on exit, so no
+    default group leaks into the next test."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("gloo", init_method=f"file://{tmp}/rdzv",
+                                rank=0, world_size=1)
+        try:
+            yield init_device_mesh("cpu", (1, 1),
+                                   mesh_dim_names=("data", "model"))
+        finally:
+            dist.destroy_process_group()
 
 
 def randn(shape, seed, scale=1.0) -> np.ndarray:

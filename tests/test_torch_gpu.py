@@ -1219,3 +1219,68 @@ class TestStrassenAndMarkov:
                                     validate=False)
         assert torch.allclose(got_evolve.double(), want, rtol=rtol,
                               atol=atol)
+
+
+class TestShardedChain:
+    """The sharded chain (``core.distributed``) on a 1x1 NCCL mesh of the
+    card: every local product is one K1 launch of the operand's dtype, and
+    nothing else runs (a 1x1 mesh sends nothing); the answer holds the
+    dense budget against the single-device chain."""
+
+    @pytest.fixture
+    def nccl_mesh(self, cuda):
+        import tempfile
+        import torch.distributed as dist
+        from torch.distributed.device_mesh import init_device_mesh
+        torch.cuda.set_device(0)   # before the mesh: NCCL's device
+        with tempfile.TemporaryDirectory() as tmp:
+            dist.init_process_group("nccl", init_method=f"file://{tmp}/rdzv",
+                                    rank=0, world_size=1,
+                                    device_id=torch.device("cuda", 0))
+            try:
+                yield init_device_mesh("cuda", (1, 1),
+                                       mesh_dim_names=("data", "model"))
+            finally:
+                dist.destroy_process_group()
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                       torch.float64],
+                             ids=lambda d: str(d).removeprefix("torch."))
+    @pytest.mark.parametrize("algorithm", ["gather", "cannon"])
+    def test_a96_launches_k1_seven_times(self, nccl_mesh, dtype, algorithm):
+        from repro_torch.core import matpow_sharded
+        n = 512
+        a = _power_operand(n, "cuda", 40).to(dtype)
+        K.reset_launches()
+        got = matpow_sharded(a, 96, nccl_mesh,
+                             algorithm=algorithm).full_tensor()
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in K.launch_counts().items() if v}
+        assert counts == {K.kernel_name("matmul", dtype): 7}
+        want = matpow_binary(a, 96, backend="cuda_chain")
+        rtol, atol = error_budget(dtype, n=n, mults=7)
+        assert got.dtype == dtype and got.shape == (n, n)
+        assert torch.allclose(got.double(), want.double(), rtol=rtol,
+                              atol=atol)
+
+    def test_a_cpu_tensor_is_refused(self, nccl_mesh):
+        from repro_torch.core import matpow_sharded
+        with pytest.raises(ValueError, match="cannot enter a mesh"):
+            matpow_sharded(torch.eye(64), 7, nccl_mesh)
+
+    def test_daemon_serves_the_sharded_route_on_its_stream(self, nccl_mesh):
+        """A 1x1 mesh serves in daemon mode: the sharded bucket runs on the
+        route's worker stream (K1 and the gather there) and its future
+        resolves after that stream's synchronisation."""
+        from repro_torch.serve import MatFnEngine
+        a = _power_operand(512, "cuda", 41)
+        with MatFnEngine(mesh=nccl_mesh, thresholds=(64, 512)) as eng:
+            K.reset_launches()
+            fut = eng.submit("matpow", a, power=96)
+            eng.kick()
+            got = fut.result(timeout=60)
+        assert eng.stats()["routes"]["sharded"] == 1
+        assert K.launch_counts()["matmul"] == 7
+        rtol, atol = error_budget(torch.float32, n=512, mults=7)
+        want = torch.linalg.matrix_power(a.double(), 96)
+        assert torch.allclose(got.double(), want, rtol=rtol, atol=atol)

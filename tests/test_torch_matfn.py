@@ -17,7 +17,9 @@ contracts:
   * dispatch thresholds from the tuning cache's ``dispatch`` namespace
     (tiny -> torch, mid -> chain, above the Strassen crossover -> fastmm),
     the ``markov`` op on its steady-state and ``evolve`` routes, and
-    ``sharded`` (no mesh) never taken;
+    ``sharded`` for single matrices at n >= sharded_min_n on an engine with
+    a mesh (an in-process 1x1 ``gloo`` mesh here; 2x2 meshes in
+    ``test_torch_distributed.py``);
   * the device rule (cuda by default, no quiet moves) and the engine's own
     copy of each operand.
 """
@@ -28,13 +30,15 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import assert_bucket_answer, matpow_mults, per_matrix
+from _torch_parity import (assert_bucket_answer, matpow_mults,
+                           one_rank_mesh, per_matrix)
 
 from repro_torch.core import (BatchedMatmulChain, batched_expm,
-                              batched_matpow, expm, matpow_binary)
+                              batched_matpow, expm, matpow_binary,
+                              steady_state)
 from repro_torch.kernels import autotune, error_budget, ops
-from repro_torch.serve.matfn import (NOT_PORTED, ROUTES, MatFnEngine,
-                                     MatFnRequest, bucket_batch)
+from repro_torch.serve.matfn import (ROUTES, MatFnEngine, MatFnRequest,
+                                     bucket_batch)
 from repro_torch.serve.scheduler import ManualClock
 
 CHAIN = "cuda_chain"
@@ -48,6 +52,12 @@ def tmp_cache(tmp_path, monkeypatch):
     autotune.clear_memory_cache()
     yield path
     autotune.clear_memory_cache()
+
+
+@pytest.fixture
+def mesh():
+    with one_rank_mesh() as m:
+        yield m
 
 
 def _stack(b, n, seed=0, dtype=torch.float32, scale=None):
@@ -339,9 +349,11 @@ class TestDeviceAndOwnership:
                 MatFnEngine()
 
     def test_reference_keywords_are_gone(self):
+        """``device=`` stands for ``interpret=``; ``mesh=`` is the
+        reference's own keyword (the sharded route)."""
         params = inspect.signature(MatFnEngine).parameters
-        assert "device" in params
-        assert "interpret" not in params and "mesh" not in params
+        assert "device" in params and "mesh" in params
+        assert "interpret" not in params
 
     def test_tensor_on_another_device_is_refused(self):
         eng = MatFnEngine(device="cpu")
@@ -400,34 +412,47 @@ class TestHeterogeneousDispatch:
         autotune.record_dispatch_thresholds(32, 2048)
         assert autotune.square_tiers() == autotune.DEFAULT_SQUARE_TIERS
 
-    def test_routing_table(self, tmp_cache):
+    def test_routing_table(self, tmp_cache, mesh):
         autotune.record_dispatch_thresholds(16, 256, backend="cpu")
-        eng = MatFnEngine(device="cpu")
+        eng = MatFnEngine(device="cpu", mesh=mesh)
         assert eng.route_for(8, 4) == "torch"        # tiny -> cuBLAS / CPU
         assert eng.route_for(16, 1) == "torch"
         assert eng.route_for(64, 4) == "chain"       # mid -> kernel chain
-        assert eng.route_for(256, 1) == "chain"      # no mesh -> no sharding
-        assert eng.route_for(1024, 1) == "chain"
-        assert eng.route_for(1025, 1) == "fastmm"    # above the crossover
+        assert eng.route_for(256, 1) == "sharded"    # huge single -> mesh
+        assert eng.route_for(256, 2) == "chain"      # huge BATCH stays local
+        assert eng.route_for(8, 7, power=("evolve", 7, 3)) == "evolve"
+        no_mesh = MatFnEngine(device="cpu")
+        assert no_mesh.route_for(256, 1) == "chain"  # no mesh -> no sharding
+        assert no_mesh.route_for(1024, 1) == "chain"
+        assert no_mesh.route_for(1025, 1) == "fastmm"  # above the crossover
 
-    def test_sharded_route_end_to_end(self, tmp_cache):
-        """The sharded route needs a mesh, which the port's engine does not
-        take: no bucket ever routes there, and a callable for it is
-        refused naming the ROADMAP item."""
+    def test_sharded_route_end_to_end(self, tmp_cache, mesh):
+        """A huge single matrix runs the sharded chain (a 1x1 mesh on the
+        CPU) for matpow, expm and a markov steady state; each answer is
+        gathered into a plain tensor, within ``error_budget`` of the
+        per-matrix call."""
         autotune.record_dispatch_thresholds(8, 32, backend="cpu")
-        eng = MatFnEngine(device="cpu")
-        assert {eng.route_for(n, 1) for n in (8, 48, 512)} == \
-            {"torch", "chain"}
+        eng = MatFnEngine(device="cpu", mesh=mesh)
         a = _stack(1, 48, seed=7)[0]
         got = eng.matpow(a, 7)
-        assert eng.stats["routes"]["sharded"] == 0
-        assert eng.stats["routes"]["chain"] == 1
+        assert eng.stats["routes"]["sharded"] == 1
+        assert type(got) is torch.Tensor and got.shape == (48, 48)
         np.testing.assert_allclose(got.numpy(), _ref_pow(a, 7),
                                    rtol=2e-3, atol=1e-5)
-        with pytest.raises(ValueError, match="unknown matmul backend.*"
-                           "item 7"):
-            eng._executable("matpow", "sharded", 1, 48, "float32", 7)
-        assert "item 7" in NOT_PORTED["sharded"]
+        assert_bucket_answer(eng.expm(a), expm(a))
+        p = torch.rand(40, 40, generator=torch.Generator().manual_seed(3))
+        p = (p + 0.05) / (p + 0.05).sum(dim=1, keepdim=True)
+        res = eng.steady_state(p)
+        want = steady_state(p)
+        assert int(res.squarings) == int(want.squarings)
+        assert_bucket_answer(res.matrix, want.matrix)
+        assert_bucket_answer(res.pi, want.pi)
+        assert eng.stats["routes"]["sharded"] == 3
+        # a batch of two stays on the local routes
+        eng.submit("matpow", a, power=7)
+        eng.submit("matpow", a, power=7)
+        eng.flush()
+        assert eng.stats["routes"]["sharded"] == 3
 
     def test_explicit_thresholds_override_cache(self, tmp_cache):
         autotune.record_dispatch_thresholds(16, 256, backend="cpu")

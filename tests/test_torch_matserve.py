@@ -71,7 +71,8 @@ class TestDaemonMode:
 
 class TestVerify:
     def test_a_wrong_answer_is_a_miss(self):
-        work = matserve.make_workload(3, [16], [7], 0.0, seed=1)
+        work = matserve.make_workload(3, [16], [7], 0.0, seed=1,
+                                      device="cpu")
         good = [torch.linalg.matrix_power(a, 7) for _, a, _ in work]
         assert matserve.verify(work, good)[1] == 0
         bad = list(good)
@@ -79,7 +80,8 @@ class TestVerify:
         assert matserve.verify(work, bad)[1] == 1
 
     def test_shed_requests_are_skipped(self):
-        work = matserve.make_workload(2, [8], [3], 0.0, seed=2)
+        work = matserve.make_workload(2, [8], [3], 0.0, seed=2,
+                                      device="cpu")
         shed = ShedError("bulk", 1, 1, "reject-newest", ("matpow", 8,
                                                          "float32", 3))
         results = [torch.linalg.matrix_power(work[0][1], 3), shed]
@@ -93,6 +95,17 @@ class TestDifferencesFromTheReference:
             pytest.skip("this machine has a GPU")
         with pytest.raises(RuntimeError, match="device='cpu'"):
             matserve.main(["--requests", "2", "--sizes", "8"])
+
+    def test_make_workload_defaults_to_the_gpu(self):
+        """Like every entry point, the workload's operands go to the card
+        unless the caller names a device, and there is no quiet CPU
+        default when there is no card."""
+        if torch.cuda.device_count():
+            work = matserve.make_workload(2, [8], [3], 0.0, seed=4)
+            assert all(a.device.type == "cuda" for _, a, _ in work)
+        else:
+            with pytest.raises(RuntimeError, match="CUDA"):
+                matserve.make_workload(2, [8], [3], 0.0, seed=4)
 
     @pytest.mark.parametrize("daemon", [[], ["--daemon", "--rate", "2000"]],
                              ids=["batch", "daemon"])
@@ -115,6 +128,7 @@ class TestDifferencesFromTheReference:
         ``--evolve-batch`` the distributions of each; served and verified."""
         args = matserve.parser().parse_args(["--markov-frac", "1.0", *flag])
         work = matserve.make_workload(12, [8, 16], [3, 5], 0.0, seed=3,
+                                      device="cpu",
                                       markov_frac=1.0,
                                       evolve_frac=args.evolve_frac,
                                       evolve_batch=args.evolve_batch)

@@ -179,6 +179,23 @@ class TestMatmulWrapper:
         with pytest.raises(ValueError, match="unsupported batch ranks"):
             ops.matmul(torch.zeros(2, 4, 4), torch.zeros(3, 4, 4))
 
+    @pytest.mark.parametrize("n,out_dtype", [(64, torch.float32),
+                                             (67, torch.float32),
+                                             (64, torch.float64)],
+                             ids=["kernel-writes-out", "padded-copy",
+                                  "other-dtype"])
+    def test_out_receives_the_result(self, n, out_dtype):
+        """``out=``: written directly where no padding is needed (the
+        sharded chain's ping-pong blocks), else the stripped result is
+        copied in; either way ``out`` is returned, equal to the plain
+        call."""
+        a = torch.from_numpy(randn((n, n), 8, 0.2))
+        b = torch.from_numpy(randn((n, n), 9, 0.2))
+        out = torch.full((n, n), float("nan"), dtype=out_dtype)
+        got = ops.matmul(a, b, out_dtype=out_dtype, out=out)
+        assert got is out
+        assert torch.equal(got, ops.matmul(a, b, out_dtype=out_dtype))
+
 
 class TestSquareWrapper:
     @pytest.mark.parametrize("n", [96, 200])

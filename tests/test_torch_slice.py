@@ -152,7 +152,8 @@ class TestNoJax:
                 "kernels/ref.py", "kernels/fastmm.py",
                 "kernels/attention.py", "kernels/autotune.py",
                 "core/__init__.py", "core/matpow.py", "core/batched.py",
-                "core/expm.py", "core/markov.py", "runtime/__init__.py",
+                "core/expm.py", "core/markov.py", "core/distributed.py",
+                "runtime/__init__.py",
                 "runtime/fault.py",
                 "runtime/telemetry.py", "serve/__init__.py",
                 "serve/admission.py", "serve/scheduler.py",
@@ -179,6 +180,23 @@ class TestNoJax:
         code = (f"import sys, importlib\nimportlib.import_module({module!r})"
                 f"\nbad = sorted(m for m in sys.modules if m.split('.')[0] "
                 f"in {FORBIDDEN!r})\nassert not bad, bad\n")
+        done = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                              env={"PYTHONPATH": str(ROOT / "src"),
+                                   "PATH": "/usr/bin:/bin"},
+                              capture_output=True, text=True, timeout=120)
+        assert done.returncode == 0, done.stderr
+
+    def test_the_guards_cover_the_sharded_chain(self):
+        """``core/distributed.py`` is walked by the AST guard, and a fresh
+        interpreter imports it without jax or the reference — and without
+        ``torch.distributed.tensor``, which it imports only where a
+        function needs it (importing it takes over a second)."""
+        path = PKG / "core" / "distributed.py"
+        assert path in self.FILES
+        code = ("import sys\nimport repro_torch.core.distributed\n"
+                f"bad = sorted(m for m in sys.modules if m.split('.')[0] "
+                f"in {FORBIDDEN!r})\nassert not bad, bad\n"
+                "assert 'torch.distributed.tensor' not in sys.modules\n")
         done = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                               env={"PYTHONPATH": str(ROOT / "src"),
                                    "PATH": "/usr/bin:/bin"},
