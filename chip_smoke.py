@@ -31,7 +31,12 @@ serving engine with matpow, expm, markov and evolve traffic on its
 and the sharded chain (``core.distributed``: ``matpow_sharded`` at n = 4096
 in f32, bf16 and f64 with each schedule, ``expm_sharded``, the engine's
 ``sharded`` route) on a world-1 NCCL group's 1x1 mesh, every local
-product a K1 launch.
+product a K1 launch; and the LM serving path (``serve.engine.generate`` for
+Qwen3-1.7B and Mamba2-130m at full width and depth and the other eight
+configs at published widths, every projection a K1 launch, counted per
+prefill and per decode step; K1 at the LM's shapes against its plain
+version; a 2-layer Qwen3-1.7B on the card against the CPU; Mixtral's ring
+cache).
 Each phase prints one JSON line; any
 failure raises and the script exits non-zero without the final
 ``"ok": true`` line. It needs a CUDA device and ``nvcc``; it imports
@@ -83,7 +88,11 @@ from repro_torch.kernels import (_build, autotune, error_budget,  # noqa: E402
                                  fastmm, ops, ref)
 from repro_torch.kernels import attention_kernels as A  # noqa: E402
 from repro_torch.kernels import matmul_kernels as K  # noqa: E402
+from repro_torch import configs  # noqa: E402
+from repro_torch import models as models_lib  # noqa: E402
 from repro_torch.launch import matserve  # noqa: E402
+from repro_torch.models import model as model_lib  # noqa: E402
+from repro_torch.serve import engine as serve_engine  # noqa: E402
 from repro_torch.serve import (ExecutionStreams, ManualClock,  # noqa: E402
                                MatFnEngine)
 
@@ -1852,6 +1861,352 @@ def phase_sharded() -> None:
          engine=engine, seconds=round(time.perf_counter() - t0, 1))
 
 
+# ---------------------------------------------------------------------------
+# Phase lm: the LM serving path (every projection a K1 launch)
+# ---------------------------------------------------------------------------
+
+#: The published configs served at cut depth (the rest at full depth), so
+#: that fp32 masters plus their bf16 copy fit the card's 80 GB.
+LM_DEPTHS = {"mixtral-8x7b": 2, "llava-next-mistral-7b": 2,
+             "starcoder2-15b": 2, "granite-34b": 2, "qwen1.5-110b": 1,
+             "grok-1-314b": 1}
+LM_OTHERS = ("zamba2-1.2b", "whisper-base", "mixtral-8x7b",
+             "llava-next-mistral-7b", "starcoder2-15b", "granite-34b",
+             "qwen1.5-110b", "grok-1-314b")
+
+
+def lm_cut(cfg):
+    """``cfg`` at the depth phase lm serves it (``LM_DEPTHS``)."""
+    depth = LM_DEPTHS.get(cfg.name)
+    return cfg if depth is None else cfg.replace(n_layers=depth)
+
+
+def lm_k1_per_call(cfg, prefill: bool) -> int:
+    """K1 launches one prefill (or one decode step) of ``cfg`` makes: one
+    per projection, per MoE router and per expert product; the encoder and
+    the cross K/V projections in the prefill only."""
+    if cfg.n_experts:
+        ffn = 1 + 3 * cfg.n_experts
+    else:
+        ffn = {"swiglu": 3, "plain": 2}[cfg.mlp_type] if cfg.d_ff else 0
+    attn = 4 + ffn
+    if cfg.layer_pattern:
+        n_m_per = sum(k == "m" for k in cfg.layer_pattern)
+        return (cfg.n_pattern_repeats * (2 * n_m_per + attn)
+                + 2 * cfg.n_tail_layers)
+    if cfg.family == "ssm":
+        return 2 * cfg.n_layers
+    per_layer = attn + ((4 if prefill else 2) if cfg.cross_attention else 0)
+    enc = cfg.encoder_layers * attn if prefill else 0
+    return cfg.n_layers * per_layer + enc
+
+
+def lm_inputs(cfg, batch, prompt_len, seed):
+    """Prompt tokens and the stub frontend inputs, on the card."""
+    gen = torch.Generator("cuda").manual_seed(seed)
+    cdt = repro_torch.DTYPES[cfg.compute_dtype]
+    toks = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                         generator=gen, device="cuda")
+    kw = {}
+    if cfg.family == "audio":
+        kw["frames"] = (torch.randn((batch, cfg.encoder_seq, cfg.d_model),
+                                    generator=gen, device="cuda")
+                        * 0.1).to(cdt)
+    if cfg.family == "vlm":
+        kw["vision_embeds"] = (torch.randn(
+            (batch, cfg.n_vision_tokens, cfg.d_model), generator=gen,
+            device="cuda") * 0.1).to(cdt)
+    return toks, kw
+
+
+def lm_only_k1(delta, want, what) -> None:
+    """``delta`` (a launch-count change) is exactly ``want`` K1 launches of
+    the bf16 kernel: no plain version, no other kernel."""
+    if delta != {"matmul_tc": want}:
+        raise AssertionError(f"{what}: launches {delta}, expected "
+                             f"{{'matmul_tc': {want}}}")
+
+
+def lm_serve(cfg, params, *, batch, prompt_len, new_tokens, seed):
+    """The main path at one config: ``generate`` twice (first and second
+    call), every K1 launch counted: exactly the config's count per prefill
+    and per decode step, nothing else. Then the engine's ``prefill`` and
+    decode function, each call timed alone (host clock ending in a
+    synchronise; the decode steps back to back, one synchronise at the
+    end), its launches read from the host counters and its logits held
+    finite."""
+    cfg = serve_engine.serve_config(cfg)
+    toks, kw = lm_inputs(cfg, batch, prompt_len, seed)
+    prefix = kw["vision_embeds"].shape[1] if "vision_embeds" in kw else 0
+    cache_len = prefix + prompt_len + new_tokens
+    per_prefill = lm_k1_per_call(cfg, True)
+    per_step = lm_k1_per_call(cfg, False)
+    want = per_prefill + (new_tokens - 1) * per_step
+    dec = serve_engine.make_decode_fn(cfg)
+    calls = []
+    for call in ("first", "second"):
+        K.reset_launches()
+        A.reset_launches()
+        row = {"call": call}
+        out, row["generate_ms"] = wall_ms_once(lambda: serve_engine.generate(
+            cfg, params, toks, max_new_tokens=new_tokens, **kw))
+        lm_only_k1(lm_moved(), want, f"{cfg.name} generate ({call} call)")
+        if out.shape != (batch, new_tokens) or out.min() < 0 \
+                or out.max() >= cfg.vocab_size:
+            raise AssertionError(f"{cfg.name}: generated {tuple(out.shape)} "
+                                 f"tokens in [{out.min()}, {out.max()}]")
+        row["tokens_per_s"] = batch * new_tokens / row["generate_ms"] * 1e3
+
+        K.reset_launches()
+        (logits, cache), row["prefill_ms"] = wall_ms_once(
+            lambda: serve_engine.prefill(cfg, params, toks,
+                                         cache_len=cache_len, **kw))
+        lm_only_k1(lm_moved(), per_prefill, f"{cfg.name} prefill")
+        finite = torch.isfinite(logits).all()
+        cast = model_lib._cast_params(cfg, params)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(new_tokens - 1):
+            tok = logits[:, -1].argmax(-1)[:, None]
+            K.reset_launches()
+            logits, cache = dec(cast, tok, cache)
+            lm_only_k1(lm_moved(), per_step, f"{cfg.name} decode step")
+            finite &= torch.isfinite(logits).all()
+        torch.cuda.synchronize()
+        row["ms_per_decode_step"] = (time.perf_counter() - t0) * 1e3 \
+            / (new_tokens - 1)
+        if not finite:
+            raise AssertionError(f"{cfg.name}: non-finite logits")
+        del cast
+        calls.append(row)
+    return {"batch": batch, "prompt": prompt_len, "prefix": prefix,
+            "new_tokens": new_tokens, "k1_per_prefill": per_prefill,
+            "k1_per_step": per_step, "k1_launches": 2 * want,
+            "calls": calls}
+
+
+def lm_moved() -> dict:
+    """Every launch counter (K1–K3 and K5, kernels and plain versions) that
+    is not 0."""
+    moved = {k: v for k, v in K.launch_counts().items() if v}
+    moved.update({k: v for k, v in A.launch_counts().items() if v})
+    return moved
+
+
+def wall_ms_once(fn):
+    """(``fn()``, its host ms ending in a synchronise)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def lm_memory_gb(cfg) -> float:
+    """fp32 masters plus their bf16 copy, GB."""
+    return cfg.n_params() * 6 / 1e9
+
+
+def lm_model(cfg, seed):
+    """Random weights for ``cfg`` on the card from a seeded generator."""
+    total = torch.cuda.get_device_properties(0).total_memory / 1e9
+    if lm_memory_gb(cfg) > 0.9 * total:
+        raise AssertionError(f"{cfg.name} at depth {cfg.n_layers}: "
+                             f"{lm_memory_gb(cfg):.1f} GB of weights on a "
+                             f"{total:.1f} GB card")
+    return models_lib.init_params(
+        cfg, torch.Generator("cuda").manual_seed(seed))
+
+
+def lm_free() -> None:
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def lm_card_vs_cpu(cfg, params, seed) -> dict:
+    """The same 2-layer weights on the card (K1) and on the CPU (the plain
+    versions): the prefill's last-token logits and 4 teacher-forced decode
+    steps within ``DENSE_BUDGET["bfloat16"]``."""
+    cfg = serve_engine.serve_config(cfg)
+    toks, _ = lm_inputs(cfg, 2, 68, seed)
+
+    def run(p, t):
+        logits, cache = serve_engine.prefill(cfg, p, t[:, :64],
+                                             cache_len=68)
+        outs = [logits[:, 0]]
+        dec = serve_engine.make_decode_fn(cfg)
+        for i in range(64, 68):
+            logits, cache = dec(p, t[:, i:i + 1], cache)
+            outs.append(logits[:, 0])
+        return torch.stack(outs, 1).float().cpu()
+
+    card = run(params, toks)
+    host = run(model_lib._map(lambda x: x.cpu(), params), toks.cpu())
+    rtol, atol = fastmm.DENSE_BUDGET["bfloat16"]
+    err = (card.double() - host.double()).abs()
+    ok = torch.allclose(card.double(), host.double(), rtol=rtol, atol=atol)
+    if not ok or not torch.isfinite(card).all():
+        raise AssertionError(f"{cfg.name} card vs CPU: max abs err "
+                             f"{err.max().item():.3e} outside rtol={rtol} "
+                             f"atol={atol}")
+    return {"layers": cfg.n_layers, "batch": 2, "prompt": 64,
+            "decode_steps": 4, "max_abs_err": err.max().item(),
+            "peak": host.abs().max().item(), "rtol": rtol, "atol": atol}
+
+
+def lm_ring_check(seed) -> dict:
+    """Mixtral-8x7B at depth 2 with a prompt of window + 4 tokens: four
+    teacher-forced decode steps from the prefill's ring cache against the
+    model's own forward, within ``DENSE_BUDGET["bfloat16"]``; beside it the
+    same steps from the reference's cache layout (no roll)."""
+    cfg = serve_engine.serve_config(lm_cut(configs.get_config(
+        "mixtral-8x7b")))
+    w = cfg.sliding_window
+    s0 = w + 4
+    params = lm_model(cfg, seed)
+    toks, _ = lm_inputs(cfg, 1, s0 + 4, seed + 1)
+    rtol, atol = fastmm.DENSE_BUDGET["bfloat16"]
+    with torch.inference_mode():
+        cast = model_lib._cast_params(cfg, params)
+        full = models_lib.unembed(cfg, cast, models_lib.forward(
+            cfg, cast, toks)["x"][:, s0:])
+        _, cache = serve_engine.prefill(cfg, params, toks[:, :s0],
+                                        cache_len=s0 + 4)
+        old = dict(cache)
+        for key in ("k", "v"):
+            old[key] = torch.roll(cache[key], -(s0 % w), dims=2)
+        errs = {}
+        for name, c in (("ring", cache), ("reference_layout", old)):
+            worst = 0.0
+            for i in range(4):
+                logits, c = models_lib.decode_step(
+                    cfg, cast, toks[:, s0 + i:s0 + i + 1], c)
+                worst = max(worst, (logits[:, 0].double()
+                                    - full[:, i].double()).abs().max().item())
+            errs[name] = worst
+    peak = full.abs().max().item()
+    if not errs["ring"] <= atol + rtol * peak:
+        raise AssertionError(f"mixtral ring cache: decode vs forward "
+                             f"{errs['ring']:.3e} outside the bf16 budget")
+    del params, cast
+    lm_free()
+    return {"layers": cfg.n_layers, "window": w, "prompt": s0,
+            "decode_steps": 4, "max_abs_err": errs["ring"],
+            "reference_layout_max_abs_err": errs["reference_layout"],
+            "peak": peak}
+
+
+#: K1 at the LM's shapes, bf16 (name, M, K, N): Qwen3-1.7B's projections
+#: at decode (M = batch 4) and prefill (M = 4 x 512), Mamba2-130m's ``w_in``
+#: (N = 3352, not a tile multiple).
+LM_DENSE = (("qwen3 wq decode", 4, 2048, 2048),
+            ("qwen3 w_gate decode", 4, 2048, 6144),
+            ("qwen3 w_down decode", 4, 6144, 2048),
+            ("mamba2 w_in decode", 4, 768, 3352),
+            ("qwen3 w_gate prefill", 2048, 2048, 6144),
+            ("mamba2 w_in prefill", 2048, 768, 3352))
+
+
+def lm_dense_rows() -> list:
+    """``ops.dense_matmul`` at the LM's shapes: K1 on operands padded once
+    (``kernel_case``: held to its plain version, timed beside it and
+    ``torch.matmul``), then the whole call, whose per-call padding of the
+    activation (M up to K1's tile) and of a weight whose N or K is not a
+    tile multiple is the difference; bound for the unpadded problem."""
+    rows = []
+    for i, (name, m, k, n) in enumerate(LM_DENSE):
+        x = randn((m, k), torch.bfloat16, 2440 + i)
+        w = randn((k, n), torch.bfloat16, 2450 + i)
+        bm, bn, bk = ops.pick_blocks(m, n, k, dtype=torch.bfloat16,
+                                     backend="cuda")
+        row = kernel_case("matmul", torch.bfloat16,
+                          (ops.pad_to_blocks(x, bm, bk),
+                           ops.pad_to_blocks(w, bk, bn)),
+                          (bm, bn, bk), timed=True, rows=[])
+        b_ms, b_by = bound(2.0 * m * n * k, 2.0 * (m * k + k * n + m * n),
+                           torch.bfloat16)
+        got = ops.dense_matmul(x, w)
+        check_kernel(got, K.matmul_plain(
+            ops.pad_to_blocks(x, bm, bk), ops.pad_to_blocks(w, bk, bn),
+            block_m=bm, block_n=bn, block_k=bk)[:m, :n], torch.bfloat16,
+            what=f"dense_matmul {name}")
+        rows.append({"case": name, "m": m, "k": k, "n": n,
+                     "blocks": [bm, bn, bk],
+                     "padded": [-(-m // bm) * bm, -(-k // bk) * bk,
+                                -(-n // bn) * bn],
+                     "kernel_ms": row["ms"], "plain_ms": row["plain_ms"],
+                     "library_ms": row["library_ms"],
+                     "dense_matmul_ms": time_ms(lambda: ops.dense_matmul(x,
+                                                                         w)),
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "max_abs_err": row["max_abs_err"]})
+    return rows
+
+
+def phase_lm() -> dict:
+    """The LM serving path: Qwen3-1.7B at full width and depth (batch 4,
+    a 512-token prompt, 32 new tokens, greedy), its 2-layer cut on the card
+    against the CPU, Mamba2-130m at full width and depth, the other eight
+    configs at their published widths (2 x 128 prompt, 4 new tokens; the
+    depths of ``LM_DEPTHS``), and the ring-cache check; first K1 at the
+    LM's shapes (``lm_dense_rows``). Every projection is a K1 launch; the
+    counts of the served runs are returned."""
+    t0 = time.perf_counter()
+    emit("lm_dense", rows=lm_dense_rows())
+    totals = collections.Counter()
+    rows = []
+    qwen = configs.get_config("qwen3-1.7b")
+    params = lm_model(qwen, 2400)
+    served = lm_serve(qwen, params, batch=4, prompt_len=512, new_tokens=32,
+                      seed=2401)
+    totals["matmul_tc"] += served["k1_launches"]
+    rows.append({"arch": qwen.name, "layers": qwen.n_layers,
+                 "params": qwen.n_params(), **served})
+    del params
+    lm_free()
+    emit("lm", **rows[-1])
+
+    cut = qwen.replace(n_layers=2)
+    params = lm_model(cut, 2402)
+    vs_cpu = lm_card_vs_cpu(cut, params, 2403)
+    del params
+    lm_free()
+    emit("lm", arch=qwen.name, card_vs_cpu=vs_cpu)
+
+    mamba = configs.get_config("mamba2-130m")
+    params = lm_model(mamba, 2404)
+    served = lm_serve(mamba, params, batch=4, prompt_len=512,
+                      new_tokens=32, seed=2405)
+    totals["matmul_tc"] += served["k1_launches"]
+    rows.append({"arch": mamba.name, "layers": mamba.n_layers,
+                 "params": mamba.n_params(), **served})
+    del params
+    lm_free()
+    emit("lm", **rows[-1])
+
+    for i, name in enumerate(LM_OTHERS):
+        cfg = lm_cut(configs.get_config(name))
+        params = lm_model(cfg, 2410 + i)
+        served = lm_serve(cfg, params, batch=2, prompt_len=128,
+                          new_tokens=4, seed=2420 + i)
+        totals["matmul_tc"] += served["k1_launches"]
+        rows.append({"arch": name, "layers": cfg.n_layers,
+                     "published_layers": configs.get_config(name).n_layers,
+                     "params": cfg.n_params(),
+                     "weights_gb": lm_memory_gb(cfg),
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     **served})
+        del params
+        lm_free()
+        torch.cuda.reset_peak_memory_stats()
+        emit("lm", **rows[-1])
+
+    ring = lm_ring_check(2430)
+    emit("lm", arch="mixtral-8x7b", ring_cache=ring,
+         seconds=round(time.perf_counter() - t0, 1))
+    return dict(totals)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device: torch.cuda.is_available() "
@@ -1884,11 +2239,14 @@ def main() -> int:
                                              1))
         attn_counts, attn_timed = phase_attention()
         phase_tuning()
+        lm_counts = phase_lm()
         torch.cuda.synchronize()
     finally:
         shutil.rmtree(cache_dir, ignore_errors=True)
 
     counts = {**counts, **attn_counts}
+    for name, n in lm_counts.items():
+        counts[name] += n
     timed = {**timed, **attn_timed}
     kernels = []
     for name, label in KERNEL_ROWS:

@@ -3,12 +3,14 @@
 Same sub-packages and module names as the JAX reference, so the
 counterpart of a reference file is found by name: ``kernels`` (the
 hand-written CUDA kernels, their wrappers, the Strassen recursion over
-them, the tuning cache), ``core`` (the matrix-power chains, ``expm`` and the
-Markov-chain workloads), ``serve`` (the matrix-function serving engine, its
-``torch`` / ``chain`` / ``fastmm`` / ``evolve`` routes and its admission,
-scheduling and stream layers), ``runtime``
-(telemetry and fault handling) and ``launch`` (the ``matserve`` driver). The
-port imports ``torch`` only — never ``jax`` and nothing of ``repro``.
+them, the tuning cache), ``core`` (the matrix-power chains, ``expm``, the
+Markov-chain workloads and the prefix scan), ``configs`` and ``models``
+(the ten LM architectures), ``serve`` (the LM engine, and the
+matrix-function serving engine with its ``torch`` / ``chain`` / ``fastmm``
+/ ``evolve`` routes and its admission, scheduling and stream layers),
+``runtime`` (telemetry and fault handling) and ``launch`` (the ``matserve``
+and ``serve`` drivers). The port imports ``torch`` only — never ``jax`` and
+nothing of ``repro``.
 
 Device rule. A function that takes tensors computes on the device those
 tensors lie on: on a CUDA tensor the kernel wrappers launch the hand-written

@@ -1,9 +1,11 @@
-"""Carrying operands and results between the reference and the port.
+"""Carrying operands, results and weights between the reference and the port.
 
-The system has no weights; what crosses the framework boundary is operands
-and results, as numpy arrays (``np.asarray(jax_array)`` on the reference's
-side). ``from_reference`` takes such an array to a tensor on the port's
-device, ``to_numpy`` brings a tensor back.
+What crosses the framework boundary is numpy arrays (``np.asarray(
+jax_array)`` on the reference's side). ``from_reference`` takes such an
+array to a tensor on the port's device, ``to_numpy`` brings a tensor back,
+and ``params_from_reference`` carries an LM's whole parameter tree:
+
+    lm = models.LM(cfg, params_from_reference(ref_params, device="cpu"))
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ import torch
 
 from repro_torch import default_device
 
-__all__ = ["from_reference", "to_numpy"]
+__all__ = ["from_reference", "to_numpy", "params_from_reference"]
 
 
 def from_reference(array, *, device=None, dtype=None) -> torch.Tensor:
@@ -44,3 +46,15 @@ def to_numpy(tensor: torch.Tensor) -> np.ndarray:
     if t.dtype == torch.bfloat16:
         t = t.to(torch.float32)
     return t.numpy()
+
+
+def params_from_reference(params, *, device=None, dtype=None):
+    """The port's parameter tree for the reference's: nested dicts with the
+    same keys, each leaf through :func:`from_reference` (``np.asarray`` of
+    a jax array, or a numpy array) onto ``device``, converted to ``dtype``
+    when given. Pass the result to the model functions, or to
+    ``repro_torch.models.LM(cfg, params=...)``."""
+    if isinstance(params, dict):
+        return {k: params_from_reference(v, device=device, dtype=dtype)
+                for k, v in params.items()}
+    return from_reference(params, device=device, dtype=dtype)

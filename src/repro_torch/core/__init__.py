@@ -4,8 +4,8 @@ Matrix exponentiation by squaring (O(N) -> O(log N) multiplies), its
 data-driven-power and stacked forms, the scaling-and-squaring matrix
 exponential built on it, the Markov-chain workloads (steady state,
 distribution evolution), and the sharded chain over a ``torch.distributed``
-device mesh. (The prefix scan of the reference's ``repro.core`` is ported
-with the LM substrate.)
+device mesh, and the log-depth prefix scan the SSM blocks of the LM
+substrate run on (``scan``).
 """
 
 from repro_torch.core.matpow import (
@@ -28,6 +28,7 @@ from repro_torch.core.markov import (
     evolve_distributions,
     SteadyStateResult,
 )
+from repro_torch.core.scan import prefix_scan, prefix_products, decay_prefix
 from repro_torch.core.distributed import (
     matmul_2d_gather,
     matmul_cannon,
@@ -45,4 +46,5 @@ __all__ = [
     "evolve_distributions", "SteadyStateResult",
     "matmul_2d_gather", "matmul_cannon", "sharded_matmul",
     "ShardedMatmulChain", "matpow_sharded", "expm_sharded",
+    "prefix_scan", "prefix_products", "decay_prefix",
 ]

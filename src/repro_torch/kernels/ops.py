@@ -16,8 +16,8 @@ The port of the dense half of the reference's ``repro/kernels/ops.py``.
                   recursion over K1 leaves (``kernels.fastmm``).
 ``dense_matmul`` — ``(..., K) @ (K, N)`` through K1 with the tuning cache's
                   tiles for the flattened problem (the Markov route's
-                  vector–matrix products; the model layers' projections
-                  later).
+                  vector–matrix products; every projection and MoE expert
+                  product of the LM, ``models.layers.dense``).
 ``attention``   — flash attention (K5) with the same device rule: the plain
                   version on a CPU tensor, the kernel on a CUDA tensor.
 ``pick_blocks`` — matmul tile selection: the persistent tuning cache first
@@ -500,15 +500,15 @@ def dense_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     stripped. ``x`` and ``w`` share one dtype.
 
     Forward only: the reference's custom VJP (``_dense_2d``) is ported with
-    the model layers (ROADMAP queue 1 item 8). Until then a call under grad
-    mode with an input that requires a gradient raises
+    the LM's training half (ROADMAP queue 1 item 8). Until then a call
+    under grad mode with an input that requires a gradient raises
     ``NotImplementedError`` rather than return an output with no gradient
     path.
     """
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         raise NotImplementedError(
             "dense_matmul has no backward in repro_torch yet (ROADMAP "
-            "queue 1 item 8, the LM substrate); call it under "
+            "queue 1 item 8, the LM's training half); call it under "
             "torch.no_grad() or on tensors that do not require grad")
     if w.ndim != 2 or x.ndim < 1 or x.shape[-1] != w.shape[0]:
         raise ValueError(f"dense_matmul needs (..., K) @ (K, N), got "

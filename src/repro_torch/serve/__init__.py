@@ -1,5 +1,7 @@
 """repro_torch.serve — serving layer.
 
+``engine``    — batched LM prefill/decode over the model stack
+                (``prefill``, ``generate``).
 ``matfn``     — the matrix-function serving engine: request bucketing,
                 batched squaring chains, heterogeneous dispatch, and the
                 continuous-batching daemon (``MatFnEngine.start()``).
@@ -11,10 +13,11 @@
 ``streams``   — the daemon's per-route execution streams (one
                 ``torch.cuda.Stream`` per worker on a CUDA engine).
 
-The reference's ``engine`` (batched LM prefill/decode) comes with the LM
-substrate. Telemetry lives in :mod:`repro_torch.runtime.telemetry`.
+Telemetry lives in :mod:`repro_torch.runtime.telemetry`.
 """
 
+from repro_torch.serve.engine import (generate, init_cache,
+                                      make_decode_fn, prefill, serve_config)
 from repro_torch.serve.admission import (LANES, POLICIES, AdmissionControl,
                                          AdmissionPolicy, DeadlineAware,
                                          RejectNewest, RejectOldest,
@@ -28,6 +31,7 @@ from repro_torch.serve.streams import (ExecutionStreams, StreamCrashed,
                                        StreamPool)
 
 __all__ = [
+    "serve_config", "init_cache", "prefill", "make_decode_fn", "generate",
     "MatFnEngine", "MatFnRequest", "MatFnFuture", "BucketExecutionError",
     "bucket_batch",
     "FlushPolicy", "FillOrDeadline", "AdaptiveDeadline",

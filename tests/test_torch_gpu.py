@@ -1284,3 +1284,83 @@ class TestShardedChain:
         rtol, atol = error_budget(torch.float32, n=512, mults=7)
         want = torch.linalg.matrix_power(a.double(), 96)
         assert torch.allclose(got.double(), want, rtol=rtol, atol=atol)
+
+
+# ---------------------------------------------------------------------------
+# The LM serving path: every projection a K1 launch
+# ---------------------------------------------------------------------------
+
+def _lm_modules():
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers, ssm
+    from repro_torch.serve import engine
+    return models, get_config, layers, ssm, engine
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("lead,k,n", [((4, 1), 2048, 6144),    # decode
+                                      ((2, 256), 768, 3352),   # prefill
+                                      ((1, 1), 64, 96)])
+def test_lm_dense_runs_k1(cuda, lead, k, n, dtype):
+    """``layers.dense`` at decode and prefill shapes (Qwen3-1.7B's MLP,
+    Mamba2-130m's ragged ``w_in``): one K1 launch of the dtype, nothing
+    else, against the same call on the CPU (the plain version)."""
+    _, _, layers, _, _ = _lm_modules()
+    x = _randn((*lead, k), dtype, cuda, 1)
+    w = _randn((k, n), torch.float32, cuda, 2)
+    b = _randn((n,), torch.float32, cuda, 3)
+    got = layers.dense(x, w, b)
+    torch.cuda.synchronize()
+    moved = {key: v for key, v in K.launch_counts().items() if v}
+    assert moved == {K.kernel_name("matmul", dtype): 1}
+    want = layers.dense(x.cpu(), w.cpu(), b.cpu()).to(cuda)
+    _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lm_generate_on_the_card(cuda, dtype):
+    """The qwen3 smoke config served on the card: exactly 2 x 7 K1
+    launches per prefill and per decode step, no plain version; its
+    prefill logits against the CPU's (``DENSE_BUDGET`` of the dtype)."""
+    from repro_torch.kernels import DENSE_BUDGET
+    models, get_config, _, _, engine = _lm_modules()
+    cfg = get_config("qwen3-1.7b", smoke=True).replace(compute_dtype=dtype)
+    lm = models.LM(cfg, generator=torch.Generator().manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (2, 16),
+                         generator=torch.Generator().manual_seed(1))
+    host_logits, _ = engine.prefill(cfg, lm.params(), toks, cache_len=24)
+    lm = lm.to(cuda)
+    K.reset_launches()
+    out = engine.generate(cfg, lm.params(), toks.to(cuda), max_new_tokens=4)
+    torch.cuda.synchronize()
+    moved = {key: v for key, v in K.launch_counts().items() if v}
+    kernel = K.kernel_name("matmul", getattr(torch, dtype))
+    assert moved == {kernel: 4 * 14}
+    assert out.shape == (2, 4) and out.device.type == "cuda"
+    logits, _ = engine.prefill(cfg, lm.params(), toks.to(cuda), cache_len=24)
+    assert torch.isfinite(logits).all()
+    rtol, atol = DENSE_BUDGET[dtype]
+    torch.testing.assert_close(logits.cpu(), host_logits, rtol=rtol,
+                               atol=atol)
+
+
+def test_lm_ssm_block_on_the_card(cuda):
+    """The mamba2 smoke ``ssm_block`` (4 chunks: the doubling scan
+    combines) on the card against the CPU, within ``DENSE_BUDGET``
+    float32; its two projections are K1 launches."""
+    models, get_config, _, ssm, _ = _lm_modules()
+    cfg = get_config("mamba2-130m", smoke=True)
+    p = ssm.init_ssm(torch.Generator().manual_seed(0), cfg)
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (2, 32, cfg.d_model)).astype(np.float32))
+    want, (st, cv) = ssm.ssm_block(cfg, p, x, return_state=True)
+    K.reset_launches()
+    got, (st_c, cv_c) = ssm.ssm_block(
+        cfg, {k: v.to(cuda) for k, v in p.items()}, x.to(cuda),
+        return_state=True)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["matmul"] == 2
+    assert K.launch_counts()["plain_matmul"] == 0
+    for g, w in ((got, want), (st_c, st), (cv_c, cv)):
+        torch.testing.assert_close(g.cpu(), w, rtol=2e-3, atol=1e-5)

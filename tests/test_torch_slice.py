@@ -186,6 +186,28 @@ class TestNoJax:
                               capture_output=True, text=True, timeout=120)
         assert done.returncode == 0, done.stderr
 
+    @pytest.mark.parametrize("module", [
+        "repro_torch.configs", "repro_torch.configs.qwen3_1_7b",
+        "repro_torch.core.scan", "repro_torch.models",
+        "repro_torch.models.ssm", "repro_torch.serve.engine",
+        "repro_torch.launch.serve"])
+    def test_the_guards_cover_the_lm_modules(self, module):
+        """The LM serving slice's modules are walked by the AST guard and
+        imported by a fresh interpreter without jax or the reference."""
+        rel = module.split(".")[1:]
+        path = PKG.joinpath(*rel).with_suffix(".py")
+        if not path.exists():
+            path = PKG.joinpath(*rel, "__init__.py")
+        assert path in self.FILES
+        code = (f"import sys, importlib\nimportlib.import_module({module!r})"
+                f"\nbad = sorted(m for m in sys.modules if m.split('.')[0] "
+                f"in {FORBIDDEN!r})\nassert not bad, bad\n")
+        done = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                              env={"PYTHONPATH": str(ROOT / "src"),
+                                   "PATH": "/usr/bin:/bin"},
+                              capture_output=True, text=True, timeout=120)
+        assert done.returncode == 0, done.stderr
+
     def test_the_guards_cover_the_sharded_chain(self):
         """``core/distributed.py`` is walked by the AST guard, and a fresh
         interpreter imports it without jax or the reference — and without
