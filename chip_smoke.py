@@ -36,7 +36,13 @@ Qwen3-1.7B and Mamba2-130m at full width and depth and the other eight
 configs at published widths, every projection a K1 launch, counted per
 prefill and per decode step; K1 at the LM's shapes against its plain
 version; a 2-layer Qwen3-1.7B on the card against the CPU; Mixtral's ring
-cache).
+cache); and the LM training path (``launch.train.build``'s step on
+``SyntheticStream`` batches for Qwen3-1.7B and Mamba2-130m at full width
+and depth, every projection K1 in the forward, in the remat recomputation
+and in both backward products, counted exactly per step; K1 at the
+backward shapes against its plain version; a 2-layer Qwen3-1.7B step on
+the card against the CPU; checkpoint save, restore and resume on the
+card).
 Each phase prints one JSON line; any
 failure raises and the script exits non-zero without the final
 ``"ok": true`` line. It needs a CUDA device and ``nvcc``; it imports
@@ -89,6 +95,12 @@ from repro_torch.kernels import (_build, autotune, error_budget,  # noqa: E402
 from repro_torch.kernels import attention_kernels as A  # noqa: E402
 from repro_torch.kernels import matmul_kernels as K  # noqa: E402
 from repro_torch import configs  # noqa: E402
+from repro_torch.checkpoint.checkpointer import Checkpointer  # noqa: E402
+from repro_torch.data.synthetic import (SyntheticStream,  # noqa: E402
+                                        make_batch)
+from repro_torch.launch import train as train_launch  # noqa: E402
+from repro_torch.train.train_step import (init_train_state,  # noqa: E402
+                                          make_train_step)
 from repro_torch import models as models_lib  # noqa: E402
 from repro_torch.launch import matserve  # noqa: E402
 from repro_torch.models import model as model_lib  # noqa: E402
@@ -2207,6 +2219,253 @@ def phase_lm() -> dict:
     return dict(totals)
 
 
+# ---------------------------------------------------------------------------
+# Phase train: the LM training path (K1 forward, recomputed, dx and dw)
+# ---------------------------------------------------------------------------
+
+#: Qwen3-1.7B's and Mamba2-130m's steps: 8 sequences of 512 tokens in 4
+#: microbatches of 2 (the configs' ``grad_accum``), 3 steps each.
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_ACCUM, TRAIN_STEPS = 8, 512, 4, 3
+#: The 2-layer cut's batch (sequences, tokens) for the card-vs-CPU step and
+#: the resume check; one microbatch.
+TRAIN_CUT = (2, 128)
+#: A gradient of the 2-layer cut on the card against the CPU: the norm of
+#: the difference over the norm of the CPU's gradient. Both run the same
+#: bf16 model; K1 and its plain version sum in different orders, so a bf16
+#: rounding (2^-8 of a value) flips here and there and the flips carry
+#: through two layers' backward; a small weight whose gradient sums many
+#: cancelling terms (``k_norm``, 128 values over every token and head) shows
+#: it most: 1.39e-2 on the card. 3e-2 is under eight bf16 units of the
+#: norm, far below what a wrong product (an error of order 1) gives.
+GRAD_REL_TOL = 3e-2
+#: K1 at the backward shapes of Qwen3-1.7B's ``w_gate`` at microbatch
+#: 2 x 512 (M = 1024), bf16: (name, M, K, N, the operand ``ops.matmul``
+#: transposes into a copy: None, "b" (dx: g @ w.T) or "a" (dw: x.T @ g),
+#: launches a step: 28 layers x 4 microbatches, x 2 for the forward and
+#: its remat recomputation).
+TRAIN_DENSE = (("qwen3 w_gate forward", 1024, 2048, 6144, None, 224),
+               ("qwen3 w_gate dx", 1024, 6144, 2048, "b", 112),
+               ("qwen3 w_gate dw", 2048, 1024, 6144, "a", 112))
+
+
+def train_k1_per_microbatch(cfg) -> int:
+    """K1 launches of one microbatch under remat ``"nothing"``: each
+    projection's forward, its recomputation in the backward, ``dx`` and
+    ``dw``."""
+    return 4 * lm_k1_per_call(cfg, True)
+
+
+def train_dense_rows() -> list:
+    """K1 at the backward shapes (``TRAIN_DENSE``): the kernel on its
+    operands as ``ops.matmul`` hands them over (``kernel_case``: held to the
+    plain version, timed beside it and ``torch.matmul``), the transposing
+    copy ``ops.matmul`` makes of a transposed operand, and the whole
+    ``ops.matmul`` call on the transposed view."""
+    rows = []
+    for i, (name, m, k, n, transposed, per_step) in enumerate(TRAIN_DENSE):
+        a = randn((m, k), torch.bfloat16, 2500 + i)
+        b = randn((k, n), torch.bfloat16, 2510 + i)
+        blocks = ops.pick_blocks(m, n, k, dtype=torch.bfloat16,
+                                 backend="cuda")
+        row = kernel_case("matmul", torch.bfloat16, (a, b), blocks,
+                          timed=True, rows=[])
+        # the views the backward passes: w.T of a (n', k') weight, x2.T
+        view_a = a.T.contiguous().T if transposed == "a" else a
+        view_b = b.T.contiguous().T if transposed == "b" else b
+        copy_ms = 0.0
+        if transposed is not None:
+            src = view_a if transposed == "a" else view_b
+            copy_ms = time_ms(lambda: src.contiguous())
+        got = ops.matmul(view_a, view_b, blocks=blocks)
+        check_kernel(got, K.matmul_plain(a, b, block_m=blocks[0],
+                                         block_n=blocks[1],
+                                         block_k=blocks[2]),
+                     torch.bfloat16, what=f"ops.matmul {name}")
+        rows.append({"case": name, "m": m, "k": k, "n": n,
+                     "blocks": list(blocks), "transposed": transposed,
+                     "kernel_ms": row["ms"], "copy_ms": copy_ms,
+                     "ops_matmul_ms": time_ms(lambda: ops.matmul(
+                         view_a, view_b, blocks=blocks)),
+                     "plain_ms": row["plain_ms"],
+                     "library_ms": row["library_ms"],
+                     "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                     "max_abs_err": row["max_abs_err"],
+                     "launches_per_step": per_step})
+    return rows
+
+
+def train_run(cfg, seed) -> dict:
+    """``TRAIN_STEPS`` steps of ``launch.train.build``'s step on
+    ``SyntheticStream`` batches at full width and depth: per step host ms
+    (ending in a synchronise), tokens/s, loss, ce, grad norm, lr, the exact
+    K1 count (nothing else launched) and peak GB allocated."""
+    params = lm_model(cfg, seed)
+    state = init_train_state(cfg, params)
+    del params
+    step_fn, _ = train_launch.build(cfg, steps_total=1000, peak_lr=3e-4,
+                                    accum=TRAIN_ACCUM)
+    stream = SyntheticStream(cfg, seed=seed + 1, batch=TRAIN_BATCH,
+                             seq=TRAIN_SEQ)
+    want = TRAIN_ACCUM * train_k1_per_microbatch(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for i in range(TRAIN_STEPS):
+        batch = next(stream)
+        K.reset_launches()
+        A.reset_launches()
+        (state, metrics), ms = wall_ms_once(lambda: step_fn(state, batch))
+        lm_only_k1(lm_moved(), want, f"{cfg.name} train step {i}")
+        m = {k: float(v) for k, v in metrics.items()}
+        if not all(math.isfinite(v) for v in m.values()):
+            raise AssertionError(f"{cfg.name} train step {i}: {m}")
+        steps.append({"step": i, "ms": ms,
+                      "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / ms * 1e3,
+                      "loss": m["loss"], "ce": m["ce"], "aux": m["aux"],
+                      "grad_norm": m["grad_norm"], "lr": m["lr"],
+                      "k1_launches": want,
+                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+    del state, batch
+    lm_free()
+    torch.cuda.reset_peak_memory_stats()
+    return {"arch": cfg.name, "layers": cfg.n_layers,
+            "params": cfg.n_params(), "batch": TRAIN_BATCH,
+            "seq": TRAIN_SEQ, "accum": TRAIN_ACCUM,
+            "k1_per_microbatch": train_k1_per_microbatch(cfg),
+            "k1_per_step": want, "steps": steps}
+
+
+def _tree_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _tree_leaves(tree[k], f"{prefix}{k}/")
+    else:
+        yield prefix[:-1], tree
+
+
+def train_card_vs_cpu(cut, params, seed) -> dict:
+    """One step of the 2-layer cut at full width from the same weights and
+    batch on the card (K1: 4 launches a projection) and on the CPU (the
+    plain versions): loss and ce under ``DENSE_BUDGET["bfloat16"]``; every
+    gradient (the clipped gradient the first step's moment holds: m =
+    (1 - b1) g) and the grad norm within ``GRAD_REL_TOL`` of the CPU's,
+    relative to the CPU's norm."""
+    b, s = TRAIN_CUT
+    batch = make_batch(cut, step=0, seed=seed, batch=b, seq=s)
+    step = make_train_step(cut, accum=1, warmup=2, peak_lr=1e-3)
+    card = init_train_state(cut, model_lib._map(torch.clone, params))
+    K.reset_launches()
+    A.reset_launches()
+    _, m_card = step(card, batch)
+    lm_only_k1(lm_moved(), train_k1_per_microbatch(cut),
+               f"{cut.name} 2-layer train step")
+    host = init_train_state(cut, model_lib._map(lambda x: x.cpu(), params))
+    _, m_host = step(host, {k: v.cpu() for k, v in batch.items()})
+    rtol, atol = fastmm.DENSE_BUDGET["bfloat16"]
+    out = {"layers": cut.n_layers, "batch": b, "seq": s, "rtol": rtol,
+           "atol": atol, "grad_rel_tol": GRAD_REL_TOL}
+    for k in ("loss", "ce"):
+        got, want = float(m_card[k]), float(m_host[k])
+        out[k] = [got, want]
+        if not (math.isfinite(got) and abs(got - want) <= atol
+                + rtol * abs(want)):
+            raise AssertionError(f"2-layer train {k}: card {got} vs CPU "
+                                 f"{want} outside the bf16 budget")
+    gn = [float(m_card["grad_norm"]), float(m_host["grad_norm"])]
+    out["grad_norm"] = gn
+    worst = ("", 0.0)
+    host_m = dict(_tree_leaves(host["opt"]["m"]))
+    for name, g in _tree_leaves(card["opt"]["m"]):
+        want = host_m[name].double()
+        rel = ((g.cpu().double() - want).norm()
+               / want.norm().clamp_min(1e-30)).item()
+        if not rel <= GRAD_REL_TOL:
+            raise AssertionError(f"2-layer train gradient {name}: "
+                                 f"{rel:.3e} of its norm off the CPU's")
+        worst = max(worst, (name, rel), key=lambda t: t[1])
+    if not abs(gn[0] - gn[1]) <= GRAD_REL_TOL * gn[1]:
+        raise AssertionError(f"2-layer train grad norm {gn}")
+    out["worst_grad"] = {"name": worst[0], "rel_err": worst[1]}
+    del card, host
+    return out
+
+
+def train_resume(cut, params, seed) -> dict:
+    """The reference's ``test_checkpoint_resume_bitexact`` on the card: 4
+    steps straight against 2 steps, an async save, a restore into a fresh
+    state, 2 steps from the stream's saved position. The same kernels run
+    on the same inputs, so every leaf is held to the bit; were one not, it
+    would be reported and held to ``DENSE_BUDGET["bfloat16"]``. Exactly
+    4 K1 launches a projection a step, 8 steps."""
+    b, s = TRAIN_CUT
+    step = make_train_step(cut, accum=1, warmup=2, peak_lr=1e-3)
+    K.reset_launches()
+    A.reset_launches()
+
+    def run(state, stream, n):
+        for _ in range(n):
+            state, metrics = step(state, next(stream))
+        return state
+
+    straight = run(init_train_state(cut, model_lib._map(torch.clone,
+                                                        params)),
+                   SyntheticStream(cut, seed=seed, batch=b, seq=s), 4)
+    half = run(init_train_state(cut, model_lib._map(torch.clone, params)),
+               SyntheticStream(cut, seed=seed, batch=b, seq=s), 2)
+    root = tempfile.mkdtemp(prefix="chip-smoke-ckpt-")
+    try:
+        ck = Checkpointer(root, keep=1)
+        ck.save(2, half, blocking=False)
+        del half
+        ck.wait()
+        fresh = init_train_state(cut, lm_model(cut, seed + 1))
+        at, restored = ck.restore(None, fresh)
+        del fresh
+        resumed = run(restored, SyntheticStream(cut, seed=seed, batch=b,
+                                                seq=s, start_step=at), 2)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = 8 * train_k1_per_microbatch(cut)
+    lm_only_k1(lm_moved(), launches, f"{cut.name} resume")
+    rtol, atol = fastmm.DENSE_BUDGET["bfloat16"]
+    same, worst = True, 0.0
+    got = dict(_tree_leaves(resumed))
+    for name, want in _tree_leaves(straight):
+        if not torch.equal(got[name], want):
+            same = False
+            err = (got[name].double() - want.double()).abs().max().item()
+            worst = max(worst, err)
+            if not torch.allclose(got[name].double(), want.double(),
+                                  rtol=rtol, atol=atol):
+                raise AssertionError(f"resume: {name} off by {err:.3e}")
+    return {"steps": [4, 2, 2], "k1_launches": launches,
+            "bitexact": same, "max_abs_err": worst}
+
+
+def phase_train() -> dict:
+    """The LM training path: K1 at the backward shapes, Qwen3-1.7B and
+    Mamba2-130m trained at full width and depth (``train_run``), the
+    2-layer cut on the card against the CPU and its checkpoint resume.
+    Returns the K1 launches of the training runs."""
+    t0 = time.perf_counter()
+    emit("train_dense", rows=train_dense_rows())
+    totals = collections.Counter()
+    for name, seed in (("qwen3-1.7b", 2600), ("mamba2-130m", 2610)):
+        row = train_run(configs.get_config(name), seed)
+        totals["matmul_tc"] += row["k1_per_step"] * TRAIN_STEPS
+        emit("train", **row)
+    cut = configs.get_config("qwen3-1.7b").replace(n_layers=2)
+    params = lm_model(cut, 2620)
+    vs_cpu = train_card_vs_cpu(cut, params, 2621)
+    totals["matmul_tc"] += train_k1_per_microbatch(cut)
+    resume = train_resume(cut, params, 2622)
+    totals["matmul_tc"] += resume["k1_launches"]
+    del params
+    lm_free()
+    emit("train", arch=cut.name, card_vs_cpu=vs_cpu, resume=resume,
+         seconds=round(time.perf_counter() - t0, 1))
+    return dict(totals)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device: torch.cuda.is_available() "
@@ -2240,12 +2499,13 @@ def main() -> int:
         attn_counts, attn_timed = phase_attention()
         phase_tuning()
         lm_counts = phase_lm()
+        train_counts = phase_train()
         torch.cuda.synchronize()
     finally:
         shutil.rmtree(cache_dir, ignore_errors=True)
 
     counts = {**counts, **attn_counts}
-    for name, n in lm_counts.items():
+    for name, n in (*lm_counts.items(), *train_counts.items()):
         counts[name] += n
     timed = {**timed, **attn_timed}
     kernels = []

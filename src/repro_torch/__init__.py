@@ -8,9 +8,12 @@ Markov-chain workloads and the prefix scan), ``configs`` and ``models``
 (the ten LM architectures), ``serve`` (the LM engine, and the
 matrix-function serving engine with its ``torch`` / ``chain`` / ``fastmm``
 / ``evolve`` routes and its admission, scheduling and stream layers),
-``runtime`` (telemetry and fault handling) and ``launch`` (the ``matserve``
-and ``serve`` drivers). The port imports ``torch`` only — never ``jax`` and
-nothing of ``repro``.
+``train`` (loss, AdamW, the train step), ``data`` (the synthetic token
+stream), ``checkpoint`` (the npz-shard checkpointer), ``parallel`` (so
+far the int8 block quantization), ``runtime`` (telemetry and fault
+handling) and ``launch`` (the ``matserve``, ``serve`` and ``train``
+drivers). The port imports ``torch`` only — never ``jax`` and nothing of
+``repro``.
 
 Device rule. A function that takes tensors computes on the device those
 tensors lie on: on a CUDA tensor the kernel wrappers launch the hand-written
@@ -24,8 +27,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["default_device", "DTYPES", "dtype_name", "accum_dtype",
-           "exact_matmul_settings"]
+__all__ = ["default_device", "kernels_run_on", "DTYPES", "dtype_name",
+           "accum_dtype", "exact_matmul_settings"]
 
 #: Working dtypes of the matrix-function path, by their reference names.
 DTYPES = {
@@ -70,6 +73,15 @@ def default_device(device=None) -> torch.device:
             "is False; pass device='cpu' to run the plain PyTorch versions "
             "on the CPU")
     return dev
+
+
+def kernels_run_on(device=None) -> bool:
+    """Whether the hand-written kernels run on ``device`` (default: the
+    package's, ``cuda``): a CUDA device that PyTorch sees. It answers and
+    never raises; it picks nothing (``default_device`` does, and raises
+    where this says False for ``cuda``)."""
+    dev = torch.device("cuda" if device is None else device)
+    return dev.type == "cuda" and torch.cuda.is_available()
 
 
 def exact_matmul_settings() -> dict:

@@ -3,7 +3,9 @@
 What crosses the framework boundary is numpy arrays (``np.asarray(
 jax_array)`` on the reference's side). ``from_reference`` takes such an
 array to a tensor on the port's device, ``to_numpy`` brings a tensor back,
-and ``params_from_reference`` carries an LM's whole parameter tree:
+``params_from_reference`` carries an LM's whole parameter tree and
+``train_state_from_reference`` a whole train state (params, AdamW moments
+including int8 ``QTensor`` leaves, step):
 
     lm = models.LM(cfg, params_from_reference(ref_params, device="cpu"))
 """
@@ -15,7 +17,8 @@ import torch
 
 from repro_torch import default_device
 
-__all__ = ["from_reference", "to_numpy", "params_from_reference"]
+__all__ = ["from_reference", "to_numpy", "params_from_reference",
+           "train_state_from_reference"]
 
 
 def from_reference(array, *, device=None, dtype=None) -> torch.Tensor:
@@ -28,7 +31,8 @@ def from_reference(array, *, device=None, dtype=None) -> torch.Tensor:
     pass ``device="cpu"`` for the CPU. ``dtype`` converts after the transfer.
     """
     dev = default_device(device)
-    arr = np.ascontiguousarray(np.asarray(array))
+    arr = np.asarray(array)
+    arr = np.ascontiguousarray(arr).reshape(arr.shape)    # keeps 0-d
     if arr.dtype.name == "bfloat16":
         t = torch.from_numpy(arr.view(np.uint16).copy()).view(torch.bfloat16)
     else:
@@ -58,3 +62,30 @@ def params_from_reference(params, *, device=None, dtype=None):
         return {k: params_from_reference(v, device=device, dtype=dtype)
                 for k, v in params.items()}
     return from_reference(params, device=device, dtype=dtype)
+
+
+def _moments_from_reference(tree, device):
+    from repro_torch.train.optimizer import QTensor
+    if isinstance(tree, dict):
+        return {k: _moments_from_reference(v, device)
+                for k, v in tree.items()}
+    if hasattr(tree, "q") and hasattr(tree, "scale"):
+        return QTensor(from_reference(tree.q, device=device),
+                       from_reference(tree.scale, device=device),
+                       tuple(tree.shape), int(tree.n))
+    return from_reference(tree, device=device)
+
+
+def train_state_from_reference(state, *, device=None):
+    """The port's train state for the reference's ``init_train_state``
+    output (or a state its train step returned): ``params`` through
+    :func:`params_from_reference`, the moments ``m`` / ``v`` leaf by leaf
+    (a reference ``QTensor`` becomes the port's, its ``q`` and ``scale``
+    carried as they are) and ``step`` as a 0-d int32 tensor, all on
+    ``device``."""
+    opt = state["opt"]
+    return {"params": params_from_reference(state["params"], device=device),
+            "opt": {"m": _moments_from_reference(opt["m"], device),
+                    "v": _moments_from_reference(opt["v"], device),
+                    "step": from_reference(opt["step"], device=device,
+                                           dtype=torch.int32)}}

@@ -17,7 +17,9 @@ The port of the dense half of the reference's ``repro/kernels/ops.py``.
 ``dense_matmul`` — ``(..., K) @ (K, N)`` through K1 with the tuning cache's
                   tiles for the flattened problem (the Markov route's
                   vector–matrix products; every projection and MoE expert
-                  product of the LM, ``models.layers.dense``).
+                  product of the LM, ``models.layers.dense``), with a
+                  backward whose ``dx`` and ``dw`` are K1 launches too.
+``pallas_supported`` — whether the hand-written kernels run on a device.
 ``attention``   — flash attention (K5) with the same device rule: the plain
                   version on a CPU tensor, the kernel on a CUDA tensor.
 ``pick_blocks`` — matmul tile selection: the persistent tuning cache first
@@ -44,7 +46,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch import default_device, dtype_name
+from repro_torch import default_device, dtype_name, kernels_run_on
 from repro_torch.kernels import autotune
 from repro_torch.kernels.attention import (HEAD_DIMS, attn_tiles,
                                            flash_attention, head_dim_for)
@@ -56,7 +58,8 @@ from repro_torch.kernels.matmul import (DMMA_BLOCKS, DMMA_TILES,
 
 __all__ = ["matmul", "square", "attention", "pick_blocks", "pick_attn_blocks",
            "pad_to_blocks", "PaddedChain", "MatmulChain", "SMEM_BUDGET",
-           "dense_matmul", "dense_routing_active"]
+           "dense_matmul", "dense_routing_active", "pallas_supported",
+           "DENSE_MM_OP"]
 
 #: Shared memory ``pick_blocks`` lets one block's staged tiles take: half of
 #: a block's maximum, so at least two blocks share an SM and one computes
@@ -476,8 +479,16 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 # ---------------------------------------------------------------------------
-# Dense products: the Markov route's vector–matrix steps
+# Dense products: every projection of the LM, the Markov route's vector–
+# matrix steps — forward and backward through K1
 # ---------------------------------------------------------------------------
+
+#: The reference's name for ``repro_torch.kernels_run_on``: whether the
+#: hand-written kernels run on a device (the reference asks whether its
+#: default backend lowers a Pallas kernel). On the CPU every wrapper runs
+#: its kernel's plain version.
+pallas_supported = kernels_run_on
+
 
 def dense_routing_active(device=None) -> bool:
     """Whether ``dense_matmul`` on ``device`` (default: the package's
@@ -491,7 +502,55 @@ def dense_routing_active(device=None) -> bool:
     return default_device(device).type == "cuda"
 
 
-def dense_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+@torch.library.custom_op("repro_torch::dense_mm", mutates_args=())
+def _dense_mm(x: torch.Tensor, w: torch.Tensor, block_m: int, block_n: int,
+              block_k: int, name: str) -> torch.Tensor:
+    """K1 (its plain version on a CPU tensor) as one dispatcher op, so that
+    a selective-checkpoint policy (``models.model._maybe_remat``) sees the
+    product and can keep its output; ``name`` is the reference's
+    ``checkpoint_name`` tag of the projection (``""`` when it has none)."""
+    return matmul(x, w, blocks=(block_m, block_n, block_k))
+
+
+@_dense_mm.register_fake
+def _(x, w, block_m, block_n, block_k, name):
+    return x.new_empty((x.shape[0], w.shape[1]))
+
+
+#: The dispatcher op of a ``dense_matmul`` forward under autograd.
+DENSE_MM_OP = torch.ops.repro_torch.dense_mm.default
+
+
+class _Dense2d(torch.autograd.Function):
+    """``(M, K) @ (K, N)`` with the reference's custom VJP (``_dense_2d``):
+    the forward, ``dx = g @ w.T`` and ``dw = x.T @ g`` are each one K1
+    launch (the plain version on a CPU tensor), each transposed problem on
+    its own ``pick_blocks`` tiles; ``ops.matmul`` makes the transposed
+    operand contiguous (a copy) before the launch."""
+
+    @staticmethod
+    def forward(ctx, x2, w, blocks, name):
+        ctx.save_for_backward(x2, w)
+        return torch.ops.repro_torch.dense_mm(x2, w, *blocks, name)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        x2, w = ctx.saved_tensors
+        (m, k), n = x2.shape, w.shape[1]
+        backend = g.device.type
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = matmul(g, w.T, blocks=pick_blocks(
+                m, k, n, dtype=g.dtype, backend=backend)).to(x2.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = matmul(x2.T, g, blocks=pick_blocks(
+                k, n, m, dtype=g.dtype, backend=backend)).to(w.dtype)
+        return dx, dw, None, None
+
+
+def dense_matmul(x: torch.Tensor, w: torch.Tensor, *,
+                 name: str = "") -> torch.Tensor:
     """y = x @ w for ``(..., K)`` activations against a ``(K, N)`` weight.
 
     Flattens ``x`` to ``(M, K)``, takes ``pick_blocks(M, N, K)`` (the tuning
@@ -499,17 +558,14 @@ def dense_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     tensor, its plain version on a CPU tensor, padded to the tiles and
     stripped. ``x`` and ``w`` share one dtype.
 
-    Forward only: the reference's custom VJP (``_dense_2d``) is ported with
-    the LM's training half (ROADMAP queue 1 item 8). Until then a call
-    under grad mode with an input that requires a gradient raises
-    ``NotImplementedError`` rather than return an output with no gradient
-    path.
+    Differentiable, with the reference's custom VJP: under grad mode, when
+    ``x`` or ``w`` requires a gradient, the product runs as ``_Dense2d``
+    (the dispatcher op ``DENSE_MM_OP`` forward, two K1 launches backward:
+    ``dx`` and ``dw``, each on its own tiles). ``name`` tags the product
+    for the ``"proj"`` remat policy, as the reference's ``checkpoint_name``
+    does (``"proj_out"``, ``"block_out"``); it changes nothing else.
+    Without grad the forward is the same one launch, called directly.
     """
-    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-        raise NotImplementedError(
-            "dense_matmul has no backward in repro_torch yet (ROADMAP "
-            "queue 1 item 8, the LM's training half); call it under "
-            "torch.no_grad() or on tensors that do not require grad")
     if w.ndim != 2 or x.ndim < 1 or x.shape[-1] != w.shape[0]:
         raise ValueError(f"dense_matmul needs (..., K) @ (K, N), got "
                          f"{tuple(x.shape)} @ {tuple(w.shape)}")
@@ -519,5 +575,9 @@ def dense_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return torch.zeros((*x.shape[:-1], n), dtype=x.dtype,
                            device=x.device)
     blocks = pick_blocks(m, n, k, dtype=x.dtype, backend=x.device.type)
-    y = matmul(x.reshape(m, k), w, blocks=blocks)
+    x2 = x.reshape(m, k)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        y = _Dense2d.apply(x2, w, tuple(blocks), name)
+    else:
+        y = matmul(x2, w, blocks=blocks)
     return y.reshape(*x.shape[:-1], n)

@@ -3,6 +3,7 @@
 ``python -m repro_torch.launch.matserve`` drives mixed matrix-function
 traffic through the bucketing engine (``repro_torch.serve.matfn``);
 ``python -m repro_torch.launch.serve`` generates text with the LM engine
-(``repro_torch.serve.engine``). The reference's mesh, dry-run and train
-drivers come with the training slice.
+(``repro_torch.serve.engine``); ``python -m repro_torch.launch.train``
+trains an LM (data -> train step -> checkpoint). The reference's mesh and
+dry-run drivers come with the ``parallel`` slice.
 """

@@ -46,8 +46,11 @@ class LM(nn.Module):
     ``convert.params_from_reference(...)``). The parameters are registered
     under the tree's paths, stacked layers on their leading axis, so
     ``.to(device)`` and ``state_dict()`` work; ``params()`` gives the tree
-    back for the functions. Weights are served, not trained, in this slice:
-    they do not require grad (``ops.dense_matmul`` has no backward yet).
+    back for the functions. The registered parameters do not require grad:
+    the module serves. Training runs on the parameter tree itself
+    (``train.train_step``: it takes the gradients of the tree and updates
+    it in place), so ``LM(cfg, params=state["params"])`` serves what was
+    trained.
     """
 
     def __init__(self, cfg: ArchConfig, params=None, *,

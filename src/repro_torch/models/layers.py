@@ -14,6 +14,12 @@ nested ``dict`` of tensors with the reference's keys.
   the P·V products are fp32 ``torch`` products of the compute-dtype
   operands, with ``exact_matmul_settings()`` in force (set by the model's
   entry points).
+* Training: ``dense`` takes the reference's ``checkpoint_name`` tags as
+  ``name=`` (``"proj_out"``, ``"block_out"``), which the ``"proj"`` remat
+  policy reads; with ``attention_bwd="recompute"`` each attention chunk
+  body runs under ``torch.utils.checkpoint`` when grad is enabled (the
+  reference's ``_maybe_ckpt_body``), so the backward recomputes a chunk's
+  scores instead of keeping them.
 * ``ShardCtx`` exists with ``mesh=None`` only; sharding comes with the
   ``parallel`` slice.
 """
@@ -25,6 +31,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import DTYPES
 from repro_torch.configs.base import ArchConfig
@@ -98,11 +105,13 @@ def rope(x, positions, *, theta: float = 10_000.0):
     return out.to(x.dtype)
 
 
-def dense(x, w, b=None):
+def dense(x, w, b=None, *, name: str = ""):
     """x (..., D_in) @ w (D_in, D_out) through ``ops.dense_matmul`` (K1 on
-    the card, with the tuning cache's tiles for the flattened problem).
-    The output stays in the compute dtype."""
-    y = _kops.dense_matmul(x, w.to(x.dtype))
+    the card, with the tuning cache's tiles for the flattened problem, in
+    the forward and in both products of the backward). The output stays in
+    the compute dtype. ``name`` is the reference's ``checkpoint_name`` tag
+    of the product (read by the ``"proj"`` remat policy)."""
+    y = _kops.dense_matmul(x, w.to(x.dtype), name=name)
     if b is not None:
         y = y + b.to(y.dtype)
     return y
@@ -119,8 +128,10 @@ def _act(x, kind: str):
 
 def _scaled(q, scale: float):
     """``q * scale`` with the scale rounded to q's dtype first, as the
-    reference's ``q * q.dtype.type(scale)``."""
-    return q * torch.tensor(scale, dtype=q.dtype, device=q.device)
+    reference's ``q * q.dtype.type(scale)``. The rounding is done on the
+    host: a 0-d tensor made on the card would be a copy that waits for the
+    stream, once a layer."""
+    return q * torch.tensor(scale, dtype=q.dtype).item()
 
 
 # ---------------------------------------------------------------------------
@@ -154,18 +165,30 @@ def _pick_chunks(sq: int, skv: int, d: int, dtype, device):
     return _DEFAULT_Q_CHUNK, _DEFAULT_KV_CHUNK
 
 
+def _maybe_ckpt_body(body, enable: bool):
+    """Flash-style backward: run the chunk body under
+    ``torch.utils.checkpoint`` so the backward recomputes its scores instead
+    of keeping them (``ArchConfig.attention_bwd == "recompute"``). Only when
+    grad is enabled: serving runs the body as it is."""
+    if not (enable and torch.is_grad_enabled()):
+        return body
+    return lambda *args: checkpoint(body, *args, use_reentrant=False)
+
+
 def _scores(q, k, eq: str):
     """fp32 scores of compute-dtype operands (``preferred_element_type``)."""
     return torch.einsum(eq, q.float(), k.float())
 
 
 def _online_chunk_attention(q, k, v, *, causal: bool, q_offset: int,
-                            q_chunk: int, kv_chunk: int):
+                            q_chunk: int, kv_chunk: int,
+                            bwd_recompute: bool = True):
     """Memory-efficient attention. q: (B,Sq,Hkv,G,D); k,v: (B,Skv,Hkv,D).
 
     Loops over query chunks (outer) and KV chunks (inner) keeping a running
     (max, denom, acc) — scores never exceed (B,Hkv,G,q_chunk,kv_chunk).
     Ragged lengths are padded up to the chunk size, not the chunk shrunk.
+    ``bwd_recompute`` checkpoints both chunk bodies (``_maybe_ckpt_body``).
     """
     b, sq, hkv, g, d = q.shape
     skv = k.shape[1]
@@ -188,35 +211,40 @@ def _online_chunk_attention(q, k, v, *, causal: bool, q_offset: int,
     kc = k.reshape(b, n_kv, kv_chunk, hkv, d).permute(1, 0, 3, 2, 4)
     vc = v.reshape(b, n_kv, kv_chunk, hkv, d).permute(1, 0, 3, 2, 4)
 
-    outs = []
-    for qi in range(n_q):
-        q_blk = qc[qi]                                  # (B,Hkv,G,qc,D)
+    def kv_step(m_run, l_run, acc, q_blk, k_blk, v_blk, qi, ki):
         q_pos = q_offset + qi * q_chunk + torch.arange(q_chunk, device=dev)
+        s = _scores(q_blk, k_blk, "bhgqd,bhkd->bhgqk")
+        k_pos = ki * kv_chunk + torch.arange(kv_chunk, device=dev)
+        mask = (k_pos[None, :] < skv).expand(q_chunk, kv_chunk)
+        if causal:
+            mask = mask & (k_pos[None, :] <= q_pos[:, None])
+        if causal or skv_pad:
+            s = torch.where(mask, s, _NEG)
+        m_cur = torch.amax(s, dim=-1, keepdim=True)
+        m_new = torch.maximum(m_run, m_cur)
+        p = torch.exp(s - m_new)
+        corr = torch.exp(m_run - m_new)
+        l_run = corr * l_run + torch.sum(p, dim=-1, keepdim=True)
+        acc = acc * corr + torch.einsum(
+            "bhgqk,bhkd->bhgqd", p.to(v_blk.dtype).float(), v_blk.float())
+        return m_new, l_run, acc
+
+    kv_body = _maybe_ckpt_body(kv_step, bwd_recompute)
+
+    def q_step(q_blk, qi):                              # (B,Hkv,G,qc,D)
         m_run = torch.full((b, hkv, g, q_chunk, 1), _NEG,
                            dtype=torch.float32, device=dev)
         l_run = torch.zeros_like(m_run)
         acc = torch.zeros((b, hkv, g, q_chunk, d), dtype=torch.float32,
                           device=dev)
-        for ki in range(n_kv):
-            k_blk, v_blk = kc[ki], vc[ki]               # (B,Hkv,kvc,D)
-            s = _scores(q_blk, k_blk, "bhgqd,bhkd->bhgqk")
-            k_pos = ki * kv_chunk + torch.arange(kv_chunk, device=dev)
-            mask = (k_pos[None, :] < skv).expand(q_chunk, kv_chunk)
-            if causal:
-                mask = mask & (k_pos[None, :] <= q_pos[:, None])
-            if causal or skv_pad:
-                s = torch.where(mask, s, _NEG)
-            m_cur = torch.amax(s, dim=-1, keepdim=True)
-            m_new = torch.maximum(m_run, m_cur)
-            p = torch.exp(s - m_new)
-            corr = torch.exp(m_run - m_new)
-            l_run = corr * l_run + torch.sum(p, dim=-1, keepdim=True)
-            acc = acc * corr + torch.einsum(
-                "bhgqk,bhkd->bhgqd", p.to(v_blk.dtype).float(),
-                v_blk.float())
-            m_run = m_new
+        for ki in range(n_kv):                          # (B,Hkv,kvc,D)
+            m_run, l_run, acc = kv_body(m_run, l_run, acc, q_blk, kc[ki],
+                                        vc[ki], qi, ki)
         l_safe = torch.where(l_run == 0.0, 1.0, l_run)
-        outs.append((acc / l_safe).to(q.dtype))
+        return (acc / l_safe).to(q.dtype)
+
+    q_body = _maybe_ckpt_body(q_step, bwd_recompute)
+    outs = [q_body(qc[qi], qi) for qi in range(n_q)]
     # (n_q, B, Hkv, G, q_chunk, D) -> (B, Sq, Hkv, G, D)
     out = torch.stack(outs).permute(1, 0, 4, 2, 3, 5) \
         .reshape(b, sq_t, hkv, g, d)
@@ -224,12 +252,12 @@ def _online_chunk_attention(q, k, v, *, causal: bool, q_offset: int,
 
 
 def _banded_window_attention(q, k, v, *, window: int, q_offset: int,
-                             q_chunk: int):
+                             q_chunk: int, bwd_recompute: bool = True):
     """Sliding-window attention via per-chunk KV band slicing: O(S*window).
 
     For a query chunk starting at absolute position p, only keys in
     (p - window, p + q_chunk) can be visible; that band is sliced instead of
-    visiting every KV chunk.
+    visiting every KV chunk. ``bwd_recompute`` checkpoints the chunk body.
     """
     b, sq, hkv, g, d = q.shape
     skv = k.shape[1]
@@ -242,8 +270,7 @@ def _banded_window_attention(q, k, v, *, window: int, q_offset: int,
 
     qc = _scaled(q, d ** -0.5).reshape(b, n_q, q_chunk, hkv, g, d) \
         .permute(1, 0, 3, 4, 2, 5)
-    outs = []
-    for qi in range(n_q):
+    def q_step(q_blk, k, v, qi):
         q_start = q_offset + qi * q_chunk           # absolute pos in KV axis
         start = min(max(q_start - window + 1, 0), skv - band)
         k_band = k[:, start:start + band]
@@ -252,12 +279,15 @@ def _banded_window_attention(q, k, v, *, window: int, q_offset: int,
         k_pos = start + torch.arange(band, device=dev)
         mask = (k_pos[None, :] <= q_pos[:, None]) & \
                (k_pos[None, :] > q_pos[:, None] - window)
-        s = _scores(qc[qi], k_band, "bhgqd,bkhd->bhgqk")
+        s = _scores(q_blk, k_band, "bhgqd,bkhd->bhgqk")
         s = torch.where(mask, s, _NEG)
         p = torch.softmax(s, dim=-1)
         o = torch.einsum("bhgqk,bkhd->bhgqd", p.to(v_band.dtype).float(),
                          v_band.float())
-        outs.append(o.to(q.dtype))
+        return o.to(q.dtype)
+
+    q_body = _maybe_ckpt_body(q_step, bwd_recompute)
+    outs = [q_body(qc[qi], k, v, qi) for qi in range(n_q)]
     return torch.stack(outs).permute(1, 0, 4, 2, 3, 5).reshape(b, sq, hkv,
                                                                g, d)
 
@@ -369,7 +399,8 @@ def attention_block(cfg: ArchConfig, p, x, *, sctx: ShardCtx = NO_SHARD,
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     g = h // hkv
 
-    q = dense(x, p["wq"], p.get("bq")).reshape(b, s, h, dh)
+    q = dense(x, p["wq"], p.get("bq"), name="proj_out").reshape(b, s, h,
+                                                                dh)
     if cfg.qk_norm:
         q = norm(q, p["q_norm"], kind="rmsnorm", eps=cfg.norm_eps)
     if use_rope:
@@ -384,8 +415,10 @@ def attention_block(cfg: ArchConfig, p, x, *, sctx: ShardCtx = NO_SHARD,
     if kv_override is not None:
         k, v = kv_override
     elif need_fresh:
-        k = dense(x, p["wk"], p.get("bk")).reshape(b, s, hkv, dh)
-        v = dense(x, p["wv"], p.get("bv")).reshape(b, s, hkv, dh)
+        k = dense(x, p["wk"], p.get("bk"), name="proj_out").reshape(
+            b, s, hkv, dh)
+        v = dense(x, p["wv"], p.get("bv"), name="proj_out").reshape(
+            b, s, hkv, dh)
         if cfg.qk_norm:
             k = norm(k, p["k_norm"], kind="rmsnorm", eps=cfg.norm_eps)
         if use_rope:
@@ -407,18 +440,20 @@ def attention_block(cfg: ArchConfig, p, x, *, sctx: ShardCtx = NO_SHARD,
                                              x.device)
             q_chunk = tuned_q if q_chunk is None else q_chunk
             kv_chunk = tuned_kv if kv_chunk is None else kv_chunk
+        recompute = cfg.attention_bwd == "recompute"
         if cfg.sliding_window is not None and causal and \
                 k.shape[1] > cfg.sliding_window:
             out = _banded_window_attention(
                 qg, k, v, window=cfg.sliding_window, q_offset=q_off,
-                q_chunk=q_chunk)
+                q_chunk=q_chunk, bwd_recompute=recompute)
         else:
             out = _online_chunk_attention(
                 qg, k, v, causal=causal, q_offset=q_off,
-                q_chunk=q_chunk, kv_chunk=kv_chunk)
+                q_chunk=q_chunk, kv_chunk=kv_chunk,
+                bwd_recompute=recompute)
         aux_kv = (k, v)
 
-    out = dense(out.reshape(b, s, h * dh), p["wo"])
+    out = dense(out.reshape(b, s, h * dh), p["wo"], name="block_out")
     return out, aux_kv
 
 
@@ -441,12 +476,12 @@ def init_mlp(generator, cfg: ArchConfig):
 
 def mlp_block(cfg: ArchConfig, p, x, *, sctx: ShardCtx = NO_SHARD):
     """SwiGLU or plain MLP."""
-    up = dense(x, p["w_up"])
+    up = dense(x, p["w_up"], name="proj_out")
     if cfg.mlp_type == "swiglu":
-        h = _act(dense(x, p["w_gate"]), cfg.act) * up
+        h = _act(dense(x, p["w_gate"], name="proj_out"), cfg.act) * up
     else:
         h = _act(up, cfg.act)
-    return dense(h, p["w_down"])
+    return dense(h, p["w_down"], name="block_out")
 
 
 def init_moe(generator, cfg: ArchConfig):

@@ -9,6 +9,12 @@ that axis is a Python loop here.
 fp32 logits with one ``torch.matmul`` (the reference's einsum outside any
 kernel).
 
+Training: when grad is enabled and ``cfg.remat`` is set, every layer body
+of those loops runs under ``torch.utils.checkpoint`` (``_maybe_remat``, the
+reference's ``jax.checkpoint`` of its scan bodies) with the config's
+policy. The loops take their per-layer weights with one ``torch.unbind``
+per stack (``_layers``), so the backward stacks each stack's gradient once.
+
 One deliberate difference: a prompt longer than a sliding window keeps its
 last ``window`` keys at slot ``position % window`` of the ring cache
 (``_ring``), where ``decode_step`` expects them. The reference keeps them
@@ -18,13 +24,17 @@ writes over a key still inside the window (``ROADMAP.md`` queue 3).
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch import DTYPES, exact_matmul_settings
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.ops import DENSE_MM_OP
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models.layers import ShardCtx, NO_SHARD
@@ -126,6 +136,73 @@ def _layer(tree, i):
     return _map(lambda x: x[i], tree)
 
 
+def _layers(tree) -> list:
+    """Every layer of a tree stacked on its leading axis: one
+    ``torch.unbind`` per leaf, whose backward stacks the layers' gradients
+    once (indexing each layer would write a zero tensor the size of the
+    whole stack per layer)."""
+    leaves = []
+    _map(leaves.append, tree)
+    per_leaf = [torch.unbind(x) for x in leaves]
+    out = []
+    for i in range(len(per_leaf[0])):
+        it = iter([parts[i] for parts in per_leaf])
+        out.append(_map(lambda _: next(it), tree))
+    return out
+
+
+#: What the ``"dots"`` policy keeps besides ``dense_matmul``'s products:
+#: the outputs of PyTorch's own products (the attention scores and P·V).
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+#: The ``checkpoint_name`` tags the ``"proj"`` policy keeps.
+_PROJ_NAMES = ("proj_out", "block_out")
+
+
+def _policy(name: str):
+    """The selective-checkpoint policy of ``cfg.remat_policy``: ``"dots"``
+    keeps every product's output (each ``ops.dense_matmul``, as the
+    dispatcher op ``DENSE_MM_OP``, and PyTorch's own), ``"proj"`` only the
+    ``dense_matmul`` products tagged ``proj_out`` / ``block_out``;
+    everything else is recomputed."""
+    def policy(ctx, op, *args, **kwargs):
+        if op == DENSE_MM_OP and (name == "dots"
+                                  or args[5] in _PROJ_NAMES):
+            return CheckpointPolicy.MUST_SAVE
+        if name == "dots" and op in _DOTS:
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+    return policy
+
+
+def _maybe_remat(fn, cfg: ArchConfig):
+    """Remat policy for a layer body (the reference's ``_maybe_remat``):
+      "nothing" — recompute the whole layer in backward (min memory):
+                  plain ``torch.utils.checkpoint``;
+      "dots"    — keep every product's output;
+      "proj"    — keep only the tagged projection / block outputs (qkv, wo,
+                  mlp): dots outside the attention inner loops skip
+                  recompute, scores are recomputed.
+    The last two are selective checkpointing (``_policy``). The body runs
+    as it is when ``cfg.remat`` is off or grad is disabled (serving)."""
+    if not cfg.remat:
+        return fn
+    if cfg.remat_policy in ("dots", "proj"):
+        kw = {"context_fn": functools.partial(
+            create_selective_checkpoint_contexts,
+            _policy(cfg.remat_policy))}
+    elif cfg.remat_policy == "nothing":
+        kw = {}
+    else:
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+    return run
+
+
 def _n_stacked(tree) -> int:
     while isinstance(tree, dict):
         tree = next(iter(tree.values()))
@@ -181,15 +258,20 @@ def _attn_layer_apply(cfg, p, x, *, positions, causal=None,
 
 def _ssm_layers(cfg, blocks, x, want_state):
     """Run a stack of SSM layers; returns (x, [(state, conv)] per layer)."""
-    states = []
-    for i in range(_n_stacked(blocks)):
-        blk = _layer(blocks, i)
+    def body(x, blk):
         h = S.ssm_block(cfg, blk["ssm"], L._apply_norm(x, blk["ln1"], cfg),
                         return_state=want_state)
         if want_state:
             h, st = h
+            return x + h, st
+        return x + h, None
+
+    body = _maybe_remat(body, cfg)
+    states = []
+    for blk in _layers(blocks):
+        x, st = body(x, blk)
+        if want_state:
             states.append(st)
-        x = x + h
     return x, states
 
 
@@ -213,7 +295,10 @@ def _ssm_decode_layers(cfg, blocks, x, st, cv):
 
 def _embed_inputs(cfg, params, tokens, *, vision_embeds=None):
     cdt = DTYPES[cfg.compute_dtype]
-    x = params["embed"][tokens.long()].to(cdt)
+    # F.embedding, not indexing: indexing's backward is an accumulating
+    # index_put_, whose order (and so its rounding) varies run to run on
+    # several CPU threads; the embedding backward is deterministic.
+    x = F.embedding(tokens.long(), params["embed"]).to(cdt)
     if cfg.family == "vlm" and vision_embeds is not None:
         x = torch.cat([vision_embeds.to(cdt), x], dim=1)
     if cfg.family == "audio":
@@ -227,10 +312,10 @@ def _encode(cfg, params, frames):
     cdt = DTYPES[cfg.compute_dtype]
     x = frames.to(cdt) + sinusoidal_positions(
         frames.shape[1], cfg.d_model, cdt, frames.device)[None]
-    blocks = params["enc_blocks"]
-    for i in range(_n_stacked(blocks)):
-        x, _, _ = _attn_layer_apply(cfg, _layer(blocks, i), x,
-                                    positions=None, causal=False)
+    body = _maybe_remat(lambda x, blk: _attn_layer_apply(
+        cfg, blk, x, positions=None, causal=False)[0], cfg)
+    for blk in _layers(params["enc_blocks"]):
+        x = body(x, blk)
     return L._apply_norm(x, params["enc_norm"], cfg)
 
 
@@ -278,9 +363,8 @@ def forward(cfg: ArchConfig, params, tokens, *, sctx: ShardCtx = NO_SHARD,
     if cfg.layer_pattern:                                   # ---- zamba2
         shared = params["shared_attn"]
         states = []
-        for r in range(cfg.n_pattern_repeats):
-            x, st = _ssm_layers(cfg, _layer(params["m_blocks"], r), x,
-                                want_cache)
+        for m_blocks in _layers(params["m_blocks"]):
+            x, st = _ssm_layers(cfg, m_blocks, x, want_cache)
             states += st
             x, (k, v), _ = _attn_layer_apply(cfg, shared, x,
                                              positions=positions)
@@ -301,20 +385,24 @@ def forward(cfg: ArchConfig, params, tokens, *, sctx: ShardCtx = NO_SHARD,
             cache["conv_state"] = torch.stack([c for _, c in states])
 
     else:                                                   # ---- attention
-        blocks = params["blocks"]
-        enc_ks, enc_vs = [], []
-        for i in range(_n_stacked(blocks)):
-            blk = _layer(blocks, i)
+        def body(x, blk):
             ckv = None
             if enc_out is not None:
                 # per-layer cross KV computed from encoder output
                 shape = (b, enc_out.shape[1], cfg.n_kv_heads, cfg.d_head)
                 ckv = (L.dense(enc_out, blk["cross"]["wk"]).reshape(shape),
                        L.dense(enc_out, blk["cross"]["wv"]).reshape(shape))
+            x, kv, aux = _attn_layer_apply(cfg, blk, x, positions=positions,
+                                           cross_kv=ckv)
+            return x, kv, aux, ckv
+
+        body = _maybe_remat(body, cfg)
+        enc_ks, enc_vs = [], []
+        for blk in _layers(params["blocks"]):
+            x, (k, v), aux, ckv = body(x, blk)
+            if ckv is not None:
                 enc_ks.append(ckv[0])
                 enc_vs.append(ckv[1])
-            x, (k, v), aux = _attn_layer_apply(
-                cfg, blk, x, positions=positions, cross_kv=ckv)
             aux_total = aux_total + aux
             if want_cache:
                 ks.append(k)
@@ -382,7 +470,7 @@ def decode_step(cfg: ArchConfig, params, tokens, cache, *,
     b = tokens.shape[0]
     pos = cache["pos"]                                  # (B,) tokens so far
     cdt = DTYPES[cfg.compute_dtype]
-    x = params["embed"][tokens.long()].to(cdt)
+    x = F.embedding(tokens.long(), params["embed"]).to(cdt)
     if cfg.family == "audio":
         x = x + _sinusoid(pos[:, None].float(), cfg.d_model, cdt)[:, None, :]
     positions = pos[:, None]

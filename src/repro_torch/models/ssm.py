@@ -146,7 +146,13 @@ def ssm_block(cfg: ArchConfig, p, xin, *, sctx: ShardCtx = NO_SHARD,
     lj = cum[:, :, None, :, :]                            # (B,nc,1,q,H)
     mask = torch.tril(torch.ones((q, q), dtype=torch.bool,
                                  device=xin.device))
-    lmat = torch.where(mask[None, None, :, :, None], torch.exp(li - lj), 0.0)
+    # The exponent is masked, not the exponential: above the diagonal
+    # li - lj > 0 can overflow exp to inf, and a where() after the exp
+    # gives that entry the gradient 0 * inf = NaN (the reference's form,
+    # which trains Mamba2-130m in bf16 at full depth to a NaN gradient).
+    # The values are the same.
+    lmat = torch.exp(torch.where(mask[None, None, :, :, None], li - lj,
+                                 float("-inf")))
     scores = _f32_einsum("bcihn,bcjhn->bcijh", cq, bq)
     y_intra = _f32_einsum("bcijh,bcjhp->bcihp", (scores * lmat).to(cdt), xq)
 

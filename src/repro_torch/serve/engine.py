@@ -6,8 +6,9 @@ cache and returns last-token logits; ``decode_step`` (from
 ``generate`` is the host driver (greedy or temperature sampling) used by
 ``launch/serve.py``. MoE archs serve with capacity 2.0x (``serve_config``).
 
-Everything runs under ``torch.inference_mode()``: ``ops.dense_matmul``, the
-projections' route to K1, has no backward yet. The fp32 master weights are
+Everything runs under ``torch.inference_mode()``: serving records no
+autograd graph (``ops.dense_matmul``'s backward and the remat checkpoints
+are the training path's, ``train/``). The fp32 master weights are
 cast to the compute dtype once per ``prefill`` / ``generate`` call and the
 cast tree is passed down (the reference casts inside every jitted prefill
 and decode step; the values are the same).

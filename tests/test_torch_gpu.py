@@ -1364,3 +1364,70 @@ def test_lm_ssm_block_on_the_card(cuda):
     assert K.launch_counts()["plain_matmul"] == 0
     for g, w in ((got, want), (st_c, st), (cv_c, cv)):
         torch.testing.assert_close(g.cpu(), w, rtol=2e-3, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# The LM training path: dense_matmul's backward on K1 (-k train_)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(1024, 512, 768), (5, 24, 40)])
+def test_train_dense_backward_kernel_vs_plain(cuda, dtype, m, k, n):
+    """Forward, dx and dw are three K1 launches and nothing else; each is
+    held to the plain version of the same product on the same CUDA
+    tensors."""
+    x = _randn((m, k), dtype, cuda, seed=1).requires_grad_()
+    w = _randn((k, n), dtype, cuda, seed=2).requires_grad_()
+    g = _randn((m, n), dtype, cuda, seed=3)
+    K.reset_launches()
+    y = ops.dense_matmul(x, w)
+    y.backward(g)
+    torch.cuda.synchronize()
+    name = K.kernel_name("matmul", dtype)
+    assert {kk: v for kk, v in K.launch_counts().items() if v} == {name: 3}
+
+    def plain(a, b):
+        bm, bn, bk = ops.pick_blocks(a.shape[0], b.shape[1], a.shape[1],
+                                     dtype=dtype, backend="cuda")
+        return K.matmul_plain(ops.pad_to_blocks(a.contiguous(), bm, bk),
+                              ops.pad_to_blocks(b.contiguous(), bk, bn),
+                              block_m=bm, block_n=bn,
+                              block_k=bk)[:a.shape[0], :b.shape[1]]
+
+    with torch.no_grad():
+        _close(y, plain(x, w), dtype)
+        _close(x.grad, plain(g, w.T), dtype)
+        _close(w.grad, plain(x.T, g), dtype)
+
+
+def test_train_smoke_step_on_the_card_vs_cpu(cuda):
+    """One step of the qwen3 smoke config (f32) from the same weights and
+    batch on the card (K1: 4 launches a projection under remat "nothing")
+    and on the CPU (the plain versions), under DENSE_BUDGET["float32"]."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.kernels import DENSE_BUDGET
+    from repro_torch.models import init_params
+    from repro_torch.models.model import _map
+    from repro_torch.train.train_step import (init_train_state,
+                                              make_train_step)
+    cfg = get_config("qwen3-1.7b", smoke=True)
+    params = init_params(cfg, torch.Generator("cuda").manual_seed(0))
+    batch = make_batch(cfg, step=0, seed=1, batch=4, seq=32)
+    step = make_train_step(cfg, accum=2, warmup=2, peak_lr=1e-3)
+    card = init_train_state(cfg, _map(torch.clone, params))
+    K.reset_launches()
+    _, m_card = step(card, batch)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in K.launch_counts().items() if v} == {
+        "matmul": 2 * 4 * 14}
+    host = init_train_state(cfg, _map(lambda t: t.cpu(), params))
+    _, m_host = step(host, {k: v.cpu() for k, v in batch.items()})
+    rtol, atol = DENSE_BUDGET["float32"]
+    for k in ("loss", "ce", "grad_norm", "lr"):
+        torch.testing.assert_close(m_card[k].cpu(), m_host[k], rtol=rtol,
+                                   atol=atol)
+    for k, v in card["opt"]["m"]["blocks"]["mlp"].items():
+        torch.testing.assert_close(v.cpu(),
+                                   host["opt"]["m"]["blocks"]["mlp"][k],
+                                   rtol=rtol, atol=atol)

@@ -191,15 +191,27 @@ def test_ssm_decode_cache_is_o1():
 
 
 def test_serving_runs_without_grad_and_dense_refuses_grad():
+    """Serving runs without grad (one K1 launch a projection, as before);
+    ``dense`` now has a backward: its weight gradient is x.T @ g, two more
+    launches of K1's plain version."""
     cfg, jcfg = _cfgs("qwen3-1.7b")
     _, tp = ref_params(jcfg)
     lm = models.LM(cfg, params=tp)
     tt = torch.from_numpy(lm_inputs(cfg, 1, 4)[0])
     out = E.generate(cfg, lm.params(), tt, max_new_tokens=2)
     assert out.shape == (1, 2)
-    w = torch.randn(cfg.d_model, 8, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="no backward"):
-        L.dense(torch.randn(2, cfg.d_model), w)
+    rng = np.random.default_rng(5)
+    xv = rng.standard_normal((2, cfg.d_model)).astype(np.float32)
+    w = torch.randn(cfg.d_model, 8, generator=torch.Generator().manual_seed(
+        5), requires_grad=True)
+    x = torch.tensor(xv, requires_grad=True)
+    K.reset_launches()
+    L.dense(x, w).sum().backward()
+    assert K.launch_counts()["plain_matmul"] == 3
+    rtol, atol = DENSE_BUDGET["float32"]
+    np.testing.assert_allclose(w.grad.numpy(),
+                               np.repeat(xv.sum(0)[:, None], 8, axis=1),
+                               rtol=rtol, atol=atol)
 
 
 @pytest.mark.parametrize("argv", [

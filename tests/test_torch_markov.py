@@ -18,7 +18,7 @@ own:
     multiplies the answer went through;
   * padded rows and columns never leak into ``pi``, ``residual`` or the
     evolved rows;
-  * ``dense_matmul`` against the reference's and its refusal under grad.
+  * ``dense_matmul`` against the reference's, and its gradient.
 """
 
 import numpy as np
@@ -459,15 +459,30 @@ class TestDenseMatmul:
         assert out.shape == (0, 8)
 
     def test_refuses_grad_until_the_backward_is_ported(self):
-        x = torch.ones((2, 8), requires_grad=True)
-        w = torch.ones((8, 4))
-        with pytest.raises(NotImplementedError, match="item 8"):
-            ops.dense_matmul(x, w)
-        with pytest.raises(NotImplementedError, match="item 8"):
-            ops.dense_matmul(w.T.contiguous(), torch.ones(
-                (8, 3), requires_grad=True))
+        """The backward is ported: under grad ``dense_matmul`` gives the
+        gradient of x @ w with respect to whichever operand requires it,
+        each through one more launch of K1's plain version here, and
+        without grad it is the one forward launch."""
+        rng = np.random.default_rng(11)
+        xv = rng.standard_normal((2, 8)).astype(np.float32)
+        wv = rng.standard_normal((8, 4)).astype(np.float32)
+        g = rng.standard_normal((2, 4)).astype(np.float32)
+        x = torch.tensor(xv, requires_grad=True)
+        K.reset_launches()
+        ops.dense_matmul(x, torch.from_numpy(wv)).backward(
+            torch.from_numpy(g))
+        assert K.launch_counts()["plain_matmul"] == 2
+        assert_close(x.grad, g @ wv.T, "float32", n=4)
+        w = torch.tensor(wv, requires_grad=True)
+        K.reset_launches()
+        ops.dense_matmul(torch.from_numpy(xv), w).backward(
+            torch.from_numpy(g))
+        assert K.launch_counts()["plain_matmul"] == 2
+        assert_close(w.grad, xv.T @ g, "float32", n=2)
         with torch.no_grad():
+            K.reset_launches()
             assert ops.dense_matmul(x, w).shape == (2, 4)
+            assert K.launch_counts()["plain_matmul"] == 1
 
     def test_routing_follows_the_device(self):
         assert ops.dense_routing_active("cpu") is False
