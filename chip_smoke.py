@@ -105,6 +105,10 @@ from repro_torch import models as models_lib  # noqa: E402
 from repro_torch.launch import matserve  # noqa: E402
 from repro_torch.models import model as model_lib  # noqa: E402
 from repro_torch.serve import engine as serve_engine  # noqa: E402
+from repro_torch.parallel import sharding  # noqa: E402
+from repro_torch.parallel.collectives import (compressed_psum,  # noqa: E402
+                                              dequantize_int8, ef_compress,
+                                              quantize_int8)
 from repro_torch.serve import (ExecutionStreams, ManualClock,  # noqa: E402
                                MatFnEngine)
 
@@ -2466,6 +2470,300 @@ def phase_train() -> dict:
     return dict(totals)
 
 
+# ---------------------------------------------------------------------------
+# Phase lm_mesh: the LM on a device mesh (DTensors; K1 on the local shards)
+# ---------------------------------------------------------------------------
+
+#: Decode on the mesh: batch, prompt tokens, greedy tokens (phase lm's).
+MESH_DECODE = (4, 512, 32)
+#: The compressed all-reduce's operand: 4M fp32 values (16 MB).
+MESH_PSUM_SHAPE = (4096, 1024)
+
+
+class CudaProducts(torch.utils._python_dispatch.TorchDispatchMode):
+    """Counts ``aten.mm`` / ``bmm`` / ``addmm`` on CUDA tensors (on a mesh,
+    the DTensor-level op: the mode sees it before DTensor runs it on the
+    local shards)."""
+    OPS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+           torch.ops.aten.addmm.default)
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func in self.OPS and any(isinstance(a, torch.Tensor) and a.is_cuda
+                                    for a in args):
+            self.n += 1
+        return func(*args, **(kwargs or {}))
+
+
+def full(x):
+    """A DTensor's full value (every rank's alike); a tensor as it is."""
+    return x.full_tensor() if repro_torch.is_dtensor(x) else x
+
+
+def host_params(state) -> dict:
+    """The state's parameters, whole, in fp32 on the host ({path: tensor});
+    the card's memory is left as it was."""
+    return {k: full(v).detach().to("cpu", torch.float32, copy=True)
+            for k, v in _tree_leaves(state["params"])}
+
+
+def mesh_steps(cfg, step_fn, state, batch, want, *, mesh) -> tuple:
+    """Two steps of ``step_fn`` on one batch: step 0 counted (K1 exactly
+    ``want``, the CUDA products, on a mesh the collectives by kind), its
+    metrics read and its change of every parameter taken (on the host, so
+    peak GB counts the step alone); step 1 timed alone (host ms ending in a
+    synchronise, K1 exactly ``want`` again). Peak GB over both. Returns
+    (row, {path: the parameter's change in step 0})."""
+    from torch.distributed.tensor.debug import CommDebugMode
+    before = host_params(state)
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    A.reset_launches()
+    comm = CommDebugMode() if mesh is not None else None
+    with CudaProducts() as products:
+        if comm is not None:
+            with comm:
+                (state, metrics), ms0 = wall_ms_once(
+                    lambda: step_fn(state, batch))
+        else:
+            (state, metrics), ms0 = wall_ms_once(
+                lambda: step_fn(state, batch))
+    lm_only_k1(lm_moved(), want, f"{cfg.name} step 0")
+    m = {k: float(full(v)) for k, v in metrics.items()}
+    if not all(math.isfinite(v) for v in m.values()):
+        raise AssertionError(f"{cfg.name}: {m}")
+    peak = torch.cuda.max_memory_allocated()
+    change = {k: v - before.pop(k) for k, v in host_params(state).items()}
+    norm = math.sqrt(sum(float(d.double().square().sum())
+                         for d in change.values()))
+    if not norm > 0:
+        raise AssertionError(f"{cfg.name}: step 0 left every parameter "
+                             f"as it was")
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    A.reset_launches()
+    _, ms = wall_ms_once(lambda: step_fn(state, batch))
+    lm_only_k1(lm_moved(), want, f"{cfg.name} step 1")
+    row = {"loss": m["loss"], "ce": m["ce"], "grad_norm": m["grad_norm"],
+           "param_change_norm": norm,
+           "k1_per_step": want, "cuda_products_per_step": products.n,
+           "ms_counted_step": ms0, "ms_per_step": ms,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / ms * 1e3,
+           "peak_gb": max(peak, torch.cuda.max_memory_allocated()) / 1e9}
+    if comm is not None:
+        row["collectives"] = {str(k): v
+                              for k, v in comm.get_comm_counts().items()}
+    return row, change
+
+
+def lm_mesh_train(cfg, seed, mesh) -> dict:
+    """Phase train's Qwen3-1.7B step (8 x 512 tokens in 4 microbatches,
+    remat "nothing") without a mesh, then through
+    ``launch.train.build(mesh=...)`` from the same seeded state and batch,
+    the first state freed before the second is made. On the 1x1 mesh the
+    two steps run the same kernels on the same shapes, so loss, ce, grad
+    norm and every parameter's change in the step must be equal bit for
+    bit (the relative gaps are reported beside ``DENSE_BUDGET
+    ["bfloat16"]``, the budget of a mesh of several cards); K1 exactly the
+    unsharded step's count, the CUDA products the unsharded step's
+    count."""
+    batch = next(SyntheticStream(cfg, seed=seed + 1, batch=TRAIN_BATCH,
+                                 seq=TRAIN_SEQ))
+    want = TRAIN_ACCUM * train_k1_per_microbatch(cfg)
+    step_fn, _ = train_launch.build(cfg, steps_total=1000, peak_lr=3e-4,
+                                    accum=TRAIN_ACCUM)
+    one, one_change = mesh_steps(
+        cfg, step_fn, init_train_state(cfg, lm_model(cfg, seed)), batch,
+        want, mesh=None)
+    lm_free()
+    step_fn, shardings = train_launch.build(cfg, mesh=mesh, steps_total=1000,
+                                            peak_lr=3e-4, accum=TRAIN_ACCUM)
+    state = sharding.place(init_train_state(cfg, lm_model(cfg, seed)),
+                           shardings)
+    placed = sharding.named(mesh, sharding.batch_specs(mesh, "lm"))
+    on_mesh, change = mesh_steps(cfg, step_fn, state,
+                                 {k: sharding.place(v, placed[k])
+                                  for k, v in batch.items()}, want, mesh=mesh)
+    del state
+    lm_free()
+    rtol, atol = fastmm.DENSE_BUDGET["bfloat16"]
+    gaps = {k: abs(on_mesh[k] - one[k]) / abs(one[k])
+            for k in ("loss", "ce", "grad_norm", "param_change_norm")}
+    unequal = [k for k in ("loss", "ce", "grad_norm") if on_mesh[k] != one[k]]
+    unequal += [k for k, d in change.items()
+                if not torch.equal(d, one_change[k])]
+    change_diff = max(float((d - one_change[k]).abs().max())
+                      for k, d in change.items())
+    del change, one_change
+    if unequal:
+        raise AssertionError(f"lm_mesh train on 1x1: {len(unequal)} of the "
+                             f"metrics and parameter changes differ from "
+                             f"the unsharded step's, first {unequal[:3]}")
+    if on_mesh["cuda_products_per_step"] != one["cuda_products_per_step"]:
+        raise AssertionError(
+            f"lm_mesh train: {on_mesh['cuda_products_per_step']} CUDA "
+            f"products a step on the mesh, "
+            f"{one['cuda_products_per_step']} on one device")
+    return {"arch": cfg.name, "layers": cfg.n_layers, "mesh": [1, 1],
+            "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "accum": TRAIN_ACCUM,
+            "remat": cfg.remat_policy, "rtol": rtol, "atol": atol,
+            "rel_gaps": gaps, "bitexact": True,
+            "param_change_max_abs_diff": change_diff,
+            "unsharded": one, "on_mesh": on_mesh}
+
+
+def mesh_decode_run(cfg, params, toks, sctx, teacher=None) -> dict:
+    """``prefill`` then ``MESH_DECODE[2] - 1`` decode steps of the engine
+    on ``sctx``: greedy, or fed ``teacher``'s tokens (the unsharded run's)
+    so that both runs see the same inputs. Every step exactly phase lm's
+    K1 count; the steps timed back to back, one synchronise at the end."""
+    b, prompt, new = MESH_DECODE
+    per_step = lm_k1_per_call(cfg, False)
+    where = "a mesh" if sctx.mesh is not None else "one device"
+    cast = model_lib._cast_params(cfg, params)
+    K.reset_launches()
+    A.reset_launches()
+    logits, cache = serve_engine.prefill(cfg, params, toks,
+                                         cache_len=prompt + new, sctx=sctx)
+    lm_only_k1(lm_moved(), lm_k1_per_call(cfg, True),
+               f"{cfg.name} prefill on {where}")
+    steps = [full(logits)[:, -1].float()]
+    tokens = [steps[0].argmax(-1)]
+    dec = serve_engine.make_decode_fn(cfg, sctx=sctx)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(new - 1):
+        tok = (tokens[-1] if teacher is None else teacher[:, i])[:, None]
+        K.reset_launches()
+        A.reset_launches()
+        logits, cache = dec(cast, tok, cache)
+        lm_only_k1(lm_moved(), per_step,
+                   f"{cfg.name} decode step on {where}")
+        steps.append(full(logits)[:, -1].float())
+        tokens.append(steps[-1].argmax(-1))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / (new - 1)
+    return {"logits": torch.stack(steps, 1), "tokens": torch.stack(tokens, 1),
+            "ms_per_decode_step": ms, "k1_per_step": per_step}
+
+
+def lm_mesh_decode(cfg, seed, mesh) -> dict:
+    """Qwen3-1.7B served on the mesh (weights by ``param_specs(...,
+    "decode")``, the cache by ``cache_partition_specs``) against the
+    unsharded engine, the mesh's steps fed the unsharded tokens: every
+    step's logits under ``DENSE_BUDGET["bfloat16"]``, and the greedy
+    tokens, a token that differs allowed only where the unsharded top two
+    logits are within twice the budget's atol (a near-tie, a fixed
+    threshold). On the 1x1 mesh the two runs take the same kernels on the
+    same shapes, so the logits must also be equal bit for bit."""
+    from repro_torch.models.layers import ShardCtx
+    cfg = serve_engine.serve_config(cfg)
+    b, prompt, new = MESH_DECODE
+    params = lm_model(cfg, seed)
+    toks, _ = lm_inputs(cfg, b, prompt, seed + 1)
+    one = mesh_decode_run(cfg, params, toks, ShardCtx())
+    spec = sharding.param_specs(params, cfg, mesh, "decode")
+    placed = sharding.place(params, sharding.named(mesh, spec))
+    on_mesh = mesh_decode_run(cfg, placed, toks, ShardCtx(mesh=mesh),
+                              teacher=one["tokens"])
+    del params, placed
+    lm_free()
+    rtol, atol = fastmm.DENSE_BUDGET["bfloat16"]
+    got, want = on_mesh["logits"].double(), one["logits"].double()
+    err = (got - want).abs()
+    off = ~torch.isclose(got, want, rtol=rtol, atol=atol)
+    if bool(off.any()):
+        steps = sorted({int(i) for i in off.nonzero()[:, 1]})
+        raise AssertionError(f"lm_mesh decode: logits off by "
+                             f"{err.max().item():.3e} at steps {steps[:8]}")
+    top2 = one["logits"].topk(2, dim=-1).values
+    tie = (top2[..., 0] - top2[..., 1]) <= 2 * atol
+    same = on_mesh["tokens"] == one["tokens"]
+    if bool((~same & ~tie).any()):
+        raise AssertionError(f"lm_mesh decode: {int((~same & ~tie).sum())} "
+                             f"tokens differ without a near-tie")
+    if not torch.equal(on_mesh["logits"], one["logits"]):
+        raise AssertionError(f"lm_mesh decode on 1x1: logits differ from "
+                             f"the unsharded engine's by "
+                             f"{err.max().item():.3e}")
+    return {"arch": cfg.name, "mesh": [1, 1], "batch": b, "prompt": prompt,
+            "new_tokens": new, "rtol": rtol, "atol": atol,
+            "logits_max_abs_err": err.max().item(),
+            "logits_peak": want.abs().max().item(), "bitexact": True,
+            "tokens_agree": int(same.sum()), "tokens": int(same.numel()),
+            "near_ties": int(tie.sum()), "near_tie_gap": 2 * atol,
+            "k1_per_step": on_mesh["k1_per_step"],
+            "ms_per_decode_step": on_mesh["ms_per_decode_step"],
+            "unsharded_ms_per_decode_step": one["ms_per_decode_step"]}
+
+
+def lm_mesh_compressed(mesh, seed) -> dict:
+    """``compressed_psum`` / ``ef_compress`` over the mesh's data dim on
+    NCCL (a MAX all-reduce of fp32 scales, a SUM all-reduce of int32):
+    with one rank the sum is the dequantized requantized input, exactly,
+    and the residual the input less it."""
+    import torch.distributed as dist
+    x = randn(MESH_PSUM_SHAPE, torch.float32, seed)
+    q, scale, meta = quantize_int8(x)
+    want = dequantize_int8(q, scale, meta)
+    got = compressed_psum(x, (mesh, "data"))
+    red, err = ef_compress(x, torch.zeros_like(x), (mesh, "data"))
+    exact = {"compressed_psum": torch.equal(got, want),
+             "ef_compress_sum": torch.equal(red, want),
+             "ef_compress_residual": torch.equal(err, x - want)}
+    if not all(exact.values()):
+        raise AssertionError(f"compressed_psum on one rank: {exact}")
+    group = mesh.get_group("data")
+
+    def fp32_all_reduce():
+        y = x.clone()
+        dist.all_reduce(y, group=group)
+        return y
+    return {"shape": list(MESH_PSUM_SHAPE), "block": 256, "exact": exact,
+            "max_abs_err_vs_input": (got - x).abs().max().item(),
+            "compressed_psum_ms": wall_ms(
+                lambda: compressed_psum(x, (mesh, "data"))),
+            "fp32_all_reduce_ms": wall_ms(fp32_all_reduce)}
+
+
+def phase_lm_mesh() -> dict:
+    """The LM on a 1x1 NCCL ``("data", "model")`` mesh, the one card's: a
+    Qwen3-1.7B train step and decode on DTensors (line ``lm_mesh_train``,
+    ``lm_mesh_decode``) and the compressed all-reduce (line
+    ``compressed_psum``). A 1x1 mesh sends nothing a collective could be
+    timed by; this shows that every projection is K1 on the local shards
+    and what DTensor costs on the host. Returns the K1 launches."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    t0 = time.perf_counter()
+    torch.cuda.set_device(0)
+    rdzv = tempfile.mkdtemp(prefix="chip-smoke-rdzv-")
+    dist.init_process_group("nccl", init_method=f"file://{rdzv}/rdzv",
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        qwen = configs.get_config("qwen3-1.7b")
+        train = lm_mesh_train(qwen, 2700, mesh)
+        emit("lm_mesh_train", **train)
+        decode = lm_mesh_decode(qwen, 2710, mesh)
+        emit("lm_mesh_decode", **decode)
+        emit("compressed_psum", **lm_mesh_compressed(mesh, 2720))
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(rdzv, ignore_errors=True)
+    emit("lm_mesh", seconds=round(time.perf_counter() - t0, 1))
+    b, prompt, new = MESH_DECODE
+    steps = 4 * train["on_mesh"]["k1_per_step"]     # 2 steps each, 2 runs
+    per_call = lm_k1_per_call(qwen, True) + (new - 1) * decode["k1_per_step"]
+    return {"matmul_tc": steps + 2 * per_call}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device: torch.cuda.is_available() "
@@ -2500,12 +2798,14 @@ def main() -> int:
         phase_tuning()
         lm_counts = phase_lm()
         train_counts = phase_train()
+        mesh_counts = phase_lm_mesh()
         torch.cuda.synchronize()
     finally:
         shutil.rmtree(cache_dir, ignore_errors=True)
 
     counts = {**counts, **attn_counts}
-    for name, n in (*lm_counts.items(), *train_counts.items()):
+    for name, n in (*lm_counts.items(), *train_counts.items(),
+                    *mesh_counts.items()):
         counts[name] += n
     timed = {**timed, **attn_timed}
     kernels = []

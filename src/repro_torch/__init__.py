@@ -25,10 +25,12 @@ and raises when the GPU is asked for and there is none.
 
 from __future__ import annotations
 
+import sys
+
 import torch
 
 __all__ = ["default_device", "kernels_run_on", "DTYPES", "dtype_name",
-           "accum_dtype", "exact_matmul_settings"]
+           "accum_dtype", "exact_matmul_settings", "is_dtensor"]
 
 #: Working dtypes of the matrix-function path, by their reference names.
 DTYPES = {
@@ -73,6 +75,13 @@ def default_device(device=None) -> torch.device:
             "is False; pass device='cpu' to run the plain PyTorch versions "
             "on the CPU")
     return dev
+
+
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a ``torch.distributed`` DTensor. Imports nothing:
+    no DTensor exists before ``torch.distributed.tensor`` is imported."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(x, mod.DTensor)
 
 
 def kernels_run_on(device=None) -> bool:

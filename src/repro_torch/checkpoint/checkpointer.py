@@ -15,7 +15,11 @@ protocol and the same files, so a checkpoint crosses between the packages:
   * retention — the ``keep`` newest checkpoints are kept, older ones pruned
     only AFTER the new one is durable;
   * async — ``save(..., blocking=False)`` copies the tree to the host
-    before it returns and writes it from a background thread.
+    before it returns and writes it from a background thread;
+  * elastic — a tree of DTensors is saved whole (each leaf gathered, so
+    the files name no mesh: every rank calls ``save``, rank 0 writes, and
+    a blocking save ends with a barrier), and ``shardings=`` restores it
+    onto any mesh (the reference's ``load_pytree(..., shardings=)``).
 
 bfloat16. numpy has no bfloat16 here (no ``ml_dtypes``): a bf16 leaf is
 written as its ``uint16`` bits with ``"bfloat16"`` in the manifest, and on
@@ -40,6 +44,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from repro_torch import is_dtensor
 
 __all__ = ["Checkpointer", "save_pytree", "load_pytree"]
 
@@ -89,6 +95,8 @@ def _to_host(x) -> np.ndarray:
     """A leaf copied to a numpy array on the host (a copy for a CPU tensor
     too: the train step updates the state in place); a bf16 tensor as its
     uint16 bits."""
+    if is_dtensor(x):
+        x = x.detach().full_tensor()         # a collective: every rank
     if isinstance(x, torch.Tensor):
         t = x.detach().to("cpu", copy=True).contiguous()
         if t.dtype == torch.bfloat16:
@@ -119,16 +127,47 @@ def _sha256(path: Path) -> str:
     return h.hexdigest()
 
 
-def _host_tree(tree) -> dict:
-    """{name: (numpy array, dtype name)} — the tree copied to the host."""
-    return {k: (_to_host(v), _dtype_name(v))
-            for k, v in _flatten_with_names(tree).items()}
+def _host_tree(flat: dict):
+    """{name: (numpy array, dtype name)} — the flattened tree copied to the
+    host (DTensor leaves gathered whole, one at a time). On a rank that
+    does not write a tree of DTensors each leaf only joins its gather,
+    nothing reaches the host, and the result is ``None``."""
+    if not _writes(flat):
+        for v in flat.values():
+            if is_dtensor(v):
+                v.detach().full_tensor()     # a collective: every rank
+        return None
+    return {k: (_to_host(v), _dtype_name(v)) for k, v in flat.items()}
+
+
+def _distributed(flat: dict) -> bool:
+    return any(is_dtensor(v) for v in flat.values())
+
+
+def _writes(flat: dict) -> bool:
+    """Whether this process writes the flattened tree ``flat``: always
+    for plain tensors; for DTensors, rank 0 of the default group."""
+    if not _distributed(flat):
+        return True
+    import torch.distributed as dist
+    return dist.get_rank() == 0
+
+
+def _barrier():
+    import torch.distributed as dist
+    dist.barrier()
 
 
 def save_pytree(tree, directory: Path, *, shard_size_mb: int = 512):
     """Write a tree of tensors as npz shards + manifest into
-    ``directory``."""
-    _write_host(_host_tree(tree), Path(directory), shard_size_mb)
+    ``directory``. A tree of DTensors: every rank calls it, rank 0 writes,
+    and all return once the files are there."""
+    flat = _flatten_with_names(tree)
+    host = _host_tree(flat)
+    if host is not None:
+        _write_host(host, Path(directory), shard_size_mb)
+    if _distributed(flat):
+        _barrier()
 
 
 def _write_host(host: dict, directory: Path, shard_size_mb: int = 512):
@@ -166,13 +205,19 @@ def _write_host(host: dict, directory: Path, shard_size_mb: int = 512):
     (directory / "manifest.json").write_text(json.dumps(manifest, indent=2))
 
 
-def load_pytree(template, directory: Path):
+def load_pytree(template, directory: Path, *, shardings=None):
     """Restore tensors into the structure of ``template``.
 
     Each leaf of ``template`` gives the dtype (a restore casts, e.g. fp32
     masters into bf16 weights) and the device of the tensor restored in its
     place; a leaf may be a ``torch.empty(..., device="meta")`` to restore
     onto the CPU without allocating the template.
+
+    ``shardings``: optional matching tree of ``parallel.sharding``
+    ``NamedSharding``s for elastic restore onto a (possibly different)
+    mesh: each leaf is read whole by every rank and placed on its
+    sharding's DTensor placements (each rank keeps its shard; no
+    collective). A leaf whose sharding is None restores as without.
     """
     directory = Path(directory)
     manifest = json.loads((directory / "manifest.json").read_text())
@@ -189,8 +234,16 @@ def load_pytree(template, directory: Path):
     if missing:
         raise KeyError(f"checkpoint missing keys: {sorted(missing)[:5]} ...")
 
+    flat_sh = (_flatten_with_names(shardings) if shardings is not None
+               else {})
+
     def leaf(name, like):
         t = _from_host(data[name], manifest["keys"][name]["dtype"])
+        sh = flat_sh.get(name)
+        if sh is not None:
+            from repro_torch.parallel.sharding import place
+            return place(t.to(device=sh.mesh.device_type, dtype=like.dtype),
+                         sh)
         dev = "cpu" if like.device.type == "meta" else like.device
         return t.to(device=dev, dtype=like.dtype)
 
@@ -230,9 +283,17 @@ class Checkpointer:
         self.wait()
         # Snapshot to host BEFORE returning (async safety: the train step
         # updates the state's tensors in place).
-        host = _host_tree(tree)
+        flat = _flatten_with_names(tree)
+        host = _host_tree(flat)
+        distributed = _distributed(flat)
+        if host is None:                     # a rank that does not write
+            if blocking:
+                _barrier()
+            return
         if blocking:
             self._write(step, host)
+            if distributed:
+                _barrier()
         else:
             self._thread = threading.Thread(
                 target=self._write, args=(step, host), daemon=True)
@@ -263,9 +324,10 @@ class Checkpointer:
             shutil.rmtree(self.root / f"step_{s}", ignore_errors=True)
 
     # ---- restore ----
-    def restore(self, step: Optional[int], template):
+    def restore(self, step: Optional[int], template, *, shardings=None):
         if step is None:
             step = self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.root}")
-        return step, load_pytree(template, self.root / f"step_{step}")
+        return step, load_pytree(template, self.root / f"step_{step}",
+                                 shardings=shardings)

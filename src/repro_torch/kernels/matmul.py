@@ -52,7 +52,7 @@ import threading
 
 import torch
 
-from repro_torch import accum_dtype, dtype_name
+from repro_torch import accum_dtype, dtype_name, is_dtensor
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
 
@@ -907,8 +907,14 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor, *,
     ``DMMA_BLOCKS``), f32 the FMA kernel (blocks from ``F32_BLOCKS``).
     ``out`` receives the result when
     given and must not alias an operand. On a CPU tensor this is
-    :func:`matmul_plain`.
+    :func:`matmul_plain`. A DTensor operand raises: a launch takes one
+    pointer per operand, and ``ops.dense_matmul`` runs K1 on each rank's
+    local shards.
     """
+    if is_dtensor(a) or is_dtensor(b):
+        raise TypeError("matmul_cuda: DTensor operands have no single "
+                        "pointer; ops.dense_matmul runs K1 on the local "
+                        "shards")
     if a.device.type == "cpu":
         return matmul_plain(a, b, block_m=block_m, block_n=block_n,
                             block_k=block_k, out_dtype=out_dtype, out=out)

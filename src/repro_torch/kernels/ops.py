@@ -46,7 +46,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch import default_device, dtype_name, kernels_run_on
+from repro_torch import (default_device, dtype_name, is_dtensor,
+                         kernels_run_on)
 from repro_torch.kernels import autotune
 from repro_torch.kernels.attention import (HEAD_DIMS, attn_tiles,
                                            flash_attention, head_dim_for)
@@ -241,6 +242,10 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, blocks=None,
     sharded chain's ping-pong buffers), else the stripped result is copied
     in.
     """
+    if is_dtensor(a) or is_dtensor(b):
+        raise TypeError("ops.matmul: DTensor operands have no single "
+                        "pointer; ops.dense_matmul runs K1 on the local "
+                        "shards")
     if a.ndim < 2 or b.ndim < 2:
         raise ValueError(f"unsupported batch ranks {tuple(a.shape)} @ "
                          f"{tuple(b.shape)}")
@@ -503,50 +508,78 @@ def dense_routing_active(device=None) -> bool:
 
 
 @torch.library.custom_op("repro_torch::dense_mm", mutates_args=())
-def _dense_mm(x: torch.Tensor, w: torch.Tensor, block_m: int, block_n: int,
-              block_k: int, name: str) -> torch.Tensor:
-    """K1 (its plain version on a CPU tensor) as one dispatcher op, so that
-    a selective-checkpoint policy (``models.model._maybe_remat``) sees the
-    product and can keep its output; ``name`` is the reference's
+def _dense_mm(x: torch.Tensor, w: torch.Tensor, name: str) -> torch.Tensor:
+    """K1 (its plain version on a CPU tensor) on ``pick_blocks`` tiles for
+    the shapes this call gets (on a mesh, a rank's local shards), as one
+    dispatcher op, so that a selective-checkpoint policy
+    (``models.model._maybe_remat``) sees the product and can keep its
+    output, and so that DTensor operands reach K1 as their local shards
+    (``_register_dense_mm_sharding``); ``name`` is the reference's
     ``checkpoint_name`` tag of the projection (``""`` when it has none)."""
-    return matmul(x, w, blocks=(block_m, block_n, block_k))
+    (m, k), n = x.shape, w.shape[1]
+    return matmul(x, w, blocks=pick_blocks(m, n, k, dtype=x.dtype,
+                                           backend=x.device.type))
 
 
 @_dense_mm.register_fake
-def _(x, w, block_m, block_n, block_k, name):
+def _(x, w, name):
     return x.new_empty((x.shape[0], w.shape[1]))
 
 
-#: The dispatcher op of a ``dense_matmul`` forward under autograd.
+#: The dispatcher op of every ``dense_matmul`` product under autograd (the
+#: forward, ``dx`` and ``dw``) and of every one on DTensors.
 DENSE_MM_OP = torch.ops.repro_torch.dense_mm.default
+
+_SHARDING_REGISTERED = False
+
+
+def _register_dense_mm_sharding():
+    """DTensor's sharding strategies for ``DENSE_MM_OP``, those of a 2-D
+    product, for each mesh dim: row shard of x -> row-sharded output;
+    column shard of w -> column-sharded output; contraction shard of both
+    -> a partial sum; both replicated -> replicated. DTensor redistributes
+    the operands to the cheapest of them, and the op then runs K1 on each
+    rank's local shards. Registered once, when the first DTensor arrives
+    (importing ``torch.distributed.tensor`` is not free)."""
+    global _SHARDING_REGISTERED
+    if _SHARDING_REGISTERED:
+        return
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    @register_sharding(DENSE_MM_OP)
+    def _dense_mm_sharding(x, w, name):
+        return [([Replicate()], [Replicate(), Replicate(), None]),
+                ([Shard(0)], [Shard(0), Replicate(), None]),
+                ([Shard(1)], [Replicate(), Shard(1), None]),
+                ([Partial()], [Shard(1), Shard(0), None])]
+
+    _SHARDING_REGISTERED = True
 
 
 class _Dense2d(torch.autograd.Function):
     """``(M, K) @ (K, N)`` with the reference's custom VJP (``_dense_2d``):
-    the forward, ``dx = g @ w.T`` and ``dw = x.T @ g`` are each one K1
-    launch (the plain version on a CPU tensor), each transposed problem on
-    its own ``pick_blocks`` tiles; ``ops.matmul`` makes the transposed
-    operand contiguous (a copy) before the launch."""
+    the forward, ``dx = g @ w.T`` and ``dw = x.T @ g`` are each one
+    ``DENSE_MM_OP`` product, so one K1 launch (the plain version on a CPU
+    tensor) on tiles picked for its own shapes; ``ops.matmul`` makes the
+    transposed operand contiguous (a copy) before the launch. On DTensors
+    DTensor places each of the three and K1 runs on the local shards."""
 
     @staticmethod
-    def forward(ctx, x2, w, blocks, name):
+    def forward(ctx, x2, w, name):
         ctx.save_for_backward(x2, w)
-        return torch.ops.repro_torch.dense_mm(x2, w, *blocks, name)
+        return DENSE_MM_OP(x2, w, name)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         x2, w = ctx.saved_tensors
-        (m, k), n = x2.shape, w.shape[1]
-        backend = g.device.type
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            dx = matmul(g, w.T, blocks=pick_blocks(
-                m, k, n, dtype=g.dtype, backend=backend)).to(x2.dtype)
+            dx = DENSE_MM_OP(g, w.T, "").to(x2.dtype)
         if ctx.needs_input_grad[1]:
-            dw = matmul(x2.T, g, blocks=pick_blocks(
-                k, n, m, dtype=g.dtype, backend=backend)).to(w.dtype)
-        return dx, dw, None, None
+            dw = DENSE_MM_OP(x2.T, g, "").to(w.dtype)
+        return dx, dw, None
 
 
 def dense_matmul(x: torch.Tensor, w: torch.Tensor, *,
@@ -560,11 +593,18 @@ def dense_matmul(x: torch.Tensor, w: torch.Tensor, *,
 
     Differentiable, with the reference's custom VJP: under grad mode, when
     ``x`` or ``w`` requires a gradient, the product runs as ``_Dense2d``
-    (the dispatcher op ``DENSE_MM_OP`` forward, two K1 launches backward:
-    ``dx`` and ``dw``, each on its own tiles). ``name`` tags the product
+    (three ``DENSE_MM_OP`` products, each one K1 launch on its own tiles:
+    the forward, and ``dx`` and ``dw`` backward). ``name`` tags the product
     for the ``"proj"`` remat policy, as the reference's ``checkpoint_name``
     does (``"proj_out"``, ``"block_out"``); it changes nothing else.
-    Without grad the forward is the same one launch, called directly.
+    Without grad, on plain tensors, the forward is the same one launch,
+    called directly (serving pays no dispatcher hop for it).
+
+    On DTensors (a ``ShardCtx`` mesh) the forward without grad is
+    ``DENSE_MM_OP`` too: DTensor places it
+    by the op's registered strategies (``_register_dense_mm_sharding``) and
+    K1 runs on each rank's local shards, on tiles picked for the local
+    shapes. A 1-rank mesh and an N-rank mesh take the same path.
     """
     if w.ndim != 2 or x.ndim < 1 or x.shape[-1] != w.shape[0]:
         raise ValueError(f"dense_matmul needs (..., K) @ (K, N), got "
@@ -574,10 +614,13 @@ def dense_matmul(x: torch.Tensor, w: torch.Tensor, *,
     if m == 0:
         return torch.zeros((*x.shape[:-1], n), dtype=x.dtype,
                            device=x.device)
-    blocks = pick_blocks(m, n, k, dtype=x.dtype, backend=x.device.type)
     x2 = x.reshape(m, k)
-    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-        y = _Dense2d.apply(x2, w, tuple(blocks), name)
-    else:
-        y = matmul(x2, w, blocks=blocks)
+    grad = torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)
+    if is_dtensor(x) or is_dtensor(w):
+        _register_dense_mm_sharding()
+    elif not grad:
+        return matmul(x2, w, blocks=pick_blocks(
+            m, n, k, dtype=x.dtype, backend=x.device.type)).reshape(
+                *x.shape[:-1], n)
+    y = _Dense2d.apply(x2, w, name) if grad else DENSE_MM_OP(x2, w, name)
     return y.reshape(*x.shape[:-1], n)

@@ -4,6 +4,6 @@
 traffic through the bucketing engine (``repro_torch.serve.matfn``);
 ``python -m repro_torch.launch.serve`` generates text with the LM engine
 (``repro_torch.serve.engine``); ``python -m repro_torch.launch.train``
-trains an LM (data -> train step -> checkpoint). The reference's mesh and
-dry-run drivers come with the ``parallel`` slice.
+trains an LM (data -> train step -> checkpoint); ``launch.mesh`` builds
+the production meshes. The reference's dry-run driver is not ported yet.
 """

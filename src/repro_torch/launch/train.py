@@ -23,22 +23,35 @@ from repro_torch import default_device
 from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.configs import get_config
 from repro_torch.data.synthetic import SyntheticStream
+from repro_torch.launch.mesh import dp_axes
 from repro_torch.models import init_params
+from repro_torch.models.layers import ShardCtx, NO_SHARD
+from repro_torch.parallel import sharding
 from repro_torch.runtime.fault import Watchdog, retry_step
 from repro_torch.train.optimizer import _leaves
 from repro_torch.train.train_step import init_train_state, make_train_step
 
 
 def build(cfg, *, mesh=None, steps_total: int, peak_lr: float, accum: int):
-    """(step function, shardings): the train step of ``cfg``. A mesh raises
-    ``ValueError`` until the ``parallel`` slice (sharded training) is
-    ported; the shardings are ``None``."""
-    if mesh is not None:
-        raise ValueError("launch.train.build(mesh=...) is not ported yet: "
-                         "sharded training comes with the parallel/ slice; "
-                         "pass mesh=None")
-    return make_train_step(cfg, total_steps=steps_total, peak_lr=peak_lr,
-                           accum=accum), None
+    """(step function, shardings): the train step of ``cfg``.
+
+    Without a mesh the shardings are ``None``. On a ``DeviceMesh`` the step
+    runs on DTensors with a ``ShardCtx`` over ``dp_axes(mesh)``, and the
+    shardings are the state's placements (``state_specs(..., "train")``
+    through ``named``), worked out on shapes alone; the caller places its
+    state with them (``parallel.sharding.place``)."""
+    sctx = (ShardCtx(mesh=mesh, dp=dp_axes(mesh)) if mesh is not None
+            else NO_SHARD)
+    step_fn = make_train_step(cfg, sctx=sctx, total_steps=steps_total,
+                              peak_lr=peak_lr, accum=accum)
+    if mesh is None:
+        return step_fn, None
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    gen = torch.Generator("cpu")
+    with FakeTensorMode():                   # shapes, no memory
+        state_shape = init_train_state(cfg, init_params(cfg, gen))
+    spec = sharding.state_specs(state_shape, cfg, mesh, "train")
+    return step_fn, sharding.named(mesh, spec)
 
 
 def main(argv=None):

@@ -20,8 +20,13 @@ nested ``dict`` of tensors with the reference's keys.
   body runs under ``torch.utils.checkpoint`` when grad is enabled (the
   reference's ``_maybe_ckpt_body``), so the backward recomputes a chunk's
   scores instead of keeping them.
-* ``ShardCtx`` exists with ``mesh=None`` only; sharding comes with the
-  ``parallel`` slice.
+* ``ShardCtx`` places activations on a ``DeviceMesh`` as DTensors (the
+  reference's ``with_sharding_constraint``). On a mesh the parameters are
+  DTensors too (``parallel.sharding``): every projection is
+  ``ops.dense_matmul`` on DTensors, so K1 on each rank's local shards, and
+  the per-sequence parts that DTensor has no rules for — the attention
+  core with RoPE, the MoE dispatch and combine, the SSM scan — run on each
+  rank's batch shard (``ShardCtx.local``).
 """
 
 from __future__ import annotations
@@ -51,20 +56,112 @@ __all__ = [
 
 @dataclasses.dataclass(frozen=True)
 class ShardCtx:
-    """The reference's activation-sharding context, single-device only.
+    """Activation-sharding helper; no-op when mesh is None (single device).
 
-    ``mesh=None`` is the one value ported: the functions take ``sctx`` as
-    the reference's do and compute on one device. A mesh raises
-    ``ValueError``; sharded serving and training come with the
-    ``parallel`` slice.
+    ``mesh``   — a ``torch.distributed`` ``DeviceMesh`` with named dims.
+    ``dp``     — data-parallel mesh axes for the batch dim (("pod","data")
+                 on the production mesh).
+    ``tp``     — tensor-parallel axis name ("model").
+    ``sp``     — if True, additionally shard the sequence dim of residual
+                 activations over ``tp`` (sequence parallelism).
+
+    On a mesh, activations are DTensors; ``shard`` redistributes one to a
+    spec's placements (``parallel.sharding.spec_placements``).
     """
     mesh: Optional[object] = None
+    dp: tuple = ("data",)
+    tp: str = "model"
+    sp: bool = False
 
     def __post_init__(self):
-        if self.mesh is not None:
-            raise ValueError(
-                "ShardCtx(mesh=...) is not ported yet: sharded LM serving "
-                "and training come with the parallel/ slice; pass mesh=None")
+        if self.mesh is not None and \
+                getattr(self.mesh, "mesh_dim_names", None) is None:
+            raise ValueError("ShardCtx(mesh=...) takes a torch.distributed "
+                             "DeviceMesh with named dims, or None")
+
+    def _ok(self, size: int, axes) -> bool:
+        if self.mesh is None:
+            return False
+        n = 1
+        for a in (axes if isinstance(axes, tuple) else (axes,)):
+            n *= self.mesh.size(self.mesh.mesh_dim_names.index(a))
+        return size % n == 0
+
+    def axes(self, size: int, axes):
+        """``axes`` when they divide ``size``, else None (replicate)."""
+        return axes if axes is not None and self._ok(size, axes) else None
+
+    def _placements(self, entries) -> tuple:
+        from repro_torch.parallel.sharding import P, spec_placements
+        return spec_placements(self.mesh, P(*entries))
+
+    def _dtensor(self, x, placements):
+        """``x`` as a DTensor with ``placements``: redistributed if it is
+        one, else taken as the full value every rank holds alike."""
+        from torch.distributed.tensor import DTensor, Replicate
+        if not isinstance(x, DTensor):
+            x = DTensor.from_local(x, self.mesh,
+                                   [Replicate()] * self.mesh.ndim,
+                                   run_check=False)
+        if tuple(x.placements) != tuple(placements):
+            x = x.redistribute(self.mesh, placements)
+        return x
+
+    def shard(self, x, *axes_per_dim):
+        """The reference's with_sharding_constraint; each entry is a
+        mesh-axis (tuple), or None. Axes that don't divide the dim are
+        dropped (replicated) silently."""
+        if self.mesh is None:
+            return x
+        entries = [self.axes(x.shape[d], a)
+                   for d, a in enumerate(axes_per_dim)]
+        return self._dtensor(x, self._placements(entries))
+
+    def activation(self, x):
+        """Residual-stream activations (B, S, D)."""
+        seq_axis = self.tp if self.sp else None
+        return self.shard(x, self.dp, seq_axis, None)
+
+    def heads(self, x):
+        """Per-head activations (B, S, H, Dh): H over tp when divisible."""
+        return self.shard(x, self.dp, None, self.tp, None)
+
+    def replicated(self, x):
+        """A tensor every rank holds alike (positions, a zero) as a
+        replicated DTensor on the mesh; as it is without a mesh."""
+        if self.mesh is None:
+            return x
+        return self._dtensor(x, self._placements([None] * x.ndim))
+
+    def local(self, fn, args, in_specs, out_specs):
+        """``fn`` on each rank's local shards. ``in_specs[i]`` gives the
+        mesh axes (already resolved: ``axes``) per dim of ``args[i]``, which
+        is redistributed to them and passed as its local tensor; None
+        passes an argument as it is. ``fn`` returns a tuple; each output
+        with a spec in ``out_specs`` becomes a DTensor of those axes (its
+        local value this rank's shard), the others are returned as they
+        are. An argument replicated on a mesh dim that another argument is
+        sharded on (a weight, against the batch shard) gets a partial sum
+        there as its gradient. Without a mesh, ``fn(*args)``."""
+        if self.mesh is None:
+            return fn(*args)
+        from torch.distributed.tensor import DTensor, Partial, Replicate
+        pls = [None if spec is None or a is None
+               else self._placements(spec) for a, spec in zip(args, in_specs)]
+        # The mesh dims the work is split over: an argument replicated on
+        # one of them (a weight) gets a partial sum there as its gradient.
+        split = [any(pl is not None and pl[i] != Replicate() for pl in pls)
+                 for i in range(self.mesh.ndim)]
+        loc = [a if pl is None else self._dtensor(a, pl).to_local(
+                   grad_placements=[Partial() if cut and p == Replicate()
+                                    else p for p, cut in zip(pl, split)])
+               for a, pl in zip(args, pls)]
+        outs = fn(*loc)
+        return tuple(
+            o if spec is None or o is None
+            else DTensor.from_local(o, self.mesh, self._placements(spec),
+                                    run_check=False)
+            for o, spec in zip(outs, out_specs))
 
 
 NO_SHARD = ShardCtx()
@@ -401,15 +498,6 @@ def attention_block(cfg: ArchConfig, p, x, *, sctx: ShardCtx = NO_SHARD,
 
     q = dense(x, p["wq"], p.get("bq"), name="proj_out").reshape(b, s, h,
                                                                 dh)
-    if cfg.qk_norm:
-        q = norm(q, p["q_norm"], kind="rmsnorm", eps=cfg.norm_eps)
-    if use_rope:
-        if positions is None:
-            positions = torch.arange(s, dtype=torch.int32,
-                                     device=x.device)[None, :]
-        q = rope(q, positions, theta=cfg.rope_theta)
-    qg = q.reshape(b, s, hkv, g, dh)
-
     need_fresh = kv_override is None and (kv_cache is None or cache_write)
     k = v = None
     if kv_override is not None:
@@ -419,42 +507,78 @@ def attention_block(cfg: ArchConfig, p, x, *, sctx: ShardCtx = NO_SHARD,
             b, s, hkv, dh)
         v = dense(x, p["wv"], p.get("bv"), name="proj_out").reshape(
             b, s, hkv, dh)
-        if cfg.qk_norm:
-            k = norm(k, p["k_norm"], kind="rmsnorm", eps=cfg.norm_eps)
-        if use_rope:
-            k = rope(k, positions, theta=cfg.rope_theta)
-
+    k_cache = v_cache = meta = None
     if kv_cache is not None:
         k_cache, v_cache, meta = kv_cache
-        if cache_write:
-            k_cache, v_cache, n_valid = write_kv_cache(
-                k_cache, v_cache, k[:, 0], v[:, 0], meta)
-        else:
-            n_valid = meta
-        out = _decode_attention(qg, k_cache, v_cache, n_valid)
-        aux_kv = (k_cache, v_cache)
-    else:
+    recompute = cfg.attention_bwd == "recompute"
+
+    def core(q, k, v, positions, k_cache, v_cache, meta, q_norm, k_norm):
+        # each rank's batch shard (and kv-head shard) on a mesh
+        bl, hl = q.shape[0], q.shape[2]
+        if cfg.qk_norm:
+            q = norm(q, q_norm, kind="rmsnorm", eps=cfg.norm_eps)
+        if use_rope:
+            if positions is None:
+                positions = torch.arange(s, dtype=torch.int32,
+                                         device=q.device)[None, :]
+            q = rope(q, positions, theta=cfg.rope_theta)
+        qg = q.reshape(bl, s, hl // g, g, dh)
+        if need_fresh:
+            if cfg.qk_norm:
+                k = norm(k, k_norm, kind="rmsnorm", eps=cfg.norm_eps)
+            if use_rope:
+                k = rope(k, positions, theta=cfg.rope_theta)
+        if k_cache is not None:
+            if cache_write:
+                k_cache, v_cache, n_valid = write_kv_cache(
+                    k_cache, v_cache, k[:, 0], v[:, 0], meta)
+            else:
+                n_valid = meta
+            out = _decode_attention(qg, k_cache, v_cache, n_valid)
+            return out, k_cache, v_cache
         q_off = k.shape[1] - s
-        if q_chunk is None or kv_chunk is None:
-            tuned_q, tuned_kv = _pick_chunks(s, k.shape[1], dh, x.dtype,
-                                             x.device)
-            q_chunk = tuned_q if q_chunk is None else q_chunk
-            kv_chunk = tuned_kv if kv_chunk is None else kv_chunk
-        recompute = cfg.attention_bwd == "recompute"
+        qc, kc = q_chunk, kv_chunk
+        if qc is None or kc is None:
+            tuned_q, tuned_kv = _pick_chunks(s, k.shape[1], dh, q.dtype,
+                                             q.device)
+            qc = tuned_q if qc is None else qc
+            kc = tuned_kv if kc is None else kc
         if cfg.sliding_window is not None and causal and \
                 k.shape[1] > cfg.sliding_window:
             out = _banded_window_attention(
                 qg, k, v, window=cfg.sliding_window, q_offset=q_off,
-                q_chunk=q_chunk, bwd_recompute=recompute)
+                q_chunk=qc, bwd_recompute=recompute)
         else:
             out = _online_chunk_attention(
                 qg, k, v, causal=causal, q_offset=q_off,
-                q_chunk=q_chunk, kv_chunk=kv_chunk,
-                bwd_recompute=recompute)
-        aux_kv = (k, v)
+                q_chunk=qc, kv_chunk=kc, bwd_recompute=recompute)
+        return out, k, v
+
+    # On a mesh the core runs on the batch over dp and the heads over tp
+    # (the reference's ``sctx.heads``) when whole kv heads divide tp; else
+    # it gathers the heads: each tp rank computes every head of its batch
+    # shard.
+    bat = sctx.axes(b, sctx.dp)
+    ha = sctx.tp if sctx._ok(hkv, sctx.tp) else None
+    bsh = (bat, None, ha, None)
+    pos_spec = None
+    if positions is not None:
+        pos_spec = (bat if positions.shape[0] == b else None, None)
+    out, k_out, v_out = sctx.local(
+        core, (q, k, v, positions, k_cache, v_cache, meta, p.get("q_norm"),
+               p.get("k_norm")),
+        (bsh, bsh, bsh, pos_spec, bsh, bsh, (bat,), (None,), (None,)),
+        (bsh, bsh, bsh))
+    if k_cache is not None:
+        if sctx.mesh is not None:        # back to the cache's own placement
+            k_out = k_out.redistribute(sctx.mesh, k_cache.placements)
+            v_out = v_out.redistribute(sctx.mesh, v_cache.placements)
+        aux_kv = (k_out, v_out)
+    else:
+        aux_kv = (k_out, v_out) if need_fresh else (k, v)
 
     out = dense(out.reshape(b, s, h * dh), p["wo"], name="block_out")
-    return out, aux_kv
+    return sctx.activation(out), aux_kv
 
 
 # ---------------------------------------------------------------------------
@@ -475,13 +599,17 @@ def init_mlp(generator, cfg: ArchConfig):
 
 
 def mlp_block(cfg: ArchConfig, p, x, *, sctx: ShardCtx = NO_SHARD):
-    """SwiGLU or plain MLP."""
+    """SwiGLU or plain MLP (up/gate sharded over tp on d_ff)."""
     up = dense(x, p["w_up"], name="proj_out")
+    up = sctx.shard(up, sctx.dp, None, sctx.tp)
     if cfg.mlp_type == "swiglu":
-        h = _act(dense(x, p["w_gate"], name="proj_out"), cfg.act) * up
+        gate = sctx.shard(dense(x, p["w_gate"], name="proj_out"), sctx.dp,
+                          None, sctx.tp)
+        h = _act(gate, cfg.act) * up
     else:
         h = _act(up, cfg.act)
-    return dense(h, p["w_down"], name="block_out")
+    y = dense(h, p["w_down"], name="block_out")
+    return sctx.activation(y)
 
 
 def init_moe(generator, cfg: ArchConfig):
@@ -496,7 +624,8 @@ def init_moe(generator, cfg: ArchConfig):
     }
 
 
-def _moe_dispatch(cfg: ArchConfig, p, x, cap: int):
+def _moe_dispatch(cfg: ArchConfig, p, x, cap: int,
+                  sctx: ShardCtx = NO_SHARD):
     """Sort-based top-k dispatch, each sequence on its own. x: (B, S, D).
 
     Per-sequence dispatch enforces expert capacity per sequence (GShard
@@ -504,13 +633,27 @@ def _moe_dispatch(cfg: ArchConfig, p, x, cap: int):
     ``_moe_dispatch_one`` does: the same stable sort, segment starts by
     ``searchsorted`` and a dump row for dropped slots, with a batch axis.
     The router is one ``dense`` for the whole batch. Returns (buf
-    (B,E,cap,D), combine(y_buf) -> (B,S,D), probs (B,S,E)).
+    (B,E,cap,D), combine(y_buf) -> (B,S,D), probs (B,S,E)). On a mesh the
+    routing runs on each rank's batch shard, and so does ``combine``.
     """
+    logits = dense(x, p["router"]).float()                   # (B,S,E)
+    bat = sctx.axes(x.shape[0], sctx.dp)
+    spec3, spec4 = (bat, None, None), (bat, None, None, None)
+    buf, combine, probs = sctx.local(
+        lambda xl, ll: _route(cfg, xl, ll, cap), (x, logits),
+        (spec3, spec3), (spec4, None, spec3))
+    if sctx.mesh is None:
+        return buf, combine, probs
+    return buf, lambda y_buf: sctx.local(
+        lambda yl: (combine(yl),), (y_buf,), (spec4,), (spec3,))[0], probs
+
+
+def _route(cfg: ArchConfig, x, logits, cap: int):
+    """``_moe_dispatch`` after the router product, on local tensors."""
     bsz, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     dev = x.device
 
-    logits = dense(x, p["router"]).float()                   # (B,S,E)
     probs = torch.softmax(logits, dim=-1)
     # lax.top_k breaks ties towards the lower index; a stable descending
     # sort does the same.
@@ -573,9 +716,12 @@ def moe_block(cfg: ArchConfig, p, x, *, sctx: ShardCtx = NO_SHARD,
         else cfg.capacity_factor
     cap = int(max(1, round(s * k / e * cf)))
 
-    buf, combine, probs = _moe_dispatch(cfg, p, x, cap)     # (B,E,cap,D)
+    buf, combine, probs = _moe_dispatch(cfg, p, x, cap, sctx)  # (B,E,cap,D)
     h_gate = _expert_dense(buf, p["w_gate"].to(x.dtype))
     h_up = _expert_dense(buf, p["w_up"].to(x.dtype))
+    h_gate = sctx.shard(h_gate, sctx.dp, None, None, sctx.tp)
+    h_up = sctx.shard(h_up, sctx.dp, None, None, sctx.tp)
     h = _act(h_gate, cfg.act) * h_up
     y_buf = _expert_dense(h, p["w_down"].to(x.dtype))
-    return combine(y_buf), probs
+    y_buf = sctx.shard(y_buf, sctx.dp, None, None, None)
+    return sctx.activation(combine(y_buf)), probs

@@ -32,7 +32,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from repro_torch import DTYPES, exact_matmul_settings
+from repro_torch import DTYPES, exact_matmul_settings, is_dtensor
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.ops import DENSE_MM_OP
 from repro_torch.models import layers as L
@@ -167,7 +167,7 @@ def _policy(name: str):
     everything else is recomputed."""
     def policy(ctx, op, *args, **kwargs):
         if op == DENSE_MM_OP and (name == "dots"
-                                  or args[5] in _PROJ_NAMES):
+                                  or args[2] in _PROJ_NAMES):
             return CheckpointPolicy.MUST_SAVE
         if name == "dots" and op in _DOTS:
             return CheckpointPolicy.MUST_SAVE
@@ -222,11 +222,12 @@ def _sinusoid(pos, d, dtype):
     return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1).to(dtype)
 
 
-def _ffn(cfg, p, x):
+def _ffn(cfg, p, x, sctx):
     """MLP or MoE sublayer; returns (y, aux_loss_scalar)."""
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    zero = sctx.replicated(torch.zeros((), dtype=torch.float32,
+                                       device=x.device))
     if cfg.n_experts:
-        y, probs = L.moe_block(cfg, p["moe"], x)
+        y, probs = L.moe_block(cfg, p["moe"], x, sctx=sctx)
         # Switch-style load-balance aux: E * sum_e f_e * P_e
         e = cfg.n_experts
         top1 = torch.argmax(probs, dim=-1)
@@ -234,33 +235,34 @@ def _ffn(cfg, p, x):
         pbar = torch.mean(probs, dim=(0, 1))
         return y, e * torch.sum(f * pbar)
     if cfg.d_ff:
-        return L.mlp_block(cfg, p["mlp"], x), zero
+        return L.mlp_block(cfg, p["mlp"], x, sctx=sctx), zero
     return torch.zeros_like(x), zero
 
 
-def _attn_layer_apply(cfg, p, x, *, positions, causal=None,
+def _attn_layer_apply(cfg, p, x, *, sctx, positions, causal=None,
                       kv_cache=None, cross_kv=None):
     """Pre-LN attention (+optional cross-attn) + FFN. Returns
     (x, fresh_kv, aux)."""
     h, fresh_kv = L.attention_block(
-        cfg, p["attn"], L._apply_norm(x, p["ln1"], cfg), positions=positions, kv_cache=kv_cache, use_rope=cfg.use_rope,
+        cfg, p["attn"], L._apply_norm(x, p["ln1"], cfg), sctx=sctx,
+        positions=positions, kv_cache=kv_cache, use_rope=cfg.use_rope,
         causal=causal)
     x = x + h
     if cross_kv is not None:
         hc, _ = L.attention_block(
-            cfg, p["cross"], L._apply_norm(x, p["ln_cross"], cfg),
+            cfg, p["cross"], L._apply_norm(x, p["ln_cross"], cfg), sctx=sctx,
             positions=None, use_rope=False, causal=False,
             kv_override=cross_kv)
         x = x + hc
-    y, aux = _ffn(cfg, p, L._apply_norm(x, p["ln2"], cfg))
+    y, aux = _ffn(cfg, p, L._apply_norm(x, p["ln2"], cfg), sctx)
     return x + y, fresh_kv, aux
 
 
-def _ssm_layers(cfg, blocks, x, want_state):
+def _ssm_layers(cfg, blocks, x, want_state, sctx):
     """Run a stack of SSM layers; returns (x, [(state, conv)] per layer)."""
     def body(x, blk):
         h = S.ssm_block(cfg, blk["ssm"], L._apply_norm(x, blk["ln1"], cfg),
-                        return_state=want_state)
+                        sctx=sctx, return_state=want_state)
         if want_state:
             h, st = h
             return x + h, st
@@ -275,14 +277,14 @@ def _ssm_layers(cfg, blocks, x, want_state):
     return x, states
 
 
-def _ssm_decode_layers(cfg, blocks, x, st, cv):
+def _ssm_decode_layers(cfg, blocks, x, st, cv, sctx):
     """One decode step through a stack of SSM layers with their states."""
     new_st, new_cv = [], []
     for i in range(_n_stacked(blocks)):
         blk = _layer(blocks, i)
         y, s2, c2 = S.ssm_decode_step(cfg, blk["ssm"],
                                       L._apply_norm(x, blk["ln1"], cfg),
-                                      st[i], cv[i])
+                                      st[i], cv[i], sctx=sctx)
         x = x + y
         new_st.append(s2)
         new_cv.append(c2)
@@ -293,27 +295,41 @@ def _ssm_decode_layers(cfg, blocks, x, st, cv):
 # Forward (prefill)
 # ---------------------------------------------------------------------------
 
-def _embed_inputs(cfg, params, tokens, *, vision_embeds=None):
+def _embed_tokens(params, tokens, cdt, sctx):
+    """The token embedding. F.embedding, not indexing: indexing's backward
+    is an accumulating index_put_, whose order (and so its rounding) varies
+    run to run on several CPU threads; the embedding backward is
+    deterministic. On a mesh the tokens are batch-sharded and the table is
+    gathered whole (DTensor's vocab-parallel embedding is not used)."""
+    w = params["embed"]
+    if sctx.mesh is not None:
+        tokens = sctx.shard(tokens, sctx.dp, None)
+        w = sctx.replicated(w)
+    return F.embedding(tokens.long(), w).to(cdt)
+
+
+def _embed_inputs(cfg, params, tokens, *, vision_embeds=None,
+                  sctx=NO_SHARD):
     cdt = DTYPES[cfg.compute_dtype]
-    # F.embedding, not indexing: indexing's backward is an accumulating
-    # index_put_, whose order (and so its rounding) varies run to run on
-    # several CPU threads; the embedding backward is deterministic.
-    x = F.embedding(tokens.long(), params["embed"]).to(cdt)
+    x = _embed_tokens(params, tokens, cdt, sctx)
     if cfg.family == "vlm" and vision_embeds is not None:
-        x = torch.cat([vision_embeds.to(cdt), x], dim=1)
+        x = torch.cat([sctx.shard(vision_embeds, sctx.dp, None, None)
+                       .to(cdt), x], dim=1)
     if cfg.family == "audio":
         # decoder positions are sinusoidal (whisper-style)
-        x = x + sinusoidal_positions(x.shape[1], cfg.d_model, cdt,
-                                     x.device)[None]
-    return x
+        x = x + sctx.replicated(sinusoidal_positions(
+            x.shape[1], cfg.d_model, cdt, x.device)[None])
+    return sctx.activation(x)
 
 
-def _encode(cfg, params, frames):
+def _encode(cfg, params, frames, sctx):
     cdt = DTYPES[cfg.compute_dtype]
-    x = frames.to(cdt) + sinusoidal_positions(
-        frames.shape[1], cfg.d_model, cdt, frames.device)[None]
+    x = sctx.shard(frames, sctx.dp, None, None).to(cdt) + sctx.replicated(
+        sinusoidal_positions(frames.shape[1], cfg.d_model, cdt,
+                             frames.device)[None])
+    x = sctx.activation(x)
     body = _maybe_remat(lambda x, blk: _attn_layer_apply(
-        cfg, blk, x, positions=None, causal=False)[0], cfg)
+        cfg, blk, x, sctx=sctx, positions=None, causal=False)[0], cfg)
     for blk in _layers(params["enc_blocks"]):
         x = body(x, blk)
     return L._apply_norm(x, params["enc_norm"], cfg)
@@ -330,11 +346,24 @@ def _cast_params(cfg: ArchConfig, params):
     return _map(lambda p: p.to(cdt) if p.dtype == pdt else p, params)
 
 
+def _per_shard(fn, x):
+    """``fn(x)``; on a DTensor, ``fn`` of each rank's shard, placed as
+    ``x`` was (``fn`` works along dims the mesh does not split: a cache's
+    slot dim)."""
+    if not is_dtensor(x):
+        return fn(x)
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(fn(x.to_local()), x.device_mesh, x.placements,
+                              run_check=False)
+
+
 def _ring(kv, s_total: int, slots: int):
     """The last ``slots`` positions of ``kv`` (stacked (L, B, S, ...), the
     positions in order, ending at ``s_total - 1``) with position p at slot
     ``p % slots``, as ``decode_step``'s ring writes expect them."""
-    return torch.roll(kv[:, :, -slots:], shifts=s_total % slots, dims=2)
+    return _per_shard(lambda t: torch.roll(t[:, :, -slots:],
+                                           shifts=s_total % slots, dims=2),
+                      kv)
 
 
 def forward(cfg: ArchConfig, params, tokens, *, sctx: ShardCtx = NO_SHARD,
@@ -347,16 +376,18 @@ def forward(cfg: ArchConfig, params, tokens, *, sctx: ShardCtx = NO_SHARD,
     """
     exact_matmul_settings()
     params = _cast_params(cfg, params)
-    x = _embed_inputs(cfg, params, tokens, vision_embeds=vision_embeds)
+    x = _embed_inputs(cfg, params, tokens, vision_embeds=vision_embeds,
+                      sctx=sctx)
     b, s_total, _ = x.shape
     positions = torch.arange(s_total, dtype=torch.int32,
                              device=x.device)[None, :]
     enc_out = None
     if cfg.encoder_layers:
-        enc_out = _encode(cfg, params, frames)
+        enc_out = _encode(cfg, params, frames, sctx)
 
     want_cache = return_cache
-    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux_total = sctx.replicated(torch.zeros((), dtype=torch.float32,
+                                            device=x.device))
     cache = {}
     ks, vs = [], []
 
@@ -364,22 +395,23 @@ def forward(cfg: ArchConfig, params, tokens, *, sctx: ShardCtx = NO_SHARD,
         shared = params["shared_attn"]
         states = []
         for m_blocks in _layers(params["m_blocks"]):
-            x, st = _ssm_layers(cfg, m_blocks, x, want_cache)
+            x, st = _ssm_layers(cfg, m_blocks, x, want_cache, sctx)
             states += st
-            x, (k, v), _ = _attn_layer_apply(cfg, shared, x,
+            x, (k, v), _ = _attn_layer_apply(cfg, shared, x, sctx=sctx,
                                              positions=positions)
             if want_cache:
                 ks.append(k)
                 vs.append(v)
         if cfg.n_tail_layers:
-            x, st = _ssm_layers(cfg, params["tail_blocks"], x, want_cache)
+            x, st = _ssm_layers(cfg, params["tail_blocks"], x, want_cache,
+                                sctx)
             states += st
         if want_cache:
             cache["ssm_state"] = torch.stack([s for s, _ in states])
             cache["conv_state"] = torch.stack([c for _, c in states])
 
     elif cfg.family == "ssm":                               # ---- mamba2
-        x, states = _ssm_layers(cfg, params["blocks"], x, want_cache)
+        x, states = _ssm_layers(cfg, params["blocks"], x, want_cache, sctx)
         if want_cache:
             cache["ssm_state"] = torch.stack([s for s, _ in states])
             cache["conv_state"] = torch.stack([c for _, c in states])
@@ -392,8 +424,8 @@ def forward(cfg: ArchConfig, params, tokens, *, sctx: ShardCtx = NO_SHARD,
                 shape = (b, enc_out.shape[1], cfg.n_kv_heads, cfg.d_head)
                 ckv = (L.dense(enc_out, blk["cross"]["wk"]).reshape(shape),
                        L.dense(enc_out, blk["cross"]["wv"]).reshape(shape))
-            x, kv, aux = _attn_layer_apply(cfg, blk, x, positions=positions,
-                                           cross_kv=ckv)
+            x, kv, aux = _attn_layer_apply(cfg, blk, x, sctx=sctx,
+                                           positions=positions, cross_kv=ckv)
             return x, kv, aux, ckv
 
         body = _maybe_remat(body, cfg)
@@ -421,8 +453,9 @@ def forward(cfg: ArchConfig, params, tokens, *, sctx: ShardCtx = NO_SHARD,
     x = L._apply_norm(x, params["final_norm"], cfg)
     out = {"x": x, "aux": aux_total / max(cfg.n_layers, 1)}
     if want_cache:
-        cache["pos"] = torch.full((b,), s_total, dtype=torch.int32,
-                                  device=x.device)
+        cache["pos"] = sctx.shard(torch.full((b,), s_total,
+                                             dtype=torch.int32,
+                                             device=x.device), sctx.dp)
         out["cache"] = _pad_cache(cfg, cache, cache_len, s_total)
     return out
 
@@ -440,11 +473,11 @@ def _pad_cache(cfg, cache, cache_len, s_total):
             s = cur.shape[2]
             if s < eff:
                 # s < eff <= window: no position has wrapped yet
-                pad = torch.zeros(cur.shape[:2] + (eff - s,) + cur.shape[3:],
-                                  dtype=cur.dtype, device=cur.device)
-                cache[key] = torch.cat([cur, pad], dim=2)
+                cache[key] = _per_shard(
+                    lambda t: F.pad(t, (0, 0, 0, 0, 0, eff - s)), cur)
             elif s > eff:
-                order = torch.roll(cur, shifts=-(s_total % s), dims=2)
+                order = _per_shard(lambda t: torch.roll(
+                    t, shifts=-(s_total % s), dims=2), cur)
                 cache[key] = _ring(order, s_total, eff)
     return cache
 
@@ -470,9 +503,14 @@ def decode_step(cfg: ArchConfig, params, tokens, cache, *,
     b = tokens.shape[0]
     pos = cache["pos"]                                  # (B,) tokens so far
     cdt = DTYPES[cfg.compute_dtype]
-    x = F.embedding(tokens.long(), params["embed"]).to(cdt)
+    x = _embed_tokens(params, tokens, cdt, sctx)
     if cfg.family == "audio":
-        x = x + _sinusoid(pos[:, None].float(), cfg.d_model, cdt)[:, None, :]
+        bat = sctx.axes(b, sctx.dp)
+        x = x + sctx.local(
+            lambda pl: (_sinusoid(pl[:, None].float(), cfg.d_model,
+                                  cdt)[:, None, :],),
+            (pos,), ((bat,),), ((bat, None, None),))[0]
+    x = sctx.activation(x)
     positions = pos[:, None]
     new_cache = dict(cache)
 
@@ -485,22 +523,23 @@ def decode_step(cfg: ArchConfig, params, tokens, cache, *,
             lo = r * n_m_per
             x, s2, c2 = _ssm_decode_layers(
                 cfg, _layer(params["m_blocks"], r), x, st[lo:lo + n_m_per],
-                cv[lo:lo + n_m_per])
+                cv[lo:lo + n_m_per], sctx)
             new_st += s2
             new_cv += c2
             h, (k_r, v_r) = L.attention_block(
                 cfg, shared["attn"], L._apply_norm(x, shared["ln1"], cfg),
-                positions=positions, use_rope=cfg.use_rope,
+                sctx=sctx, positions=positions, use_rope=cfg.use_rope,
                 kv_cache=(cache["k"][r], cache["v"][r], pos))
             x = x + h
-            y, _ = _ffn(cfg, shared, L._apply_norm(x, shared["ln2"], cfg))
+            y, _ = _ffn(cfg, shared, L._apply_norm(x, shared["ln2"], cfg),
+                        sctx)
             x = x + y
             ks.append(k_r)
             vs.append(v_r)
         if cfg.n_tail_layers:
             lo = cfg.n_pattern_repeats * n_m_per
             x, s2, c2 = _ssm_decode_layers(cfg, params["tail_blocks"], x,
-                                           st[lo:], cv[lo:])
+                                           st[lo:], cv[lo:], sctx)
             new_st += s2
             new_cv += c2
         new_cache.update(ssm_state=torch.stack(new_st),
@@ -510,7 +549,7 @@ def decode_step(cfg: ArchConfig, params, tokens, cache, *,
     elif cfg.family == "ssm":                           # ---- mamba2
         x, new_st, new_cv = _ssm_decode_layers(
             cfg, params["blocks"], x, cache["ssm_state"],
-            cache["conv_state"])
+            cache["conv_state"], sctx)
         new_cache.update(ssm_state=torch.stack(new_st),
                          conv_state=torch.stack(new_cv))
 
@@ -522,7 +561,7 @@ def decode_step(cfg: ArchConfig, params, tokens, cache, *,
             blk = _layer(blocks, i)
             h, (k_l, v_l) = L.attention_block(
                 cfg, blk["attn"], L._apply_norm(x, blk["ln1"], cfg),
-                positions=positions, use_rope=cfg.use_rope,
+                sctx=sctx, positions=positions, use_rope=cfg.use_rope,
                 kv_cache=(cache["k"][i], cache["v"][i], pos))
             x = x + h
             if has_cross:
@@ -531,11 +570,11 @@ def decode_step(cfg: ArchConfig, params, tokens, cache, *,
                                    device=x.device)
                 hc, _ = L.attention_block(
                     cfg, blk["cross"], L._apply_norm(x, blk["ln_cross"], cfg),
-                    positions=None, use_rope=False,
+                    sctx=sctx, positions=None, use_rope=False,
                     kv_cache=(ek, cache["enc_v"][i], n_enc),
                     cache_write=False)
                 x = x + hc
-            y, _ = _ffn(cfg, blk, L._apply_norm(x, blk["ln2"], cfg))
+            y, _ = _ffn(cfg, blk, L._apply_norm(x, blk["ln2"], cfg), sctx)
             x = x + y
             ks.append(k_l)
             vs.append(v_l)

@@ -111,89 +111,108 @@ def ssm_block(cfg: ArchConfig, p, xin, *, sctx: ShardCtx = NO_SHARD,
     cdt = xin.dtype
 
     zxbcdt = dense(xin, p["w_in"])
-    z, xc, bmat, cmat, dt = _split_proj(cfg, zxbcdt)
 
-    conv_in = torch.cat([xc, bmat, cmat], dim=-1)
-    conv_out, new_conv_state = _causal_conv(conv_in, p["conv_w"],
-                                            p["conv_b"], state=conv_state)
-    conv_out = F.silu(conv_out)
-    xc = conv_out[..., :di]
-    bmat = conv_out[..., di:di + g * n]
-    cmat = conv_out[..., di + g * n:]
+    def core(zxbcdt, conv_w, conv_b, a_log, dt_bias, d_skip, norm_w,
+             initial_state, conv_state):
+        # each rank's batch shard on a mesh
+        bsz = zxbcdt.shape[0]
+        z, xc, bmat, cmat, dt = _split_proj(cfg, zxbcdt)
 
-    # heads
-    x_h = xc.reshape(bsz, s, h, ph)                       # (B,S,H,P)
-    rep = h // g
-    b_h = torch.repeat_interleave(bmat.reshape(bsz, s, g, n), rep, dim=2)
-    c_h = torch.repeat_interleave(cmat.reshape(bsz, s, g, n), rep, dim=2)
+        conv_in = torch.cat([xc, bmat, cmat], dim=-1)
+        conv_out, new_conv_state = _causal_conv(conv_in, conv_w,
+                                                conv_b, state=conv_state)
+        conv_out = F.silu(conv_out)
+        xc = conv_out[..., :di]
+        bmat = conv_out[..., di:di + g * n]
+        cmat = conv_out[..., di + g * n:]
 
-    a = -torch.exp(p["A_log"].float())                    # (H,) negative
-    dt = F.softplus(dt.float() + p["dt_bias"].float())    # (B,S,H)
-    log_decay = dt * a                                    # (B,S,H) = log a_t
-    xdt = (x_h.float() * dt[..., None]).to(cdt)
+        # heads
+        x_h = xc.reshape(bsz, s, h, ph)                       # (B,S,H,P)
+        rep = h // g
+        b_h = torch.repeat_interleave(bmat.reshape(bsz, s, g, n), rep, dim=2)
+        c_h = torch.repeat_interleave(cmat.reshape(bsz, s, g, n), rep, dim=2)
 
-    # ---- chunk views (heavy operands in compute dtype, fp32 products) ----
-    xq = xdt.reshape(bsz, nc, q, h, ph)
-    bq = b_h.reshape(bsz, nc, q, h, n).to(cdt)
-    cq = c_h.reshape(bsz, nc, q, h, n).to(cdt)
-    ldq = log_decay.reshape(bsz, nc, q, h)
-    cum = torch.cumsum(ldq, dim=2)                        # within-chunk
-    chunk_total = cum[:, :, -1]                           # (B,nc,H)
+        a = -torch.exp(a_log.float())                    # (H,) negative
+        dt = F.softplus(dt.float() + dt_bias.float())    # (B,S,H)
+        log_decay = dt * a                            # (B,S,H) = log a_t
+        xdt = (x_h.float() * dt[..., None]).to(cdt)
 
-    # ---- intra-chunk quadratic term ----
-    # L[i,j] = exp(cum_i - cum_j) for j <= i  (decay from j+1..i)
-    li = cum[:, :, :, None, :]                            # (B,nc,q,1,H)
-    lj = cum[:, :, None, :, :]                            # (B,nc,1,q,H)
-    mask = torch.tril(torch.ones((q, q), dtype=torch.bool,
-                                 device=xin.device))
-    # The exponent is masked, not the exponential: above the diagonal
-    # li - lj > 0 can overflow exp to inf, and a where() after the exp
-    # gives that entry the gradient 0 * inf = NaN (the reference's form,
-    # which trains Mamba2-130m in bf16 at full depth to a NaN gradient).
-    # The values are the same.
-    lmat = torch.exp(torch.where(mask[None, None, :, :, None], li - lj,
-                                 float("-inf")))
-    scores = _f32_einsum("bcihn,bcjhn->bcijh", cq, bq)
-    y_intra = _f32_einsum("bcijh,bcjhp->bcihp", (scores * lmat).to(cdt), xq)
+        # ---- chunk views (heavy operands in compute dtype, fp32 products)
+        xq = xdt.reshape(bsz, nc, q, h, ph)
+        bq = b_h.reshape(bsz, nc, q, h, n).to(cdt)
+        cq = c_h.reshape(bsz, nc, q, h, n).to(cdt)
+        ldq = log_decay.reshape(bsz, nc, q, h)
+        cum = torch.cumsum(ldq, dim=2)                        # within-chunk
+        chunk_total = cum[:, :, -1]                           # (B,nc,H)
 
-    # ---- chunk states: S_c = sum_j decay(j->end) x_j B_j^T ----
-    decay_to_end = torch.exp(chunk_total[:, :, None, :] - cum)  # (B,nc,q,H)
-    xqd = (xq.float() * decay_to_end[..., None]).to(cdt)
-    s_c = _f32_einsum("bcjhn,bcjhp->bchpn", bq, xqd)           # (B,nc,H,P,N)
+        # ---- intra-chunk quadratic term ----
+        # L[i,j] = exp(cum_i - cum_j) for j <= i  (decay from j+1..i)
+        li = cum[:, :, :, None, :]                            # (B,nc,q,1,H)
+        lj = cum[:, :, None, :, :]                            # (B,nc,1,q,H)
+        mask = torch.tril(torch.ones((q, q), dtype=torch.bool,
+                                     device=xin.device))
+        # The exponent is masked, not the exponential: above the diagonal
+        # li - lj > 0 can overflow exp to inf, and a where() after the exp
+        # gives that entry the gradient 0 * inf = NaN (the reference's form,
+        # which trains Mamba2-130m in bf16 at full depth to a NaN gradient).
+        # The values are the same.
+        lmat = torch.exp(torch.where(mask[None, None, :, :, None], li - lj,
+                                     float("-inf")))
+        scores = _f32_einsum("bcihn,bcjhn->bcijh", cq, bq)
+        y_intra = _f32_einsum("bcijh,bcjhp->bcihp", (scores * lmat).to(cdt),
+                              xq)
 
-    # ---- inter-chunk recurrence via the log-depth doubling scan ----
-    # operator per chunk: h -> exp(chunk_total) * h + S_c
-    decay_c = torch.exp(chunk_total)                           # (B,nc,H)
+        # ---- chunk states: S_c = sum_j decay(j->end) x_j B_j^T ----
+        decay_to_end = torch.exp(chunk_total[:, :, None, :] - cum)
+        xqd = (xq.float() * decay_to_end[..., None]).to(cdt)
+        s_c = _f32_einsum("bcjhn,bcjhp->bchpn", bq, xqd)    # (B,nc,H,P,N)
 
-    def combine(older, newer):
-        a1, s1 = older
-        a2, s2 = newer
-        return a1 * a2, a2[..., None, None] * s1 + s2
+        # ---- inter-chunk recurrence via the log-depth doubling scan ----
+        # operator per chunk: h -> exp(chunk_total) * h + S_c
+        decay_c = torch.exp(chunk_total)                           # (B,nc,H)
 
-    a_scan, h_scan = prefix_scan((decay_c, s_c), combine, axis=1)
-    if initial_state is not None:
-        h0 = initial_state.float()                             # (B,H,P,N)
-        h_scan = h_scan + a_scan[..., None, None] * h0[:, None]
-        h_prev = torch.cat([h0[:, None], h_scan[:, :-1]], dim=1)
-    else:
-        h_prev = torch.cat([torch.zeros_like(h_scan[:, :1]),
-                            h_scan[:, :-1]], dim=1)
+        def combine(older, newer):
+            a1, s1 = older
+            a2, s2 = newer
+            return a1 * a2, a2[..., None, None] * s1 + s2
 
-    # ---- inter-chunk readout ----
-    decay_from_start = torch.exp(cum)                          # (B,nc,q,H)
-    cqd = (cq.float() * decay_from_start[..., None]).to(cdt)
-    y_inter = _f32_einsum("bcihn,bchpn->bcihp", cqd, h_prev.to(cdt))
+        a_scan, h_scan = prefix_scan((decay_c, s_c), combine, axis=1)
+        if initial_state is not None:
+            h0 = initial_state.float()                             # (B,H,P,N)
+            h_scan = h_scan + a_scan[..., None, None] * h0[:, None]
+            h_prev = torch.cat([h0[:, None], h_scan[:, :-1]], dim=1)
+        else:
+            h_prev = torch.cat([torch.zeros_like(h_scan[:, :1]),
+                                h_scan[:, :-1]], dim=1)
 
-    y = (y_intra + y_inter).reshape(bsz, s, h, ph)
-    y = y + x_h.float() * p["D"].float()[None, None, :, None]
-    y = y.reshape(bsz, s, di).to(cdt)
+        # ---- inter-chunk readout ----
+        decay_from_start = torch.exp(cum)                          # (B,nc,q,H)
+        cqd = (cq.float() * decay_from_start[..., None]).to(cdt)
+        y_inter = _f32_einsum("bcihn,bchpn->bcihp", cqd, h_prev.to(cdt))
 
-    # gated RMSNorm (mamba2: norm(y * silu(z)))
-    y = norm(y * F.silu(z.float()).to(cdt), p["norm_w"], kind="rmsnorm",
-             eps=cfg.norm_eps)
-    out = dense(y, p["w_out"])
+        y = (y_intra + y_inter).reshape(bsz, s, h, ph)
+        y = y + x_h.float() * d_skip.float()[None, None, :, None]
+        y = y.reshape(bsz, s, di).to(cdt)
+
+        # gated RMSNorm (mamba2: norm(y * silu(z)))
+        y = norm(y * F.silu(z.float()).to(cdt), norm_w, kind="rmsnorm",
+                 eps=cfg.norm_eps)
+        return y, h_scan[:, -1], new_conv_state
+
+    # On a mesh the scan runs on each rank's batch shard, every head on
+    # every tp rank (the in-projection's tp-sharded columns are gathered).
+    bat = sctx.axes(bsz, sctx.dp)
+    state_spec = None if initial_state is None else (bat, None, None, None)
+    conv_spec = None if conv_state is None else (bat, None, None)
+    y, h_last, new_conv_state = sctx.local(
+        core, (zxbcdt, p["conv_w"], p["conv_b"], p["A_log"], p["dt_bias"],
+               p["D"], p["norm_w"], initial_state, conv_state),
+        ((bat, None, None), (None, None), (None,), (None,), (None,),
+         (None,), (None,), state_spec, conv_spec),
+        ((bat, None, None), (bat, None, None, None), (bat, None, None)))
+    out = sctx.activation(dense(y, p["w_out"]))
     if return_state:
-        return out, (h_scan[:, -1], new_conv_state)           # (B,H,P,N)
+        return out, (h_last, new_conv_state)                  # (B,H,P,N)
     return out
 
 
@@ -208,31 +227,49 @@ def ssm_decode_step(cfg: ArchConfig, p, xin, ssm_state, conv_state, *,
     cdt = xin.dtype
 
     zxbcdt = dense(xin, p["w_in"])
-    z, xc, bmat, cmat, dt = _split_proj(cfg, zxbcdt)
-    conv_in = torch.cat([xc, bmat, cmat], dim=-1)             # (B,1,conv)
-    conv_out, new_conv = _causal_conv(conv_in, p["conv_w"], p["conv_b"],
-                                      state=conv_state)
-    conv_out = F.silu(conv_out)
-    xc = conv_out[..., :di]
-    bmat = conv_out[..., di:di + g * n]
-    cmat = conv_out[..., di + g * n:]
 
-    x_h = xc.reshape(bsz, h, ph).float()
-    rep = h // g
-    b_h = torch.repeat_interleave(bmat.reshape(bsz, g, n), rep, dim=1).float()
-    c_h = torch.repeat_interleave(cmat.reshape(bsz, g, n), rep, dim=1).float()
+    def core(zxbcdt, conv_w, conv_b, a_log, dt_bias, d_skip, norm_w,
+             ssm_state, conv_state):
+        bsz = zxbcdt.shape[0]                 # the batch shard on a mesh
+        z, xc, bmat, cmat, dt = _split_proj(cfg, zxbcdt)
+        conv_in = torch.cat([xc, bmat, cmat], dim=-1)         # (B,1,conv)
+        conv_out, new_conv = _causal_conv(conv_in, conv_w, conv_b,
+                                          state=conv_state)
+        conv_out = F.silu(conv_out)
+        xc = conv_out[..., :di]
+        bmat = conv_out[..., di:di + g * n]
+        cmat = conv_out[..., di + g * n:]
 
-    a = -torch.exp(p["A_log"].float())
-    dt = F.softplus(dt.reshape(bsz, h).float() + p["dt_bias"].float())
-    decay = torch.exp(dt * a)                                  # (B,H)
+        x_h = xc.reshape(bsz, h, ph).float()
+        rep = h // g
+        b_h = torch.repeat_interleave(bmat.reshape(bsz, g, n), rep,
+                                      dim=1).float()
+        c_h = torch.repeat_interleave(cmat.reshape(bsz, g, n), rep,
+                                      dim=1).float()
 
-    # state: (B,H,P,N);  h' = decay*h + (dt*x) B^T
-    upd = torch.einsum("bhp,bhn->bhpn", x_h * dt[..., None], b_h)
-    new_state = ssm_state * decay[..., None, None] + upd
-    y = torch.einsum("bhpn,bhn->bhp", new_state, c_h)
-    y = y + x_h * p["D"].float()[None, :, None]
-    y = y.reshape(bsz, 1, di).to(cdt)
+        a = -torch.exp(a_log.float())
+        dt = F.softplus(dt.reshape(bsz, h).float() + dt_bias.float())
+        decay = torch.exp(dt * a)                              # (B,H)
 
-    y = norm(y * F.silu(z.float()).to(cdt), p["norm_w"], kind="rmsnorm",
-             eps=cfg.norm_eps)
-    return dense(y, p["w_out"]), new_state, new_conv
+        # state: (B,H,P,N);  h' = decay*h + (dt*x) B^T
+        upd = torch.einsum("bhp,bhn->bhpn", x_h * dt[..., None], b_h)
+        new_state = ssm_state * decay[..., None, None] + upd
+        y = torch.einsum("bhpn,bhn->bhp", new_state, c_h)
+        y = y + x_h * d_skip.float()[None, :, None]
+        y = y.reshape(bsz, 1, di).to(cdt)
+
+        y = norm(y * F.silu(z.float()).to(cdt), norm_w, kind="rmsnorm",
+                 eps=cfg.norm_eps)
+        return y, new_state, new_conv
+
+    bat = sctx.axes(bsz, sctx.dp)
+    y, new_state, new_conv = sctx.local(
+        core, (zxbcdt, p["conv_w"], p["conv_b"], p["A_log"], p["dt_bias"],
+               p["D"], p["norm_w"], ssm_state, conv_state),
+        ((bat, None, None), (None, None), (None,), (None,), (None,),
+         (None,), (None,), (bat, None, None, None), (bat, None, None)),
+        ((bat, None, None), (bat, None, None, None), (bat, None, None)))
+    if sctx.mesh is not None:            # back to the cache's own placement
+        new_state = new_state.redistribute(sctx.mesh, ssm_state.placements)
+        new_conv = new_conv.redistribute(sctx.mesh, conv_state.placements)
+    return sctx.activation(dense(y, p["w_out"])), new_state, new_conv

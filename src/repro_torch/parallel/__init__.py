@@ -1,10 +1,22 @@
-"""repro_torch.parallel — collective building blocks.
+"""repro_torch.parallel — sharding rules and collective building blocks.
 
-Only the int8 block quantization of ``collectives`` is ported so far (the
-optimizer's int8 moments use it); the compressed all-reduce, the sharding
-rules and the mesh-level re-exports of the reference come with the
-``parallel`` slice (ROADMAP queue 1 item 8.6).
+The collective-matmul schedules and the distributed squaring chain live in
+``repro_torch.core.distributed`` (the paper's algorithm at mesh scale);
+they are re-exported here so mesh-level code can import every collective
+primitive from one package.
 """
-from repro_torch.parallel import collectives
+from repro_torch.parallel import sharding, collectives
+from repro_torch.core.distributed import (
+    matmul_2d_gather,
+    matmul_cannon,
+    sharded_matmul,
+    ShardedMatmulChain,
+    matpow_sharded,
+    expm_sharded,
+)
 
-__all__ = ["collectives"]
+__all__ = [
+    "sharding", "collectives",
+    "matmul_2d_gather", "matmul_cannon", "sharded_matmul",
+    "ShardedMatmulChain", "matpow_sharded", "expm_sharded",
+]

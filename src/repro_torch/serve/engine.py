@@ -6,12 +6,19 @@ cache and returns last-token logits; ``decode_step`` (from
 ``generate`` is the host driver (greedy or temperature sampling) used by
 ``launch/serve.py``. MoE archs serve with capacity 2.0x (``serve_config``).
 
-Everything runs under ``torch.inference_mode()``: serving records no
+Everything runs under ``torch.inference_mode()`` (``no_grad`` on a mesh):
+serving records no
 autograd graph (``ops.dense_matmul``'s backward and the remat checkpoints
 are the training path's, ``train/``). The fp32 master weights are
 cast to the compute dtype once per ``prefill`` / ``generate`` call and the
 cast tree is passed down (the reference casts inside every jitted prefill
 and decode step; the values are the same).
+
+On a mesh (``sctx=ShardCtx(mesh=...)``) the weights are DTensors, placed
+by ``parallel.sharding.param_specs(..., "decode")`` (TP only) for serving,
+the prompt's cache is placed by ``cache_partition_specs`` (``place_cache``)
+and every step's tokens and logits are DTensors; every projection is K1 on
+each rank's local shards.
 """
 
 from __future__ import annotations
@@ -25,9 +32,10 @@ from repro_torch.configs.base import ArchConfig, cache_specs
 from repro_torch.models import decode_step, forward, unembed
 from repro_torch.models.layers import ShardCtx, NO_SHARD
 from repro_torch.models.model import _cast_params
+from repro_torch.parallel import sharding
 
 __all__ = ["serve_config", "init_cache", "prefill", "make_decode_fn",
-           "generate"]
+           "generate", "place_cache"]
 
 
 def serve_config(cfg: ArchConfig) -> ArchConfig:
@@ -54,22 +62,41 @@ def _prefill(cfg, params, cast, tokens, *, cache_len, sctx, frames,
                   vision_embeds=vision_embeds, return_cache=True,
                   cache_len=cache_len)
     # the reference unembeds the prompt with the master weights
-    return unembed(cfg, params, out["x"][:, -1:]), out["cache"]
+    return unembed(cfg, params, out["x"][:, -1:]), \
+        place_cache(cfg, out["cache"], sctx)
 
 
-@torch.inference_mode()
+def place_cache(cfg: ArchConfig, cache, sctx: ShardCtx):
+    """The decode cache on ``sctx``'s mesh as ``cache_partition_specs``
+    places it (batch over dp; kv heads, else context, else head_dim over
+    model); as it is without a mesh."""
+    if sctx.mesh is None:
+        return cache
+    specs = sharding.cache_partition_specs(cache, cfg, sctx.mesh)
+    return {k: sctx._dtensor(v, sharding.spec_placements(sctx.mesh,
+                                                         specs[k]))
+            for k, v in cache.items()}
+
+
+def _no_autograd(sctx: ShardCtx):
+    """``inference_mode`` on one device; ``no_grad`` on a mesh, where
+    DTensor's multi-output views (``unbind``) refuse inference tensors."""
+    return torch.inference_mode() if sctx.mesh is None else torch.no_grad()
+
+
 def prefill(cfg: ArchConfig, params, tokens, *, cache_len: int,
             sctx: ShardCtx = NO_SHARD, frames=None, vision_embeds=None):
     """Run the prompt, build the cache. Returns (last_logits, cache)."""
-    return _prefill(cfg, params, _cast_params(cfg, params), tokens,
-                    cache_len=cache_len, sctx=sctx, frames=frames,
-                    vision_embeds=vision_embeds)
+    with _no_autograd(sctx):
+        return _prefill(cfg, params, _cast_params(cfg, params), tokens,
+                        cache_len=cache_len, sctx=sctx, frames=frames,
+                        vision_embeds=vision_embeds)
 
 
 def make_decode_fn(cfg: ArchConfig, *, sctx: ShardCtx = NO_SHARD):
-    @torch.inference_mode()
     def fn(params, tokens, cache):
-        return decode_step(cfg, params, tokens, cache, sctx=sctx)
+        with _no_autograd(sctx):
+            return decode_step(cfg, params, tokens, cache, sctx=sctx)
     return fn
 
 
@@ -80,7 +107,6 @@ def _sample(logits, generator, temperature: float):
     return torch.multinomial(probs, 1, generator=generator)[:, 0]
 
 
-@torch.inference_mode()
 def generate(cfg: ArchConfig, params, prompt_tokens, *, max_new_tokens: int,
              cache_len: Optional[int] = None, temperature: float = 0.0,
              generator: Optional[torch.Generator] = None,
@@ -94,6 +120,16 @@ def generate(cfg: ArchConfig, params, prompt_tokens, *, max_new_tokens: int,
     vision embeddings a vlm prepends, and the new tokens. (The reference's
     counts the text prompt only, so a vlm's cache drops positions its
     decode steps should attend to.)"""
+    with _no_autograd(sctx):
+        return _generate(cfg, params, prompt_tokens,
+                         max_new_tokens=max_new_tokens, cache_len=cache_len,
+                         temperature=temperature, generator=generator,
+                         sctx=sctx, frames=frames,
+                         vision_embeds=vision_embeds)
+
+
+def _generate(cfg, params, prompt_tokens, *, max_new_tokens, cache_len,
+              temperature, generator, sctx, frames, vision_embeds):
     cfg = serve_config(cfg)
     b, s_prompt = prompt_tokens.shape
     if cfg.family == "vlm" and vision_embeds is not None:

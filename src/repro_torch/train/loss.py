@@ -12,10 +12,31 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import is_dtensor
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.model import unembed
 
 __all__ = ["chunked_cross_entropy"]
+
+
+def _token_ce(logits, ts, ms):
+    """Masked CE per token: (B, chunk)."""
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, ts.long()[..., None])[..., 0]
+    return (lse - gold) * ms
+
+
+def _rows_local(fn, logits, ts, ms):
+    """``fn`` on each rank's rows of DTensors placed as the targets ``ts``
+    are (the batch over dp): the logits' vocab dim is gathered for it
+    (DTensor's vocab-sharded gather is not used). Returns a DTensor placed
+    as ``ts``."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh, pl = ts.device_mesh, ts.placements
+    row = [p if p == Shard(0) else Replicate() for p in pl]
+    out = fn(*(t.redistribute(mesh, row).to_local()
+               for t in (logits, ts, ms)))
+    return DTensor.from_local(out, mesh, row, run_check=False)
 
 
 def chunked_cross_entropy(cfg: ArchConfig, params, x, targets, *,
@@ -30,20 +51,22 @@ def chunked_cross_entropy(cfg: ArchConfig, params, x, targets, *,
     while s % chunk:
         chunk //= 2
     if mask is None:
-        mask = torch.ones((b, s), dtype=torch.float32, device=x.device)
+        mask = torch.ones_like(targets, dtype=torch.float32)
 
     def body(xs, ts, ms):
         logits = unembed(cfg, params, xs)                  # (B, chunk, V) f32
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, ts.long()[..., None])[..., 0]
-        ce = (lse - gold) * ms
+        if is_dtensor(logits):
+            ce = _rows_local(_token_ce, logits, ts, ms)
+        else:
+            ce = _token_ce(logits, ts, ms)
         return torch.sum(ce), torch.sum(ms)
 
     run = body
     if torch.is_grad_enabled():
         run = lambda *a: checkpoint(body, *a, use_reentrant=False)  # noqa
-    tot = torch.zeros((), dtype=torch.float32, device=x.device)
-    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    # new_zeros: a replicated 0-d DTensor when x is a DTensor
+    tot = x.new_zeros((), dtype=torch.float32)
+    cnt = x.new_zeros((), dtype=torch.float32)
     for lo in range(0, s, chunk):
         t, c = run(x[:, lo:lo + chunk], targets[:, lo:lo + chunk],
                    mask[:, lo:lo + chunk].float())

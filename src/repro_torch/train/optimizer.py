@@ -19,7 +19,9 @@ import math
 
 import torch
 
+from repro_torch import is_dtensor
 from repro_torch.parallel.collectives import quantize_int8, dequantize_int8
+from repro_torch.parallel.sharding import from_flat_rows, to_flat_rows
 
 __all__ = ["adamw_init", "adamw_update", "global_norm", "clip_by_global_norm",
            "cosine_lr", "QTensor"]
@@ -45,12 +47,39 @@ class QTensor:
         q, scale = children
         return cls(q, scale, tuple(aux[0]), int(aux[1]))
 
-    def dequantize(self, dtype=torch.float32) -> torch.Tensor:
+    def dequantize(self, dtype=torch.float32, like=None) -> torch.Tensor:
+        """The stored tensor. On DTensors (``q`` and ``scale`` rows placed
+        by ``state_specs``) each rank decodes its own rows and one
+        all-to-all takes the values to ``like``'s placements (those of the
+        parameter): no rank holds the whole tensor."""
+        if is_dtensor(self.q):
+            rows = (self.q.to_local().float()
+                    * self.scale.to_local()[:, None])
+            return from_flat_rows(rows, self.q, like).to(dtype)
         return dequantize_int8(self.q, self.scale, (self.shape, self.n),
                                dtype=dtype)
 
     @classmethod
-    def quantize(cls, x: torch.Tensor) -> "QTensor":
+    def quantize(cls, x: torch.Tensor, like=None) -> "QTensor":
+        """``x`` stored in int8 blocks. On a DTensor ``like`` (the
+        ``QTensor`` it replaces) gives the rows' placements: one
+        all-to-all brings each rank the values of its own rows, which it
+        quantizes alone. The blocks are those of one device, since a row
+        is a block of the flattened tensor."""
+        if is_dtensor(x):
+            from torch.distributed.tensor import DTensor
+            if like is None:
+                raise ValueError("a DTensor is quantized into the rows of "
+                                 "the QTensor it replaces (like=)")
+            rows = to_flat_rows(x.float(), like.q)
+            q, scale, _ = quantize_int8(rows, block=rows.shape[1])
+
+            def placed(t, as_):
+                return DTensor.from_local(t, as_.device_mesh, as_.placements,
+                                          run_check=False, shape=as_.shape,
+                                          stride=as_.stride())
+            return cls(placed(q, like.q), placed(scale, like.scale),
+                       like.shape, like.n)
         q, scale, (shape, n) = quantize_int8(x)
         return cls(q, scale, tuple(shape), n)
 
@@ -59,31 +88,35 @@ def _dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
 
 
-def _store(x, dtype: str):
+def _store(x, dtype: str, like=None):
+    """``x`` in the moment dtype; ``like`` is the leaf it replaces (the
+    rows' layout of an int8 moment on DTensors)."""
     if dtype == "int8":
-        return QTensor.quantize(x)
+        return QTensor.quantize(x, like)
     return x.to(_dtype(dtype))
 
 
-def _load(x):
+def _load(x, like=None):
+    """A moment in fp32; ``like`` (the parameter) places an int8 moment on
+    DTensors."""
     if isinstance(x, QTensor):
-        return x.dequantize()
+        return x.dequantize(like=like)
     return x.float()
 
 
-def _store_v(x, dtype: str):
+def _store_v(x, dtype: str, like=None):
     """Second moment: int8 stores sqrt(v) — v spans the SQUARE of the
     gradient range, which blockwise int8 cannot hold (small-v coordinates
     underflow to 0 and the update explodes). sqrt halves the dynamic
     range."""
     if dtype == "int8":
-        return QTensor.quantize(torch.sqrt(x))
+        return QTensor.quantize(torch.sqrt(x), like)
     return x.to(_dtype(dtype))
 
 
-def _load_v(x):
+def _load_v(x, like=None):
     if isinstance(x, QTensor):
-        r = x.dequantize()
+        r = x.dequantize(like=like)
         return r * r
     return x.float()
 
@@ -115,8 +148,7 @@ def adamw_init(params, state_dtype: str = "float32"):
     device; distinct buffers for m and v."""
     def fresh(store):
         return _tree_map(lambda p: store(
-            torch.zeros(p.shape, dtype=torch.float32, device=p.device),
-            state_dtype), params)
+            torch.zeros_like(p, dtype=torch.float32), state_dtype), params)
     return {"m": fresh(_store), "v": fresh(_store_v),
             "step": torch.zeros((), dtype=torch.int32,
                                 device=_device(params))}
@@ -126,11 +158,18 @@ def _assign(old, new):
     """Write ``new`` into ``old`` (a tensor or a ``QTensor``); returns
     ``old``."""
     if isinstance(old, QTensor):
-        old.q.copy_(new.q)
-        old.scale.copy_(new.scale)
+        old.q.copy_(_placed_as(new.q, old.q))
+        old.scale.copy_(_placed_as(new.scale, old.scale))
     else:
-        old.copy_(new)
+        old.copy_(_placed_as(new, old))
     return old
+
+
+def _placed_as(new, old):
+    """``new`` redistributed to ``old``'s placements (DTensors)."""
+    if is_dtensor(old) and tuple(new.placements) != tuple(old.placements):
+        return new.redistribute(old.device_mesh, old.placements)
+    return new
 
 
 def adamw_update(params, grads, opt_state, *, lr, b1: float = 0.9,
@@ -146,8 +185,8 @@ def adamw_update(params, grads, opt_state, *, lr, b1: float = 0.9,
 
     def upd(p, g, m, v):
         g32 = g.float()
-        m32 = _load(m) * b1 + g32 * (1 - b1)
-        v32 = _load_v(v) * b2 + g32 * g32 * (1 - b2)
+        m32 = _load(m, p) * b1 + g32 * (1 - b1)
+        v32 = _load_v(v, p) * b2 + g32 * g32 * (1 - b2)
         mh = m32 / b1c
         vh = v32 / b2c
         # trust-region clip: bounds the per-coordinate step when quantized
@@ -156,8 +195,8 @@ def adamw_update(params, grads, opt_state, *, lr, b1: float = 0.9,
         delta = adam + weight_decay * p.float()
         new_p = (p.float() - lr * delta).to(p.dtype)
         _assign(p, new_p)
-        _assign(m, _store(m32, state_dtype))
-        _assign(v, _store_v(v32, state_dtype))
+        _assign(m, _store(m32, state_dtype, m))
+        _assign(v, _store_v(v32, state_dtype, v))
 
     _tree_map(upd, params, grads, opt_state["m"], opt_state["v"])
     opt_state["step"].copy_(step)

@@ -20,6 +20,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import is_dtensor
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import forward
 from repro_torch.models.layers import ShardCtx, NO_SHARD
@@ -48,14 +49,34 @@ def loss_and_metrics(cfg: ArchConfig, params, batch, *,
     x = out["x"]
     if cfg.family == "vlm" and cfg.n_vision_tokens:
         x = x[:, cfg.n_vision_tokens:]
-    ce = chunked_cross_entropy(cfg, params, x, batch["targets"])
+    targets = sctx.shard(batch["targets"], sctx.dp, None)
+    ce = chunked_cross_entropy(cfg, params, x, targets)
     loss = ce + AUX_COEF * out["aux"]
     return loss, {"ce": ce, "aux": out["aux"]}
 
 
 def _split_microbatches(batch, accum: int) -> list:
-    return [{k: v.reshape((accum, v.shape[0] // accum) + v.shape[1:])[i]
-             for k, v in batch.items()} for i in range(accum)]
+    """``accum`` microbatches: microbatch i is the i-th slice of the global
+    rows. A DTensor batch (sharded over dp) is gathered once, and each
+    microbatch placed back as the batch was (each rank keeps its rows of
+    the slice: no collective)."""
+    out = [{} for _ in range(accum)]
+    for k, v in batch.items():
+        full = v.full_tensor() if is_dtensor(v) else v
+        parts = full.reshape((accum, full.shape[0] // accum)
+                             + full.shape[1:])
+        for i in range(accum):
+            out[i][k] = parts[i] if full is v else _like(parts[i], v)
+    return out
+
+
+def _like(part, v):
+    """``part`` (every rank's alike) placed as the DTensor ``v``."""
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = v.device_mesh
+    return DTensor.from_local(part, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False).redistribute(mesh,
+                                                            v.placements)
 
 
 def make_train_step(cfg: ArchConfig, *, sctx: ShardCtx = NO_SHARD,
@@ -91,10 +112,9 @@ def make_train_step(cfg: ArchConfig, *, sctx: ShardCtx = NO_SHARD,
         tree = _tree_map(lambda p: p.detach().requires_grad_(), source)
         leaves = _leaves(tree)
         if accum > 1:
-            g_sum = [torch.zeros(p.shape, dtype=torch.float32,
-                                 device=p.device) for p in leaves]
-            loss = torch.zeros((), dtype=torch.float32,
-                               device=leaves[0].device)
+            g_sum = [torch.zeros_like(p, dtype=torch.float32)
+                     for p in leaves]
+            loss = leaves[0].new_zeros((), dtype=torch.float32)
             for mb in _split_microbatches(batch, accum):
                 mb_loss, metrics, grads = grads_of(tree, leaves, mb)
                 for a, g in zip(g_sum, grads):

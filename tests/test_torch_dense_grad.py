@@ -137,7 +137,7 @@ def test_the_forward_under_autograd_is_one_dispatcher_op():
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             if func == ops.DENSE_MM_OP:
-                self.ops.append(args[5])
+                self.ops.append(args[2])
             return func(*args, **(kwargs or {}))
 
     x, w, _ = _inputs((5, 24), 40)

@@ -214,8 +214,13 @@ def test_pick_chunks_defaults_and_tuned_entry(tmp_path, monkeypatch):
 
 
 def test_shard_ctx_is_single_device_only():
+    """Without a mesh ``ShardCtx`` places nothing; a mesh must be a
+    ``DeviceMesh`` (the mesh itself: ``tests/test_torch_sharding.py``)."""
     assert L.NO_SHARD.mesh is None
-    with pytest.raises(ValueError, match="parallel/ slice"):
+    x = torch.ones(2, 3)
+    assert L.NO_SHARD.shard(x, "data", "model") is x
+    assert L.NO_SHARD.activation(x) is x
+    with pytest.raises(ValueError, match="DeviceMesh"):
         L.ShardCtx(mesh=object())
 
 

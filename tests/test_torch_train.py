@@ -403,11 +403,13 @@ def test_cli_runs_on_the_card_unless_told_otherwise():
 
 
 def test_build_refuses_a_mesh():
+    """Without a mesh ``build`` gives no shardings; a mesh must be a
+    ``DeviceMesh`` (``build(mesh=...)``: tests/test_torch_sharding.py)."""
     cfg = get_config("qwen3-1.7b", smoke=True)
     step, shardings = train_cli.build(cfg, steps_total=3, peak_lr=1e-3,
                                       accum=1)
     assert callable(step) and shardings is None
-    with pytest.raises(ValueError, match="parallel"):
+    with pytest.raises(ValueError, match="DeviceMesh"):
         train_cli.build(cfg, mesh=object(), steps_total=3, peak_lr=1e-3,
                         accum=1)
 
