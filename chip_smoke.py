@@ -42,7 +42,10 @@ and depth, every projection K1 in the forward, in the remat recomputation
 and in both backward products, counted exactly per step; K1 at the
 backward shapes against its plain version; a 2-layer Qwen3-1.7B step on
 the card against the CPU; checkpoint save, restore and resume on the
-card).
+card); and the dry run (``launch.dryrun``'s counts of that Qwen3-1.7B
+step, made on meta tensors in a child process, against the same step on
+the card: FLOPs, ``dense_mm`` calls, peak memory, the roofline terms
+beside the measured ms).
 Each phase prints one JSON line; any
 failure raises and the script exits non-zero without the final
 ``"ok": true`` line. It needs a CUDA device and ``nvcc``; it imports
@@ -2764,6 +2767,146 @@ def phase_lm_mesh() -> dict:
     return {"matmul_tc": steps + 2 * per_call}
 
 
+# ---------------------------------------------------------------------------
+# Phase dryrun: the dry run's counts of phase train's step against the card
+# ---------------------------------------------------------------------------
+
+#: Phase train's Qwen3-1.7B step as a dry-run cell on a fake one-rank group
+#: (meta tensors, no device), in a child process: full width, 28 layers by
+#: extrapolation (``launch.dryrun.TRACED``), 8 x 512 tokens in 4
+#: microbatches (``choose_accum(8, 1, grad_accum=4)``), remat "nothing".
+DRYRUN_CHILD = """
+import json, time
+from torch.distributed.device_mesh import init_device_mesh
+from repro_torch.configs import ShapeSpec
+from repro_torch.launch import dryrun
+t0 = time.perf_counter()
+with dryrun.fake_group(1):
+    mesh = init_device_mesh("cpu", (1, 1), mesh_dim_names=("data", "model"))
+    cost, cfg, _ = dryrun.count_cell(
+        "qwen3-1.7b", ShapeSpec("train_8x512", {seq}, {batch}, "train"), mesh)
+print(json.dumps({{**cost.to_dict(), "accum": cfg.grad_accum,
+                  "remat": cfg.remat_policy,
+                  "count_s": time.perf_counter() - t0}}))
+"""
+#: The dry run's peak live bytes against the card's
+#: ``max_memory_allocated`` for the same step: within a factor of 2 either
+#: way (the caching allocator's rounding, K1's padded operands and the
+#: library workspaces are not in the dry run).
+DRYRUN_PEAK_FACTOR = 2.0
+#: Steps timed after the counted one, without the counters.
+DRYRUN_TIMED = 2
+
+
+def dryrun_count() -> dict:
+    """The child's counts (``DRYRUN_CHILD``); raises if it fails."""
+    env = {**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parent
+                                           / "src")}
+    code = DRYRUN_CHILD.format(seq=TRAIN_SEQ, batch=TRAIN_BATCH)
+    done = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=600)
+    if done.returncode != 0:
+        raise AssertionError(f"dry-run child failed:\n{done.stderr[-3000:]}")
+    return json.loads(done.stdout.strip().splitlines()[-1])
+
+
+def phase_dryrun() -> dict:
+    """The dry run (``launch.dryrun`` on meta tensors) against the card on
+    phase train's Qwen3-1.7B step: the child's FLOPs, bytes, ``dense_mm``
+    calls and peak live GB; then the same step on the card under
+    ``FlopCounterMode`` and the op counter (``analysis.op_cost``), with
+    ``max_memory_allocated``; the dry run's three roofline terms
+    (``analysis.roofline``, H100 data-sheet constants) and the ms of
+    ``DRYRUN_TIMED`` steps timed without counters. Fails unless the FLOP
+    counts are equal, the dry run counts the K1 launches of the step (one
+    ``dense_mm`` each, exactly ``TRAIN_ACCUM`` x phase train's per
+    microbatch) and the peaks agree within ``DRYRUN_PEAK_FACTOR``. Returns
+    the K1 launches."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.analysis import op_cost, roofline
+
+    t0 = time.perf_counter()
+    dry = dryrun_count()
+    cfg = configs.get_config("qwen3-1.7b")
+    want = TRAIN_ACCUM * train_k1_per_microbatch(cfg)
+    if dry["dense_mm_calls"] != want or dry["accum"] != TRAIN_ACCUM:
+        raise AssertionError(f"dry run: {dry['dense_mm_calls']} dense_mm "
+                             f"calls in {dry['accum']} microbatches, phase "
+                             f"train launches K1 {want} times in "
+                             f"{TRAIN_ACCUM}")
+    state = init_train_state(cfg, lm_model(cfg, 2800))
+    step_fn, _ = train_launch.build(cfg, steps_total=1000, peak_lr=3e-4,
+                                    accum=TRAIN_ACCUM)
+    batch = next(SyntheticStream(cfg, seed=2801, batch=TRAIN_BATCH,
+                                 seq=TRAIN_SEQ))
+    lm_free()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    A.reset_launches()
+    with op_cost.OpCounter() as counter, \
+            FlopCounterMode(display=False) as flops:
+        counter.track((state, batch))
+        _, counted_ms = wall_ms_once(lambda: step_fn(state, batch))
+    lm_only_k1(lm_moved(), want, "dryrun counted step")
+    card = {"flops": flops.get_total_flops(),
+            "op_counter_flops": counter.flops,
+            "dense_mm_calls": counter.dense_mm_calls, "k1_launches": want,
+            "max_memory_allocated_gb":
+                torch.cuda.max_memory_allocated() / 1e9,
+            "op_counter_peak_gb": counter.peak / 1e9,
+            "counted_step_ms": counted_ms}
+    del counter
+    timed = []
+    for _ in range(DRYRUN_TIMED):
+        _, ms = wall_ms_once(lambda: step_fn(state, batch))
+        timed.append(ms)
+    lm_only_k1(lm_moved(), want * (1 + DRYRUN_TIMED), "dryrun timed steps")
+    del state, batch
+    lm_free()
+    cost = op_cost.OpCost(
+        flops=dry["flops"], bytes=dry["bytes"],
+        collectives=dry["collectives"], peak_bytes=dry["peak_bytes"],
+        dense_mm_calls=dry["dense_mm_calls"], depth=dry["depth"],
+        depths=tuple(dry["depths"]))
+    shape = configs.ShapeSpec("train_8x512", TRAIN_SEQ, TRAIN_BATCH, "train")
+    rep = roofline.analyze(arch=cfg.name, shape_name=shape.name,
+                           mesh_name="1x1", n_devices=1, cost=cost,
+                           cfg=cfg, shape=shape)
+    measured = min(timed)
+    peak_ratio = dry["peak_bytes"] / 1e9 / card["max_memory_allocated_gb"]
+    row = {"arch": cfg.name, "layers": cfg.n_layers, "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "accum": dry["accum"], "remat": dry["remat"],
+           "traced_depths": dry["depths"],
+           "dry": {"flops": dry["flops"], "bytes": dry["bytes"],
+                   "peak_gb": dry["peak_bytes"] / 1e9,
+                   "dense_mm_calls": dry["dense_mm_calls"],
+                   "count_s": dry["count_s"]},
+           "card": card,
+           "roofline_ms": {"compute": rep.compute_s * 1e3,
+                           "memory": rep.memory_s * 1e3,
+                           "collective": rep.collective_s * 1e3,
+                           "dominant": rep.dominant},
+           "useful_ratio": rep.useful_ratio,
+           "measured_ms": timed,
+           "compute_over_measured": rep.compute_s * 1e3 / measured,
+           "memory_over_measured": rep.memory_s * 1e3 / measured,
+           "peak_ratio": peak_ratio,
+           "seconds": round(time.perf_counter() - t0, 1)}
+    emit("dryrun", **row)
+    if not dry["flops"] == card["flops"] == card["op_counter_flops"]:
+        raise AssertionError(f"dry run {dry['flops']} FLOPs, the card's "
+                             f"FlopCounterMode {card['flops']}, op counter "
+                             f"{card['op_counter_flops']}")
+    if card["dense_mm_calls"] != want:
+        raise AssertionError(f"the card's step made {card['dense_mm_calls']}"
+                             f" dense_mm calls, {want} K1 launches")
+    if not 1 / DRYRUN_PEAK_FACTOR <= peak_ratio <= DRYRUN_PEAK_FACTOR:
+        raise AssertionError(f"dry-run peak {row['dry']['peak_gb']:.2f} GB "
+                             f"against the card's "
+                             f"{card['max_memory_allocated_gb']:.2f} GB")
+    return {"matmul_tc": want * (1 + DRYRUN_TIMED)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device: torch.cuda.is_available() "
@@ -2799,13 +2942,14 @@ def main() -> int:
         lm_counts = phase_lm()
         train_counts = phase_train()
         mesh_counts = phase_lm_mesh()
+        dryrun_counts = phase_dryrun()
         torch.cuda.synchronize()
     finally:
         shutil.rmtree(cache_dir, ignore_errors=True)
 
     counts = {**counts, **attn_counts}
     for name, n in (*lm_counts.items(), *train_counts.items(),
-                    *mesh_counts.items()):
+                    *mesh_counts.items(), *dryrun_counts.items()):
         counts[name] += n
     timed = {**timed, **attn_timed}
     kernels = []

@@ -45,6 +45,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch import (default_device, dtype_name, is_dtensor,
                          kernels_run_on)
@@ -526,6 +527,14 @@ def _(x, w, name):
     return x.new_empty((x.shape[0], w.shape[1]))
 
 
+@register_flop_formula(torch.ops.repro_torch.dense_mm)
+def _dense_mm_flops(x_shape, w_shape, name, out_shape=None, **kwargs):
+    """2·m·n·k of the shapes the op gets (on a mesh, a rank's local
+    shards): what ``FlopCounterMode`` (and ``analysis.op_cost``) count for
+    one K1 product, which runs opaque to them."""
+    return 2 * x_shape[0] * x_shape[1] * w_shape[1]
+
+
 #: The dispatcher op of every ``dense_matmul`` product under autograd (the
 #: forward, ``dx`` and ``dw``) and of every one on DTensors.
 DENSE_MM_OP = torch.ops.repro_torch.dense_mm.default
@@ -557,6 +566,16 @@ def _register_dense_mm_sharding():
     _SHARDING_REGISTERED = True
 
 
+def _rows_split_within(t, lead: int) -> bool:
+    """Whether the mesh dims that shard a DTensor's rows (the flattened
+    leading dims of an activation, the first of size ``lead``) split
+    within that first dim, where DTensor cannot view them back."""
+    from torch.distributed.tensor import Shard
+    return lead % math.prod(
+        t.device_mesh.size(i) for i, pl in enumerate(t.placements)
+        if pl == Shard(0)) != 0
+
+
 class _Dense2d(torch.autograd.Function):
     """``(M, K) @ (K, N)`` with the reference's custom VJP (``_dense_2d``):
     the forward, ``dx = g @ w.T`` and ``dw = x.T @ g`` are each one
@@ -566,8 +585,9 @@ class _Dense2d(torch.autograd.Function):
     DTensor places each of the three and K1 runs on the local shards."""
 
     @staticmethod
-    def forward(ctx, x2, w, name):
+    def forward(ctx, x2, w, name, lead):
         ctx.save_for_backward(x2, w)
+        ctx.lead = lead
         return DENSE_MM_OP(x2, w, name)
 
     @staticmethod
@@ -577,9 +597,13 @@ class _Dense2d(torch.autograd.Function):
         dx = dw = None
         if ctx.needs_input_grad[0]:
             dx = DENSE_MM_OP(g, w.T, "").to(x2.dtype)
+            if is_dtensor(dx) and _rows_split_within(dx, ctx.lead):
+                # placed as x was: a batch of 64 on a 16x16 mesh whose
+                # rows DTensor sharded over both axes
+                dx = dx.redistribute(x2.device_mesh, x2.placements)
         if ctx.needs_input_grad[1]:
             dw = DENSE_MM_OP(x2.T, g, "").to(w.dtype)
-        return dx, dw, None
+        return dx, dw, None, None
 
 
 def dense_matmul(x: torch.Tensor, w: torch.Tensor, *,
@@ -622,5 +646,6 @@ def dense_matmul(x: torch.Tensor, w: torch.Tensor, *,
         return matmul(x2, w, blocks=pick_blocks(
             m, n, k, dtype=x.dtype, backend=x.device.type)).reshape(
                 *x.shape[:-1], n)
-    y = _Dense2d.apply(x2, w, name) if grad else DENSE_MM_OP(x2, w, name)
+    y = (_Dense2d.apply(x2, w, name, x.shape[0]) if grad
+         else DENSE_MM_OP(x2, w, name))
     return y.reshape(*x.shape[:-1], n)

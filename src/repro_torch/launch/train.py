@@ -32,18 +32,22 @@ from repro_torch.train.optimizer import _leaves
 from repro_torch.train.train_step import init_train_state, make_train_step
 
 
-def build(cfg, *, mesh=None, steps_total: int, peak_lr: float, accum: int):
+def build(cfg, *, mesh=None, steps_total: int, peak_lr: float, accum: int,
+          sp: bool = False, cast_params: str = "step"):
     """(step function, shardings): the train step of ``cfg``.
 
     Without a mesh the shardings are ``None``. On a ``DeviceMesh`` the step
-    runs on DTensors with a ``ShardCtx`` over ``dp_axes(mesh)``, and the
-    shardings are the state's placements (``state_specs(..., "train")``
-    through ``named``), worked out on shapes alone; the caller places its
-    state with them (``parallel.sharding.place``)."""
-    sctx = (ShardCtx(mesh=mesh, dp=dp_axes(mesh)) if mesh is not None
-            else NO_SHARD)
+    runs on DTensors with a ``ShardCtx`` over ``dp_axes(mesh)`` (``sp``:
+    sequence-parallel activations), and the shardings are the state's
+    placements (``state_specs(..., "train")`` through ``named``), worked
+    out on shapes alone; the caller places its state with them
+    (``parallel.sharding.place``). ``cast_params`` is
+    ``make_train_step``'s."""
+    sctx = (ShardCtx(mesh=mesh, dp=dp_axes(mesh), sp=sp)
+            if mesh is not None else NO_SHARD)
     step_fn = make_train_step(cfg, sctx=sctx, total_steps=steps_total,
-                              peak_lr=peak_lr, accum=accum)
+                              peak_lr=peak_lr, accum=accum,
+                              cast_params=cast_params)
     if mesh is None:
         return step_fn, None
     from torch._subclasses.fake_tensor import FakeTensorMode

@@ -32,19 +32,21 @@ nested ``dict`` of tensors with the reference's keys.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch import DTYPES
+from repro_torch import DTYPES, is_dtensor
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import autotune
 from repro_torch.kernels import ops as _kops
 
 __all__ = [
-    "ShardCtx", "NO_SHARD", "norm", "rope", "dense",
+    "ShardCtx", "NO_SHARD", "norm", "rope", "dense", "split_heads",
     "attention_block", "mlp_block", "moe_block", "init_attention",
     "init_mlp", "init_moe", "init_norm", "write_kv_cache",
 ]
@@ -237,6 +239,26 @@ def _scaled(q, scale: float):
 
 _NEG = -1e30
 
+#: Called in place of a ``_scoped`` function while a cost counter listens
+#: (``analysis.op_cost.OpCounter``: ``hook(name, fn, args, kwargs)``);
+#: None otherwise, when the function costs one check of it a call.
+_SCOPE_HOOK = None
+
+
+def _scoped(name: str):
+    """Tag a function's ops with a named scope (the reference's
+    ``jax.named_scope``): the fused-kernel roofline model
+    (``analysis.op_cost.FUSED_ATTENTION_MARKERS``) keys on it."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            if _SCOPE_HOOK is None:
+                return fn(*args, **kwargs)
+            return _SCOPE_HOOK(name, fn, args, kwargs)
+        return inner
+    return wrap
+
+
 # Historical static chunk sizes — the fallback when the tuner cannot help.
 _DEFAULT_Q_CHUNK, _DEFAULT_KV_CHUNK = 512, 1024
 
@@ -277,6 +299,7 @@ def _scores(q, k, eq: str):
     return torch.einsum(eq, q.float(), k.float())
 
 
+@_scoped("flash_attention_core")
 def _online_chunk_attention(q, k, v, *, causal: bool, q_offset: int,
                             q_chunk: int, kv_chunk: int,
                             bwd_recompute: bool = True):
@@ -348,6 +371,7 @@ def _online_chunk_attention(q, k, v, *, causal: bool, q_offset: int,
     return out[:, :sq] if sq_pad else out
 
 
+@_scoped("flash_attention_core")
 def _banded_window_attention(q, k, v, *, window: int, q_offset: int,
                              q_chunk: int, bwd_recompute: bool = True):
     """Sliding-window attention via per-chunk KV band slicing: O(S*window).
@@ -389,6 +413,7 @@ def _banded_window_attention(q, k, v, *, window: int, q_offset: int,
                                                                g, d)
 
 
+@_scoped("flash_attention_core")
 def _decode_attention(q, k_cache, v_cache, n_valid):
     """Single-step decode. q: (B,1,Hkv,G,D); caches: (B,C,Hkv,D);
     n_valid: (B,) live slot count (ring buffers are full == C)."""
@@ -470,6 +495,24 @@ def write_kv_cache(k_cache, v_cache, k_new, v_new, pos):
     return k_cache, v_cache, n_valid
 
 
+def split_heads(y, n: int, dh: int):
+    """A projection's output (..., n·dh) as (..., n, dh). On a mesh whose
+    ranks split the columns into shards of part of a head (tp does not
+    divide ``n``: Qwen3's 8 kv heads on a 16-wide "model" axis), the
+    columns are gathered first; the attention core then computes every
+    head of its batch shard on each of those ranks, as it does anyway
+    when tp does not divide the kv heads."""
+    if is_dtensor(y):
+        from torch.distributed.tensor import Replicate, Shard
+        cut = [i for i, pl in enumerate(y.placements)
+               if pl == Shard(y.ndim - 1)]
+        if n % math.prod(y.device_mesh.size(i) for i in cut):
+            y = y.redistribute(y.device_mesh,
+                               [Replicate() if i in cut else pl
+                                for i, pl in enumerate(y.placements)])
+    return y.reshape(*y.shape[:-1], n, dh)
+
+
 def attention_block(cfg: ArchConfig, p, x, *, sctx: ShardCtx = NO_SHARD,
                     positions=None, kv_cache=None, cache_write: bool = True,
                     use_rope: bool = True, causal: Optional[bool] = None,
@@ -496,17 +539,16 @@ def attention_block(cfg: ArchConfig, p, x, *, sctx: ShardCtx = NO_SHARD,
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     g = h // hkv
 
-    q = dense(x, p["wq"], p.get("bq"), name="proj_out").reshape(b, s, h,
-                                                                dh)
+    q = split_heads(dense(x, p["wq"], p.get("bq"), name="proj_out"), h, dh)
     need_fresh = kv_override is None and (kv_cache is None or cache_write)
     k = v = None
     if kv_override is not None:
         k, v = kv_override
     elif need_fresh:
-        k = dense(x, p["wk"], p.get("bk"), name="proj_out").reshape(
-            b, s, hkv, dh)
-        v = dense(x, p["wv"], p.get("bv"), name="proj_out").reshape(
-            b, s, hkv, dh)
+        k = split_heads(dense(x, p["wk"], p.get("bk"), name="proj_out"),
+                        hkv, dh)
+        v = split_heads(dense(x, p["wv"], p.get("bv"), name="proj_out"),
+                        hkv, dh)
     k_cache = v_cache = meta = None
     if kv_cache is not None:
         k_cache, v_cache, meta = kv_cache
@@ -535,7 +577,7 @@ def attention_block(cfg: ArchConfig, p, x, *, sctx: ShardCtx = NO_SHARD,
             else:
                 n_valid = meta
             out = _decode_attention(qg, k_cache, v_cache, n_valid)
-            return out, k_cache, v_cache
+            return out.reshape(bl, s, hl * dh), k_cache, v_cache
         q_off = k.shape[1] - s
         qc, kc = q_chunk, kv_chunk
         if qc is None or kc is None:
@@ -552,12 +594,15 @@ def attention_block(cfg: ArchConfig, p, x, *, sctx: ShardCtx = NO_SHARD,
             out = _online_chunk_attention(
                 qg, k, v, causal=causal, q_offset=q_off,
                 q_chunk=qc, kv_chunk=kc, bwd_recompute=recompute)
-        return out, k, v
+        return out.reshape(bl, s, hl * dh), k, v
 
     # On a mesh the core runs on the batch over dp and the heads over tp
     # (the reference's ``sctx.heads``) when whole kv heads divide tp; else
     # it gathers the heads: each tp rank computes every head of its batch
-    # shard.
+    # shard. It merges the heads of its output itself, so the gradient
+    # reaches it placed as the output was (a DTensor view could not split
+    # columns that the backward of ``wo``'s product shards over tp into
+    # heads that tp does not divide).
     bat = sctx.axes(b, sctx.dp)
     ha = sctx.tp if sctx._ok(hkv, sctx.tp) else None
     bsh = (bat, None, ha, None)
@@ -568,7 +613,7 @@ def attention_block(cfg: ArchConfig, p, x, *, sctx: ShardCtx = NO_SHARD,
         core, (q, k, v, positions, k_cache, v_cache, meta, p.get("q_norm"),
                p.get("k_norm")),
         (bsh, bsh, bsh, pos_spec, bsh, bsh, (bat,), (None,), (None,)),
-        (bsh, bsh, bsh))
+        ((bat, None, ha), bsh, bsh))
     if k_cache is not None:
         if sctx.mesh is not None:        # back to the cache's own placement
             k_out = k_out.redistribute(sctx.mesh, k_cache.placements)
@@ -577,7 +622,7 @@ def attention_block(cfg: ArchConfig, p, x, *, sctx: ShardCtx = NO_SHARD,
     else:
         aux_kv = (k_out, v_out) if need_fresh else (k, v)
 
-    out = dense(out.reshape(b, s, h * dh), p["wo"], name="block_out")
+    out = dense(out, p["wo"], name="block_out")
     return sctx.activation(out), aux_kv
 
 

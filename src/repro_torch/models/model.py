@@ -421,9 +421,11 @@ def forward(cfg: ArchConfig, params, tokens, *, sctx: ShardCtx = NO_SHARD,
             ckv = None
             if enc_out is not None:
                 # per-layer cross KV computed from encoder output
-                shape = (b, enc_out.shape[1], cfg.n_kv_heads, cfg.d_head)
-                ckv = (L.dense(enc_out, blk["cross"]["wk"]).reshape(shape),
-                       L.dense(enc_out, blk["cross"]["wv"]).reshape(shape))
+                hkv, dh = cfg.n_kv_heads, cfg.d_head
+                ckv = (L.split_heads(L.dense(enc_out, blk["cross"]["wk"]),
+                                     hkv, dh),
+                       L.split_heads(L.dense(enc_out, blk["cross"]["wv"]),
+                                     hkv, dh))
             x, kv, aux = _attn_layer_apply(cfg, blk, x, sctx=sctx,
                                            positions=positions, cross_kv=ckv)
             return x, kv, aux, ckv

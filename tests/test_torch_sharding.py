@@ -455,3 +455,72 @@ def test_restore_with_shardings_places_each_leaf(tmp_path):
 
 def sharding_full(x):
     return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+
+# ---------------------------------------------------------------------------
+# (c) Full width on the production meshes: heads that tp does not divide
+# ---------------------------------------------------------------------------
+
+#: Attention configs whose kv heads (or heads) the 16-wide "model" axis
+#: does not divide: the k/v projection's columns come out sharded over
+#: tp, and splitting them into heads must gather them first.
+UNEVEN_HEADS = ("qwen3-1.7b", "mixtral-8x7b", "whisper-base",
+                "llava-next-mistral-7b", "starcoder2-15b")
+
+
+@pytest.fixture
+def head_splits(monkeypatch):
+    """Every ``layers.split_heads`` of a step: (global shape, local
+    shape) of its output."""
+    from repro_torch.models import layers
+    seen, split = [], layers.split_heads
+
+    def spy(y, n, dh):
+        out = split(y, n, dh)
+        seen.append((tuple(out.shape), tuple(out.to_local().shape)))
+        return out
+    monkeypatch.setattr(layers, "split_heads", spy)
+    return seen
+
+
+def _whole_heads(seen):
+    """Every split's local shard holds whole heads: all of a head's
+    ``d_head`` columns, and a share of the heads that divides them."""
+    assert seen
+    for full, local in seen:
+        assert local[-1] == full[-1] and full[-2] % local[-2] == 0, \
+            (full, local)
+
+
+@pytest.mark.parametrize("arch", UNEVEN_HEADS)
+def test_a_full_width_train_step_on_the_16x16_mesh(arch, head_splits):
+    """One train step at full width, cut to one layer-pattern period, on
+    meta tensors on the fake 256-rank mesh, batch = dp and one
+    microbatch: it runs, and q / k / v are split into whole heads."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch import dryrun
+    cfg = get_config(arch)
+    shape = ShapeSpec("one_row_a_rank", 128 + cfg.n_vision_tokens, 16,
+                      "train")
+    with dryrun.fake_group(256):
+        mesh = make_production_mesh(device="cpu")
+        fn, args, cfg, _ = dryrun.build_cell(arch, shape, mesh, depth=1)
+        assert cfg.grad_accum == 1
+        state, metrics = fn(*args)
+    assert set(metrics) >= {"loss", "ce", "grad_norm"}
+    _whole_heads(head_splits)
+
+
+def test_a_full_width_decode_step_on_the_2x16x16_mesh(head_splits):
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch import dryrun
+    shape = ShapeSpec("decode_1k", 1024, 32, "decode")
+    with dryrun.fake_group(512):
+        mesh = make_production_mesh(multi_pod=True, device="cpu")
+        fn, args, _, _ = dryrun.build_cell("qwen3-1.7b", shape, mesh,
+                                           depth=1)
+        logits, cache = fn(*args)
+    assert tuple(logits.shape) == (32, 1, get_config("qwen3-1.7b")
+                                   .vocab_size)
+    assert tuple(cache["k"].shape) == (1, 32, 1024, 8, 128)
+    _whole_heads(head_splits)

@@ -158,7 +158,9 @@ class TestNoJax:
                 "runtime/telemetry.py", "serve/__init__.py",
                 "serve/admission.py", "serve/scheduler.py",
                 "serve/streams.py", "serve/matfn.py", "launch/__init__.py",
-                "launch/matserve.py"} <= names
+                "launch/matserve.py", "analysis/__init__.py",
+                "analysis/roofline.py", "analysis/summarize.py",
+                "analysis/op_cost.py", "launch/dryrun.py"} <= names
 
     @pytest.mark.parametrize("sub", ["serve", "runtime", "launch"])
     def test_the_guards_cover_the_serving_packages(self, sub):
@@ -198,6 +200,23 @@ class TestNoJax:
         path = PKG.joinpath(*rel).with_suffix(".py")
         if not path.exists():
             path = PKG.joinpath(*rel, "__init__.py")
+        assert path in self.FILES
+        code = (f"import sys, importlib\nimportlib.import_module({module!r})"
+                f"\nbad = sorted(m for m in sys.modules if m.split('.')[0] "
+                f"in {FORBIDDEN!r})\nassert not bad, bad\n")
+        done = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                              env={"PYTHONPATH": str(ROOT / "src"),
+                                   "PATH": "/usr/bin:/bin"},
+                              capture_output=True, text=True, timeout=120)
+        assert done.returncode == 0, done.stderr
+
+    @pytest.mark.parametrize("module", [
+        "repro_torch.launch.dryrun", "repro_torch.analysis.summarize"])
+    def test_the_guards_cover_the_dry_run_modules(self, module):
+        """The dry run (``launch/dryrun.py`` and the ``analysis`` modules
+        it imports) is walked by the AST guard, and a fresh interpreter
+        imports it without jax or the reference."""
+        path = PKG.joinpath(*module.split(".")[1:]).with_suffix(".py")
         assert path in self.FILES
         code = (f"import sys, importlib\nimportlib.import_module({module!r})"
                 f"\nbad = sorted(m for m in sys.modules if m.split('.')[0] "
