@@ -5,13 +5,14 @@
 // stored once:
 //
 //   matmul_kernel        C = A @ B in f32. Replaces the reference's
-//                        `matmul_kernel` (src/repro/kernels/matmul.py,
-//                        launched by `matmul_pallas`). The reference walks K
-//                        as a sequential grid axis and carries the
-//                        accumulator in scratch between grid steps; blocks on
-//                        this card run in any order and share nothing, so the
-//                        K loop sits inside the block and the accumulator
-//                        never leaves registers.
+//   matmul_wide_kernel   `matmul_kernel` (src/repro/kernels/matmul.py,
+//                        launched by `matmul_pallas`): the wide kernel at
+//                        tile 128, matmul_kernel at tiles 64 and 32. The
+//                        reference walks K as a sequential grid axis and
+//                        carries the accumulator in scratch between grid
+//                        steps; blocks on this card run in any order and
+//                        share nothing, so the K loop sits inside the block
+//                        and the accumulator never leaves registers.
 //   square_whole_kernel  C = A @ A from one staged copy of the rows and
 //                        columns of A a block's tiles read, f32. Replaces
 //                        `square_kernel` (tier "whole" of `square_pallas`).
@@ -43,25 +44,31 @@
 //     step; the copy of step k + STAGES - 1 is in flight while step k
 //     computes, and one barrier per step hands a stage over. The K step and
 //     the stage count are compile-time (the REPRO_F32_TILE lines below; K3's
-//     kPanelBK / kPanelStages), so the inner loop unrolls whole.
-//   * A in its storage layout. K1's A tile is [TILE][BK + kPad] and K3's
-//     row panel [H][P + kPad], row-major as in memory, so the copy needs no
-//     transpose and can be asynchronous. A thread reads each of its rows
-//     kStepK = 4 k at a time, one 16-byte `ld.shared` per row, and each k's
-//     B row once per column chunk of 4.
+//     kPanelBK / kPanelStages), so the inner loop unrolls whole (the wide
+//     K1's in sub-steps of kWideSubK k: see its note).
+//   * A in its storage layout (K1 below tile 128, K3). K1's A tile is
+//     [TILE][BK + kPad] and K3's row panel [H][P + kPad], row-major as in
+//     memory, so the copy needs no transpose and can be asynchronous. A
+//     thread reads each of its rows kStepK = 4 k at a time, one 16-byte
+//     `ld.shared` per row, and each k's B row once per column chunk of 4.
 //   * Thread tiles sized for the shared-memory pipe. The rates measured on
 //     the card (PERF.md) fit a 16-byte `ld.shared` costing the SM four of
-//     its 128-byte wavefronts whatever the lanes share: a thread tile of
-//     R x C outputs reads R + C such words per 4 R C FMAs, so it keeps the
-//     FMA pipe fed only where 4 R C >= 16 (R + C). 8 x 8 sits at the
-//     balance; 4 x 4 got half the FMA rate, 2 x 2 a quarter. K1 takes 8 x 8 at tile 128 (256
-//     threads, two blocks per SM at 128 registers) and the wider 4 x 8 and
-//     2 x 4 at tiles 64 and 32 (128 threads; MatmulLayout). K3's 256
-//     threads in f32 are K slices of 4 x 8 thread tiles, each over the
-//     whole output tile and a share of every K step, their sums added
-//     through shared memory at the end of a tile (PanelLayout): a 32 x 64
-//     tile is four slices of 64 threads, where one 2 x 4 tiling of all 256
-//     threads read 6 words per 32 FMAs.
+//     its 128-byte wavefronts whatever the lanes share, and the SM issuing
+//     four warp FMAs a clock: per k a thread tile of R x C outputs reads
+//     R + C values, (R + C) / 4 such words, R + C wavefronts a warp, for
+//     R C FMAs, R C / 4 clocks of the SM, so at the full FMA rate the
+//     shared pipe is 4 (R + C) / (R C) loaded. 8 x 8 sits at the balance
+//     (16 wavefronts per 16 clocks, 100 %), with no headroom for latency,
+//     barriers or copies, and ran K1 at 58 % of the FMA peak; 4 x 4 got
+//     half the FMA rate, 2 x 2 a quarter. (The balance is not all that sets
+//     the rate: the instruction cache did too, the wide K1's note says.)
+//     K1 takes 16 x 8 at tile 128 (the wide kernel, 128 threads: 6 words
+//     per 128 FMAs, 75 %) and the wider 4 x 8 and 2 x 4 at tiles 64 and 32
+//     (128 threads; MatmulLayout). K3's 256 threads in f32 are K slices of
+//     4 x 8 thread tiles, each over the whole output tile and a share of
+//     every K step, their sums added through shared memory at the end of a
+//     tile (PanelLayout): a 32 x 64 tile is four slices of 64 threads,
+//     where one 2 x 4 tiling of all 256 threads read 6 words per 32 FMAs.
 //   * Warp tiles (FmaLayout). A warp's 32 lanes are 4 rows by 8 columns of
 //     threads and own one contiguous (4 R) x (8 C) block of the output:
 //     thread rows ly + 4 i, columns 8 V c + V lx. Bank arithmetic (4-byte
@@ -105,8 +112,11 @@
 
 namespace repro {
 
-constexpr int kThreads = 256;     // threads of K2, K3 and K1 at tile 128
+constexpr int kThreads = 256;     // threads of K3
 constexpr int kPad = 4;           // row padding of K1's A tiles, K3's panel
+constexpr int kWideTile = 128;    // K1's output tile on the wide kernel
+constexpr int kWideThreads = 128; // its threads: four warps of 64 x 64
+constexpr int kWideSubK = 8;      // k a trip of its unrolled FMA loop
 constexpr int kStepK = 4;         // k values read per 16-byte row load of A
 constexpr int kPanelBK = 32;      // K step of K3's column-tile ring
 constexpr int kPanelStages = 3;   // stages of K3's column-tile ring
@@ -221,12 +231,21 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
 // same (fma_smem_bytes, fma_panel_smem_bytes), and a CPU test evaluates the
 // formulas of FmaRing and FmaPanel as written here against it.
 
-// K1 (f32): STAGES stages, each the [TILE][BK + kPad] A tile and the
-// [BK][TILE] B tile of one K step.
+// K1 (f32) below tile 128: STAGES stages, each the [TILE][BK + kPad] A
+// tile and the [BK][TILE] B tile of one K step.
 template <int TILE, int BK, int STAGES> struct FmaRing {
   static constexpr int LDA = BK + kPad;
   static constexpr int STAGE = (TILE * LDA + BK * TILE) * 4;
   static constexpr int BYTES = STAGES * STAGE;
+};
+
+// K1 (f32) at tile 128, the wide kernel: two k-major A buffers
+// [BK][kWideTile + kPad] and STAGES stages of the [BK][kWideTile] B tile.
+template <int BK, int STAGES> struct WideRing {
+  static constexpr int LDA = kWideTile + kPad;
+  static constexpr int A_STAGE = BK * LDA * 4;
+  static constexpr int B_STAGE = BK * kWideTile * 4;
+  static constexpr int BYTES = 2 * A_STAGE + STAGES * B_STAGE;
 };
 
 // K3: the [H][P + kPad] row panel, kPanelStages stages of [kPanelBK][W]
@@ -297,15 +316,10 @@ template <int R_, int C_, int WM, int WN> struct FmaLayout {
   }
 };
 
-// K1's threads per tile: 8 x 8 outputs each at tile 128 (256 threads, two
-// blocks per SM at 128 registers); at tiles 64 and 32 the wider 4 x 8 and
+// matmul_kernel's threads per tile: at tiles 64 and 32 the wider 4 x 8 and
 // 2 x 4 thread tiles of 128 threads, whose shared loads per FMA are a third
-// fewer than 4 x 4's and 2 x 2's. (At tile 128, 8 x 16 in 128 threads took
-// 255 registers, ran 6-7 % faster at 4096^2 and 10 % slower at 3072^2,
-// where a third wave leaves blocks of four warps alone on their SMs;
-// PERF.md.)
+// fewer than 4 x 4's and 2 x 2's. (Tile 128 is the wide kernel's.)
 template <int TILE> struct MatmulLayout;
-template <> struct MatmulLayout<128> { using L = FmaLayout<8, 8, 4, 2>; };
 template <> struct MatmulLayout<64> { using L = FmaLayout<4, 8, 4, 1>; };
 template <> struct MatmulLayout<32> { using L = FmaLayout<2, 4, 4, 1>; };
 
@@ -426,6 +440,193 @@ matmul_kernel(const T* __restrict__ A, const T* __restrict__ B,
   }
   cp_async_wait<0>();
   fma_store<T, R, CN>(C + (long long)tr * N + tc, N, acc);
+}
+
+// ---------------------------------------------------------------------------
+// K1 at tile 128, the wide kernel: C[M,N] = A[M,K] @ B[K,N], f32
+// ---------------------------------------------------------------------------
+
+// A 128 x 128 output tile in kWideThreads = 128 threads: warp w owns the
+// 64 x 64 block at rows 64 (w / 2), columns 64 (w % 2); lane (ly, lx) =
+// (lane / 8, lane % 8) of it owns 16 x 8 outputs, rows 16 i + 4 ly + e and
+// columns 32 c + 4 lx + e (i < 4, c < 2, e < 4). Per k a thread reads its
+// 16 values of A and 8 of B as six 16-byte fragments for 128 FMAs: a
+// quarter fewer wavefronts per FMA than 8 x 8, which leaves the shared
+// pipe 75 % loaded at the full FMA rate.
+//
+//   * A staged k-major, [BK][LDA] with LDA = 128 + kPad, so one k's 16
+//     values of A are four 16-byte words, as B's 8 are two, and a thread
+//     holds only the fragments of the k it computes (a row-major A tile
+//     would keep 4 k of each of 16 rows live: 64 registers). cp.async
+//     cannot transpose, so A goes through registers, into the other of two
+//     A buffers (the one the FMAs of K step kt - 1 read; the next step's
+//     barrier hands it over): during K step kt a thread's BK / 4 16-byte
+//     global loads of step kt + 1 go out in parts, one part a sub-step, and
+//     each part is stored as 4-byte values at the start of the next
+//     sub-step (or after the last), so only a part's registers are live
+//     (8 at BK 32). BK stores a K step against 24 BK wavefronts of fragment
+//     loads: about 4 % more.
+//   * B through the cp.async ring of matmul_kernel, STAGES stages.
+//   * The K step in sub-steps of kWideSubK k: a loop that is not unrolled,
+//     each trip unrolled whole. A whole K step unrolled is 128 BK FMAs, 64
+//     KB of code at BK 32, past what the SM's instruction cache holds:
+//     fully unrolled this kernel ran at the 8 x 8 kernel's 55-59 % of the
+//     FMA peak with its fragment loads left out as with them (PERF.md).
+//   * Fragments a k ahead: the loads of k + 1 go out before the 128 FMAs of
+//     k (two register sets of 24), across sub-steps too, so shared-memory
+//     latency hides behind the thread's own FMAs even where a block's four
+//     warps are alone on their SM.
+//   * Bank arithmetic (4-byte banks, 32 of them). A fragment load is, over
+//     a warp, 4 (A) or 8 (B) distinct 16-byte addresses at one k, 64 or 128
+//     contiguous bytes: no conflict at any pitch. In the transposing store
+//     the lanes of a warp hold 16 consecutive rows (lane % 16) at two k
+//     four apart (4 (lane / 16)): word (4 (lane / 16) + e) LDA + lane % 16,
+//     and 4 LDA = 528 = 16 mod 32, so the 32 lanes hit 32 distinct banks
+//     (without the pad, 4 LDA = 0 mod 32: two-way conflicts). Their global
+//     loads read 32 contiguous bytes of each of 16 rows, whole sectors.
+//
+// Registers (`nvcc -Xptxas -v`, PERF.md): 207 at BK 32, 201 at BK 16, none
+// spilled, so two blocks share an SM; an earlier 8 x 16 trial with A
+// row-major and the K step unrolled whole took 255.
+//
+// Each output is one fp32 accumulator updated by fma over k in ascending
+// order, as in matmul_kernel: the two kernels give the same bits.
+template <typename T, int BK, int STAGES>
+__global__ void __launch_bounds__(kWideThreads, 2)
+matmul_wide_kernel(const T* __restrict__ A, const T* __restrict__ B,
+                   T* __restrict__ C, int M, int N, int K, long long sA,
+                   long long sB, long long sC) {
+  static_assert(sizeof(T) == 4, "the FMA K1 is the f32 kernel");
+  using Ring = WideRing<BK, STAGES>;
+  constexpr int TILE = kWideTile, THREADS = kWideThreads;
+  constexpr int LDA = Ring::LDA;
+  constexpr int A_STAGE = Ring::A_STAGE / 4;   // elements per A buffer
+  constexpr int B_STAGE = Ring::B_STAGE / 4;   // elements per B stage
+  constexpr int R = 16, CN = 8;                // a thread's outputs
+  constexpr int SUB = BK / kWideSubK;          // sub-steps a K step
+  constexpr int AV = TILE * BK / 4 / THREADS;  // A's 16-byte loads a step
+  constexpr int PART = AV / SUB;               // of them a sub-step
+  static_assert(THREADS == 128 && BK % kWideSubK == 0 && PART >= 1 &&
+                    AV % SUB == 0 && AV % 2 == 0,
+                "the wide kernel's copies");
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* As = reinterpret_cast<T*>(smem);   // [2][BK][LDA]
+  T* Bs = As + 2 * A_STAGE;             // [STAGES][BK][TILE]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const long long row0 = (long long)blockIdx.y * TILE;
+  const long long col0 = (long long)blockIdx.x * TILE;
+  A += blockIdx.z * sA + row0 * K;
+  B += blockIdx.z * sB + col0;
+  C += blockIdx.z * sC + row0 * N + col0;
+
+  // Stage s <- B's [BK x TILE] tile of K step k0.
+  auto stage_b = [&](int s, int k0) {
+    T* Bt = Bs + s * B_STAGE;
+    for (int v = tid; v < BK * TILE / 4; v += THREADS) {
+      const int r = v / (TILE / 4), c = (v % (TILE / 4)) * 4;
+      cp_async16(Bt + r * TILE + c, B + (long long)(k0 + r) * N + c);
+    }
+  };
+
+  // A's load j of a thread: row 16 warp + lane % 16 + 64 (j % 2), k
+  // 4 (lane / 16) + 8 (j / 2) .. + 3 of the K step; part p is loads
+  // p PART .. p PART + PART - 1.
+  Pack<T, 4> a_in[PART];
+  const T* a_src = A + (long long)(16 * warp + (lane & 15)) * K +
+                   4 * (lane >> 4);
+  T* a_dst = As + 4 * (lane >> 4) * LDA + 16 * warp + (lane & 15);
+  auto load_a = [&](int k0, int p) {
+#pragma unroll
+    for (int t = 0; t < PART; ++t) {
+      const int j = p * PART + t;
+      a_in[t] = *reinterpret_cast<const Pack<T, 4>*>(
+          a_src + (long long)(64 * (j & 1)) * K + k0 + 8 * (j >> 1));
+    }
+  };
+  auto store_a = [&](int buf, int p) {
+#pragma unroll
+    for (int t = 0; t < PART; ++t) {
+      const int j = p * PART + t;
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        a_dst[buf * A_STAGE + (8 * (j >> 1) + e) * LDA + 64 * (j & 1)] =
+            a_in[t].v[e];
+    }
+  };
+
+  const int k_tiles = K / BK;
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < k_tiles) stage_b(s, s * BK);
+    cp_async_commit();
+  }
+#pragma unroll 1
+  for (int p = 0; p < SUB; ++p) {
+    load_a(0, p);
+    store_a(0, p);
+  }
+
+  T acc[R][CN];
+  zero_acc<T, R, CN>(acc);
+  const int ly = lane >> 3, lx = lane & 7;
+  const int tr = 64 * (warp >> 1) + 4 * ly, tc = 64 * (warp & 1) + 4 * lx;
+  for (int kt = 0; kt < k_tiles; ++kt) {
+    // B's step kt has landed for this thread and A's buffer kt % 2 holds
+    // step kt; the barrier makes both everyone's and tells every thread
+    // that what step kt - 1 read is free again.
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    const int next = kt + STAGES - 1;
+    if (next < k_tiles) stage_b(next % STAGES, next * BK);
+    cp_async_commit();
+    const bool more = kt + 1 < k_tiles;
+    const int a_next = (kt + 1) & 1;
+
+    const T* a = As + (kt & 1) * A_STAGE + tr;
+    const T* b = Bs + (kt % STAGES) * B_STAGE + tc;
+    T af[2][R], bf[2][CN];
+    auto fragments = [&](int k, T(&ar)[R], T(&br)[CN]) {
+#pragma unroll
+      for (int i = 0; i < R / 4; ++i)
+        load_cvt<T, 4>(a + k * LDA + 16 * i, ar + 4 * i);
+#pragma unroll
+      for (int c = 0; c < CN / 4; ++c)
+        load_cvt<T, 4>(b + k * TILE + 32 * c, br + 4 * c);
+    };
+    fragments(0, af[0], bf[0]);
+#pragma unroll 1
+    for (int sub = 0; sub < SUB; ++sub) {
+      if (more) {
+        if (sub > 0) store_a(a_next, sub - 1);
+        load_a((kt + 1) * BK, sub);
+      }
+      const int k0 = sub * kWideSubK;
+      // the k whose fragments the sub-step's last k loads ahead: the next
+      // sub-step's first, or again the K step's last after the last
+      const int k_on = sub + 1 < SUB ? k0 + kWideSubK : BK - 1;
+#pragma unroll
+      for (int k = 0; k < kWideSubK; ++k) {
+        fragments(k + 1 < kWideSubK ? k0 + k + 1 : k_on, af[(k + 1) & 1],
+                  bf[(k + 1) & 1]);
+#pragma unroll
+        for (int i = 0; i < R; ++i)
+#pragma unroll
+          for (int j = 0; j < CN; ++j)
+            acc[i][j] = fma(af[k & 1][i], bf[k & 1][j], acc[i][j]);
+      }
+    }
+    if (more) store_a(a_next, SUB - 1);
+  }
+  cp_async_wait<0>();
+  T* c = C + (long long)tr * N + tc;
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int cc = 0; cc < CN / 4; ++cc)
+      store_cvt<T, T, 4>(c + (long long)(16 * (i / 4) + i % 4) * N + 32 * cc,
+                         &acc[i][4 * cc]);
 }
 
 // ---------------------------------------------------------------------------
@@ -674,11 +875,22 @@ template <typename T, int TILE, int BK, int STAGES>
 static int launch_matmul(const void* a, const void* b, void* c, int M, int N,
                          int K, long long sA, long long sB, long long sC,
                          int batch, cudaStream_t stream) {
-  const size_t smem = FmaRing<TILE, BK, STAGES>::BYTES;
-  auto kernel = matmul_kernel<T, TILE, BK, STAGES>;
+  void (*kernel)(const T*, const T*, T*, int, int, int, long long, long long,
+                 long long);
+  size_t smem;
+  int threads;
+  if constexpr (TILE == kWideTile) {
+    kernel = matmul_wide_kernel<T, BK, STAGES>;
+    smem = WideRing<BK, STAGES>::BYTES;
+    threads = kWideThreads;
+  } else {
+    kernel = matmul_kernel<T, TILE, BK, STAGES>;
+    smem = FmaRing<TILE, BK, STAGES>::BYTES;
+    threads = MatmulLayout<TILE>::L::THREADS;
+  }
   if (int err = allow_smem(kernel, smem)) return err;
   dim3 grid(N / TILE, M / TILE, batch);
-  kernel<<<grid, MatmulLayout<TILE>::L::THREADS, smem, stream>>>(
+  kernel<<<grid, threads, smem, stream>>>(
       static_cast<const T*>(a), static_cast<const T*>(b),
       static_cast<T*>(c), M, N, K, sA, sB, sC);
   return static_cast<int>(cudaGetLastError());
@@ -715,8 +927,9 @@ static int launch_square_panel(const void* a, void* c, int P, long long sA,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K1's instantiated (tile, K step) pairs and the ring stages of each;
-// kernels/matmul.py:F32_STAGES is the same table. The output is f32 whatever
+// K1's instantiated (tile, K step) pairs and the ring stages of each (of
+// B's ring alone at tile 128, the wide kernel's); kernels/matmul.py:
+// F32_STAGES is the same table. The output is f32 whatever
 // `out_acc` says (f32 is its own accumulation type).
 template <typename T>
 static int matmul_dispatch(const void* a, const void* b, void* c, int M, int N,
@@ -733,7 +946,7 @@ static int matmul_dispatch(const void* a, const void* b, void* c, int M, int N,
   REPRO_F32_TILE(64, 16, 4)
   REPRO_F32_TILE(64, 32, 2)
   REPRO_F32_TILE(128, 16, 4)
-  REPRO_F32_TILE(128, 32, 3)
+  REPRO_F32_TILE(128, 32, 4)
 #undef REPRO_F32_TILE
   return -1;
 }

@@ -101,10 +101,14 @@ WHOLE_F32 = {16: (4, 8, 16), 32: (8, 4, 4), 64: (8, 8, 4)}
 WHOLE_F32_MAX_PER_ROW = 32
 #: (tile, K step) pairs the f32 FMA K1 is instantiated for, and the ring
 #: stages of each (the ``REPRO_F32_TILE`` lines of csrc/gemm.cuh;
-#: ``fma_smem_bytes``).
+#: ``fma_smem_bytes``): at ``WIDE_TILE`` the stages of the wide kernel's B
+#: ring, whose A goes through two buffers of its own.
 F32_STAGES = {(32, 16): 4, (32, 32): 3, (64, 16): 4, (64, 32): 2,
-              (128, 16): 4, (128, 32): 3}
+              (128, 16): 4, (128, 32): 4}
 F32_BLOCKS = tuple(F32_STAGES)
+#: The f32 K1's tile on the wide kernel (``kWideTile`` of csrc/gemm.cuh,
+#: ``matmul_wide_kernel``): 16 x 8 outputs a thread over A staged k-major.
+WIDE_TILE = 128
 #: (panel height, column width) pairs the f32 FMA K3 is instantiated
 #: for (the ``REPRO_FMA_PANEL`` lines of csrc/gemm.cuh), and the K step and
 #: stages of the ring its column tiles stream through (``kPanelBK``,
@@ -182,10 +186,10 @@ FMA_WHOLE_BLOCK_NS = 330
 FMA_WHOLE_BLOCK_GBPS = 71
 FMA_SM_GFLOPS = 507
 
-# Default tile: 128 x 128 output tile per 256-thread block (an 8 x 8
-# register micro-tile per thread, 256 FMAs for sixteen 16-byte shared
-# loads), K step 32: at f32 a ring of 3 stages of 34 KB, so two blocks share
-# an SM.
+# Default tile: 128 x 128 output tile per 128-thread block (f32: the wide
+# kernel, a 16 x 8 register micro-tile per thread, 128 FMAs for six 16-byte
+# shared loads a k), K step 32: at f32 two 16.5 KB A buffers and a B ring of
+# 4 stages of 16 KB, 97 KB, so two blocks share an SM.
 # ``ops.pick_blocks`` drops to 64 / 32 tiles for problems too small to fill
 # the SMs with 128s.
 DEFAULT_BLOCK = (128, 128, 32)
@@ -409,13 +413,19 @@ def dmma_panel_smem_bytes(p: int, height: int) -> int:
 
 def fma_smem_bytes(tile: int, block_k: int) -> int:
     """Dynamic shared-memory bytes the f32 FMA K1 asks for at a square
-    ``tile`` and K step ``block_k``: the ``FmaRing`` formula of
-    csrc/gemm.cuh (a test evaluates it against this one). Each of the
-    pair's ``F32_STAGES`` stages holds the [tile x K step] A tile, rows
-    padded by ``SMEM_PAD``, and the [K step x tile] B tile. A pair that is
-    not instantiated raises ``KeyError``."""
-    stage = (tile * (block_k + SMEM_PAD) + block_k * tile) * 4
-    return F32_STAGES[(tile, block_k)] * stage
+    ``tile`` and K step ``block_k`` (a test evaluates the formulas of
+    csrc/gemm.cuh against these). At ``WIDE_TILE`` the ``WideRing``
+    formula: two k-major [K step x tile] A buffers, rows padded by
+    ``SMEM_PAD``, and the pair's ``F32_STAGES`` stages of the [K step x
+    tile] B tile. Below it the ``FmaRing`` formula: ``F32_STAGES`` stages,
+    each the [tile x K step] A tile, rows padded by ``SMEM_PAD``, and the
+    [K step x tile] B tile. A pair that is not instantiated raises
+    ``KeyError``."""
+    stages = F32_STAGES[(tile, block_k)]
+    b_stage = block_k * tile * 4
+    if tile == WIDE_TILE:
+        return 2 * block_k * (tile + SMEM_PAD) * 4 + stages * b_stage
+    return stages * (tile * (block_k + SMEM_PAD) * 4 + b_stage)
 
 
 def panel_width(p: int) -> int:

@@ -16,7 +16,7 @@ import torch
 
 from repro_torch.core import batched_matpow, matpow_binary
 from repro_torch.kernels import attention_kernels as A
-from repro_torch.kernels import autotune, error_budget, ops, ref
+from repro_torch.kernels import DENSE_BUDGET, autotune, error_budget, ops, ref
 from repro_torch.kernels import matmul_kernels as K
 
 pytestmark = pytest.mark.gpu
@@ -394,6 +394,38 @@ def test_f32_matmul_stacked_and_deep(cuda, tile, bk, form):
     _close(K.matmul_cuda(a, b, **kw), K.matmul_plain(a, b, **kw),
            torch.float32)
     assert K.launch_counts()["matmul"] == 1
+
+
+@pytest.mark.parametrize("bk", [16, 32])
+@pytest.mark.parametrize("a_shape,b_shape", [
+    pytest.param((2048, 2048), (2048, 2048), id="leaf-2048"),
+    pytest.param((4096, 4096), (4096, 4096), id="local-4096"),
+    pytest.param((2, 1536, 1536), (1536, 1536), id="stack-1536"),
+    pytest.param((1024, 2048), (2048, 4096), id="rect")])
+def test_f32_tile128_is_tile64_bit_for_bit(cuda, a_shape, b_shape, bk):
+    """K1 f32 at tile 128 (the wide kernel) at the shapes the benchmark's
+    f32 cells run it at (the 2048^2 Strassen leaves of an 8192 operand, the
+    4096^2 local products of a 2 x 2 mesh), a stack against a broadcast B
+    and a rectangular product: the same bits as tile 64, since every output
+    is the same chain of fp32 FMAs over ascending k, and within the dense
+    budget of the plain version."""
+    a = _randn(a_shape, torch.float32, cuda, 40)
+    b = _randn(b_shape, torch.float32, cuda, 41)
+    kw = dict(block_m=128, block_n=128, block_k=bk)
+    stack = a_shape[0] if len(a_shape) == 3 else 1
+    wide = K.matmul_cuda(a, b, **kw)
+    assert K.last_launch_snapshot() == dict(
+        kernel="matmul", tile=128,
+        blocks=a_shape[-2] // 128 * (b_shape[-1] // 128) * stack)
+    assert K.launch_counts()["matmul"] == 1
+    narrow = K.matmul_cuda(a, b, **B64)
+    assert K.last_launch_snapshot()["tile"] == 64
+    assert K.launch_counts()["matmul"] == 2
+    torch.cuda.synchronize()
+    assert torch.equal(wide, narrow)
+    rtol, atol = DENSE_BUDGET["float32"]
+    assert torch.allclose(wide, K.matmul_plain(a, b, **kw), rtol=rtol,
+                          atol=atol)
 
 
 def test_f32_refuses_a_k_step_it_does_not_instantiate(cuda):

@@ -661,14 +661,18 @@ class TestFmaContract:
         assert consts["kPanelBK"] == K.FMA_PANEL_BK
         assert consts["kPanelStages"] == K.FMA_PANEL_STAGES
         assert consts["kThreads"] == K.FMA_THREADS == 256
+        assert consts["kWideTile"] == K.WIDE_TILE == max(K.KERNEL_TILES)
 
     @pytest.mark.parametrize("tile,bk", F32_PAIRS)
     def test_k1_footprint_is_the_ring_formula(self, tile, bk):
-        ring = cuh_struct(GEMM.read_text(), "FmaRing", TILE=tile, BK=bk,
-                          STAGES=K.F32_STAGES[(tile, bk)])
+        """Tile 128: the wide kernel's ``WideRing`` (A k-major, each k's
+        row padded); below it ``FmaRing`` (A row-major, each row padded)."""
+        wide = tile == K.WIDE_TILE
+        ring = cuh_struct(GEMM.read_text(), "WideRing" if wide else "FmaRing",
+                          TILE=tile, BK=bk, STAGES=K.F32_STAGES[(tile, bk)])
         assert K.fma_smem_bytes(tile, bk) == ring["BYTES"] == \
             K.smem_footprint((tile, tile, bk))
-        assert ring["LDA"] == bk + K.SMEM_PAD
+        assert ring["LDA"] == (tile if wide else bk) + K.SMEM_PAD
         # every ring lets two blocks share an SM
         assert 2 * (ring["BYTES"] + K.SMEM_PER_RESIDENT_BLOCK) <= K.SMEM_PER_SM
 
@@ -692,10 +696,16 @@ class TestFmaContract:
 
     def test_the_fma_formula_reader_sees_a_changed_formula(self):
         """The C++ formulas are read from the source, not restated: a ring
-        without the A pad, a panel without its row pad, evaluate to other
-        sizes."""
+        without the A pad (the wide kernel's or the others'), a panel
+        without its row pad, evaluate to other sizes."""
         src = GEMM.read_text().replace("LDA = BK + kPad;", "LDA = BK;", 1)
-        assert cuh_struct(src, "FmaRing", TILE=128, BK=32, STAGES=3)[
+        assert cuh_struct(src, "FmaRing", TILE=64, BK=32,
+                          STAGES=K.F32_STAGES[(64, 32)])[
+            "BYTES"] != K.fma_smem_bytes(64, 32)
+        src = GEMM.read_text().replace("LDA = kWideTile + kPad;",
+                                       "LDA = kWideTile;", 1)
+        assert cuh_struct(src, "WideRing", BK=32,
+                          STAGES=K.F32_STAGES[(128, 32)])[
             "BYTES"] != K.fma_smem_bytes(128, 32)
         src = GEMM.read_text().replace("(P + kPad) * 4", "P * 4", 1)
         assert cuh_struct(src, "FmaPanel", H=64, W=64, P=512)[

@@ -280,6 +280,7 @@ class TestBuildLayout:
         # K1 and K3 ask for registers that let two blocks share an SM
         for kernel, bounds in (("matmul_kernel",
                                 "MatmulLayout<TILE>::L::THREADS, 2"),
+                               ("matmul_wide_kernel", "kWideThreads, 2"),
                                ("square_whole_kernel",
                                 "WholeFma<TILE, R, C, KS>::THREADS"),
                                ("square_panel_kernel",

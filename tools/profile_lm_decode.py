@@ -13,7 +13,8 @@ the host clock (one synchronise at the end), then the same number under
 busy ms a step (the time of its kernels and copies summed, operators'
 rows left out, which repeat their kernels') and its share of the step;
 K1's device ms a step (the kernels ``matmul_tc_kernel`` /
-``matmul_kernel``, launched through ``ops.dense_matmul``) and its share of
+``matmul_kernel`` / ``matmul_wide_kernel``, launched through
+``ops.dense_matmul``) and its share of
 the busy time; the top kernels by device time and the top host-side
 operators by self CPU time. Then the card's name and power limit. Needs a
 CUDA device and ``nvcc``; imports ``repro_torch`` only.
@@ -36,7 +37,8 @@ from repro_torch import configs, models  # noqa: E402
 from repro_torch.models import model as model_lib  # noqa: E402
 from repro_torch.serve import engine  # noqa: E402
 
-K1_KERNELS = ("matmul_tc_kernel", "matmul_kernel", "matmul_dmma_kernel")
+K1_KERNELS = ("matmul_tc_kernel", "matmul_kernel", "matmul_wide_kernel",
+              "matmul_dmma_kernel")
 
 
 def main(argv=None) -> int:

@@ -13,10 +13,11 @@ ending in a synchronise), then one step under ``torch.profiler``. Prints
 one JSON line: host ms a step, tokens/s, peak GB allocated; the device's
 busy ms in the profiled step (its kernels and copies summed, operators'
 rows left out) and its share of the step; K1's device ms
-(``matmul_tc_kernel`` / ``matmul_kernel``: every projection's forward,
-recomputation, dx and dw) and its share of the busy time, with its launch
-count; the device ms of copies and casts (the transposing copies
-``ops.matmul`` makes among them); the top kernels by device time
+(``matmul_tc_kernel`` / ``matmul_kernel`` / ``matmul_wide_kernel``:
+every projection's forward, recomputation, dx and dw) and its share of
+the busy time, with its launch count; the device ms of copies and
+casts (the transposing copies ``ops.matmul`` makes among them); the top
+kernels by device time
 and the top host-side operators by self CPU time (a layer's recomputation
 runs inside the backward of its first product to need a saved tensor, so
 that ``_Dense2dBackward`` row holds the Python time of the recomputed
@@ -47,7 +48,8 @@ from repro_torch.kernels import matmul_kernels as K  # noqa: E402
 from repro_torch.train.train_step import (init_train_state,  # noqa: E402
                                           make_train_step)
 
-K1_KERNELS = ("matmul_tc_kernel", "matmul_kernel", "matmul_dmma_kernel")
+K1_KERNELS = ("matmul_tc_kernel", "matmul_kernel", "matmul_wide_kernel",
+              "matmul_dmma_kernel")
 
 
 def main(argv=None) -> int:
